@@ -1,0 +1,169 @@
+"""Model wrappers and the registry (reduced port of
+``diart_tpu/models/base.py``: the ``tpu/pyannet`` and ``tpu/xvector``
+registry entries, under the JAX package's names).
+
+Weights come from a seeded ``torch.Generator`` (the seed defaults to a
+CRC of the registry name) or, with ``flax_params=``, from the JAX
+package's parameter tree through :func:`diart_tpu_torch.weights.load_flax_params`.
+The wrappers default to ``device="cuda"`` and raise without a GPU.
+"""
+
+from __future__ import annotations
+
+import zlib
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..ops._build import require_cuda
+from .common import QuantizableConv
+from .embedding import XVectorSincNet
+from .lstm import BiLSTM
+from .segmentation import PyanNet
+
+__all__ = ["EmbeddingModel", "SegmentationModel", "init_weights"]
+
+
+def _dtype_kwarg(kwargs) -> torch.dtype:
+    return torch.bfloat16 if kwargs.get("dtype", "f32") in ("bf16", "bfloat16", torch.bfloat16) else torch.float32
+
+
+def _seed_from_name(name: str) -> int:
+    return zlib.crc32(name.encode("utf-8")) % (2**31)
+
+
+def _check_kwargs(name: str, kwargs: dict, known: tuple) -> None:
+    unknown = set(kwargs) - set(known)
+    if unknown:
+        raise TypeError(f"{name}: unknown arguments {sorted(unknown)}; known: {list(known)}")
+
+
+def _orthogonal(rows: int, cols: int, gen: torch.Generator) -> torch.Tensor:
+    a = torch.randn(rows, cols, generator=gen)
+    q, r = torch.linalg.qr(a)
+    return q * torch.sign(torch.diagonal(r))[None, :]
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Random init from ``gen``: LeCun-normal matrices and convolutions, zero
+    biases, orthogonal recurrent weights (as the flax initializers). SincNet
+    cutoffs keep their mel init; norms their identity init (scale 1, bias 0,
+    mean 0, var 1)."""
+    for sub in module.modules():
+        if isinstance(sub, (nn.Linear, nn.Conv1d, QuantizableConv)):
+            fan_in = sub.weight[0].numel()
+            sub.weight.copy_(torch.randn(sub.weight.shape, generator=gen) / fan_in**0.5)
+            sub.bias.zero_()
+        elif isinstance(sub, BiLSTM):
+            for layer in range(sub.num_layers):
+                w_ih = getattr(sub, f"l{layer}_w_ih")
+                w_ih.copy_(torch.randn(w_ih.shape, generator=gen) / w_ih.shape[-1] ** 0.5)
+                w_hh = getattr(sub, f"l{layer}_w_hh")
+                for d in range(2):
+                    w_hh[d].copy_(_orthogonal(*w_hh.shape[1:], gen))
+                getattr(sub, f"l{layer}_b").zero_()
+    return module
+
+
+def _build(module: nn.Module, name: str, device, seed: Optional[int], flax_params) -> nn.Module:
+    if flax_params is not None:
+        from ..weights import load_flax_params
+
+        load_flax_params(module, flax_params)
+    else:
+        gen = torch.Generator().manual_seed(_seed_from_name(name) if seed is None else int(seed))
+        init_weights(module, gen)
+    return module.to(device).eval().requires_grad_(False)
+
+
+class SegmentationModel:
+    """waveform (B, 1, samples) -> activations (B, frames, speakers)."""
+
+    KNOWN = ("tpu/pyannet",)
+
+    def __init__(self, module: PyanNet, name: str, device):
+        self.module = module
+        self.name = name
+        self.device = torch.device(device)
+
+    @staticmethod
+    def from_registry(
+        name: str, device="cuda", seed: Optional[int] = None, flax_params=None, **kwargs
+    ) -> "SegmentationModel":
+        """``tpu/pyannet`` with the JAX registry's size arguments
+        (num_speakers, lstm_hidden, lstm_layers, linear_dims, dtype)."""
+        if name not in SegmentationModel.KNOWN:
+            raise ValueError(
+                f"unknown segmentation registry name {name!r}; known: {list(SegmentationModel.KNOWN)}"
+            )
+        _check_kwargs(name, kwargs, ("num_speakers", "lstm_hidden", "lstm_layers", "linear_dims", "dtype"))
+        device = require_cuda(device)
+        module = PyanNet(
+            num_speakers=kwargs.get("num_speakers", 4),
+            lstm_hidden=kwargs.get("lstm_hidden", 128),
+            lstm_layers=kwargs.get("lstm_layers", 4),
+            linear_dims=tuple(kwargs.get("linear_dims", (128, 128))),
+            compute_dtype=_dtype_kwarg(kwargs),
+        )
+        return SegmentationModel(_build(module, name, device, seed, flax_params), name, device)
+
+    @property
+    def num_speakers(self) -> int:
+        return self.module.num_speakers
+
+    @property
+    def sample_rate(self) -> int:
+        return self.module.sample_rate
+
+    def num_frames(self, num_samples: int) -> int:
+        return self.module.num_frames(num_samples)
+
+    @torch.no_grad()
+    def __call__(self, waveform: torch.Tensor) -> torch.Tensor:
+        return self.module(waveform)
+
+
+class EmbeddingModel:
+    """Waveform + per-speaker weights -> embeddings, with a trunk/head split."""
+
+    KNOWN = ("tpu/xvector",)
+
+    def __init__(self, module: XVectorSincNet, name: str, device):
+        self.module = module
+        self.name = name
+        self.device = torch.device(device)
+
+    @staticmethod
+    def from_registry(
+        name: str, device="cuda", seed: Optional[int] = None, flax_params=None, **kwargs
+    ) -> "EmbeddingModel":
+        """``tpu/xvector`` with the JAX registry's size arguments
+        (embedding_dim, dtype)."""
+        if name not in EmbeddingModel.KNOWN:
+            raise ValueError(
+                f"unknown embedding registry name {name!r}; known: {list(EmbeddingModel.KNOWN)}"
+            )
+        _check_kwargs(name, kwargs, ("embedding_dim", "dtype"))
+        device = require_cuda(device)
+        module = XVectorSincNet(
+            embedding_dim=kwargs.get("embedding_dim", 512), compute_dtype=_dtype_kwarg(kwargs)
+        )
+        return EmbeddingModel(_build(module, name, device, seed, flax_params), name, device)
+
+    @property
+    def embedding_dim(self) -> int:
+        return self.module.embedding_dim
+
+    @property
+    def sample_rate(self) -> int:
+        return self.module.sample_rate
+
+    @torch.no_grad()
+    def trunk(self, waveform: torch.Tensor) -> torch.Tensor:
+        return self.module.trunk(waveform)
+
+    @torch.no_grad()
+    def head(self, frames: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+        return self.module.head(frames, weights)
