@@ -6,20 +6,26 @@ Run from the repository root with no arguments (``python3 chip_smoke.py``);
 
 Phases (any failure exits non-zero):
 
-1. Build both hand-written kernels (``diart_tpu_torch/csrc/*.cu``, one
+1. Build the four hand-written kernels (``diart_tpu_torch/csrc/*.cu``, one
    ``nvcc`` each, in parallel) and print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path with 64 streams: the LSTM sweep at T=293,
-   H=128 (f32 and bf16 streams), the stats head at X (64, 279, 512)
-   (bf16 and f32), W (512, 1500), 4 speakers. Print each error beside its
-   tolerance and the kernel / plain / library times (CUDA events).
-3. Drive the full-width engine (``tpu/pyannet`` 4x128 + ``tpu/xvector``
-   512/1500 with a bf16 trunk, 20 global speakers, 5 s windows, 0.5 s
-   hops) for 64 streams over 14 hops of int16 audio: warm-up, running
-   hops, one paused stream, one slot reset. Check shapes, finiteness and
-   that each kernel ran on every hop (launch counters set to 0 just before
-   and read just after). Compare ``probe_frame_scores`` with the same
-   engine on the CPU for 2 streams, and time the step.
+   shapes of the main paths with 64 streams: the LSTM sweep at T=293,
+   H=128 (f32 and bf16 streams); the stats head at X (64, 279, 512)
+   (bf16 and f32), W (512, 1500), 4 speakers; the attention statistics at
+   x (64, 501, 1536), hidden (64, 501, 128), 4 speakers (bf16 and f32);
+   the SE-Res2Block at (64, 501, 512), scale 8, dilations 2, 3, 4 (bf16
+   and f32), with every stage of its stage mode and other batch sizes.
+   Print each error beside its tolerance and the kernel / plain / library
+   times (CUDA events) and bounds.
+3. Drive each full-width engine for 64 streams over 14 hops of int16
+   audio (warm-up, running hops, one paused stream, one slot reset):
+   ``tpu/pyannet`` 4x128 + ``tpu/xvector`` 512/1500, then ``tpu/pyannet``
+   + ``tpu/ecapa`` 512/1536/192 with its mel frame ring; bf16 embedding
+   trunks, 20 global speakers, 5 s windows, 0.5 s hops. Check shapes,
+   finiteness and that each kernel of the path ran on every hop (launch
+   counters set to 0 just before and read just after). Compare each with
+   the same engine on the CPU for 2 streams (``probe_frame_scores`` and
+   12 f32 hops with clustering), and time and profile the step.
 4. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 The script imports only the port (never jax or diart_tpu) and exits
@@ -41,6 +47,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # tensor-core bf16; f32 outside the tensor cores
 T_LSTM, B, H = 293, 64, 128
 T_EMB, C_IN, C_OUT, S = 279, 512, 1500, 4
+T_ECAPA, C_ECAPA, C_MFA, H_ATT, RES2_SCALE, SE_HIDDEN = 501, 512, 1536, 128, 8, 128
 HOPS, WARMUP_HOPS = 14, 10
 
 
@@ -171,6 +178,189 @@ def check_stats(dtype, gen):
                 library_ms=None)
 
 
+def check_attn(dtype, gen):
+    """Attention statistics at the ECAPA head: x (B, 501, 1536), hidden
+    (B, 501, 128), 4 speakers."""
+    import torch
+    from diart_tpu_torch.ops import attn_stats
+
+    dev = "cuda"
+    x = torch.randn(B, T_ECAPA, C_MFA, generator=gen).to(dev, dtype)
+    hidden = torch.tanh(torch.randn(B, T_ECAPA, H_ATT, generator=gen)).to(dev)
+    w2 = (torch.randn(H_ATT, C_MFA, generator=gen) * H_ATT**-0.5).to(dev)
+    b2 = (torch.randn(C_MFA, generator=gen) * 0.1).to(dev)
+    wt = torch.sigmoid(torch.randn(B, S, T_ECAPA, generator=gen)).to(dev)
+    args = (x, hidden, w2, b2, wt)
+    got = attn_stats.fused_attentive_stats(*args)
+    want = attn_stats.attentive_stats_reference(*args)
+    torch.cuda.synchronize()
+    # the same f32 arithmetic (bf16 x is read exactly); only the order of
+    # the f32 sums and the online softmax's rescaling differ — relative to
+    # each output's scale
+    err = max((g - r).abs().max().item() for g, r in zip(got, want))
+    scale_ref = max(r.abs().max().item() for r in want)
+    tol = 1e-5 * max(scale_ref, 1.0)
+    kind = "f32" if dtype == torch.float32 else "bf16"
+    ms = time_ms(lambda: attn_stats.fused_attentive_stats(*args), 20)
+    plain_ms = time_ms(lambda: attn_stats.attentive_stats_reference(*args), 5)
+    nbytes = x.numel() * x.element_size() + sum(t.numel() * 4 for t in (hidden, w2, b2, wt))
+    nbytes += 3 * B * S * C_MFA * 4
+    flops = 2.0 * B * T_ECAPA * H_ATT * C_MFA + 6.0 * B * S * T_ECAPA * C_MFA
+    bms, by = bound_ms(nbytes, flops, "f32")  # the logits are an f32 product
+    log(
+        f"attn_stats[{kind}] x=({B},{T_ECAPA},{C_MFA}) hidden=({B},{T_ECAPA},{H_ATT}) S={S}: "
+        f"max_abs_err={err:.3e} (tol {tol:.3e} = 1e-5 x max(1, max|ref| {scale_ref:.2f})) "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.5f} ({by})"
+    )
+    if not err <= tol:
+        raise AssertionError(f"attn_stats[{kind}] disagrees with its plain version: {err} > {tol}")
+    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None)
+
+
+def res2_params(gen, dev):
+    """Unit-gain SE-Res2Block parameters at the ECAPA geometry (0.5/sqrt(fan_in)
+    weight scales, as tests/test_pallas_res2.py: larger random weights make
+    the 7-group cascade amplify rounding noise and read as a kernel fault)."""
+    import torch
+
+    n = lambda *s: torch.randn(*s, generator=gen)
+    mk = lambda *s: n(*s) * (0.5 / s[-2] ** 0.5)
+    c, width, groups = C_ECAPA, C_ECAPA // RES2_SCALE, RES2_SCALE - 1
+    params = (
+        mk(c, c), 0.1 * n(c), 1 + 0.1 * n(c), 0.1 * n(c),
+        n(groups, 3, width, width) * (0.5 / (3 * width) ** 0.5),
+        0.1 * n(groups, width), 1 + 0.1 * n(groups, width), 0.1 * n(groups, width),
+        mk(c, c), 0.1 * n(c), 1 + 0.1 * n(c), 0.1 * n(c),
+        mk(c, SE_HIDDEN), 0.1 * n(SE_HIDDEN), mk(SE_HIDDEN, c), 0.1 * n(c),
+    )
+    return tuple(p.to(dev) for p in params)
+
+
+# bf16: the kernel and the plain version round at the same points, but an
+# f32 sum in another order now and then flips one bf16 rounding, one ulp
+# (<= 2**-7 of the value): max error within 2**-6 of the output's largest
+# magnitude. Such flips are rare, so the mean error stays far below 2**-12
+# of the mean magnitude of what the block computes (the output less the
+# residual x; for a stage, its output). A kernel that skips one of the
+# oracle's rounding points (z1, chunk + y, y, z2, the gate, z2 * gate)
+# moves a few percent of the outputs by an ulp, and its mean error exceeds
+# that limit: check_res2 holds a plain block with z2 * gate unrounded to
+# it and requires it to fail. f32: summation order only, max error within
+# 1e-4 of the output's scale.
+RES2_TOL = {"bf16": (2.0**-6, 2.0**-12), "f32": (1e-4, None)}
+
+
+def res2_unrounded_gate(x, params, dilation):
+    """The plain block with one rounding point skipped (``z2 * gate`` kept
+    in f32 before the residual sum): a kernel fault the bf16 check must
+    catch."""
+    import torch
+    from diart_tpu_torch.ops import se_res2
+
+    dt = x.dtype
+    w2, b2, a2, c2, ws1, bs1, ws2, bs2 = params[8:]
+    cat = se_res2.se_res2_stage_reference(x, params, dilation, RES2_SCALE - 1)
+    z2 = (torch.relu(cat.float() @ w2.to(dt).float() + b2) * a2 + c2).to(dt)
+    s = torch.relu(z2.float().mean(dim=1) @ ws1 + bs1)
+    gate = torch.sigmoid(s @ ws2 + bs2).to(dt)
+    return (x.float() + z2.float() * gate.float()[:, None, :]).to(dt)
+
+
+def check_res2(dtype, gen):
+    """The SE-Res2Block at (B, 501, 512), dilations 2, 3, 4; every stage of
+    the stage mode; the full block and the concat at batch 1, 2, 3, 8."""
+    import torch
+    from diart_tpu_torch.ops import se_res2
+
+    dev = "cuda"
+    kind = "f32" if dtype == torch.float32 else "bf16"
+    rel_max, rel_mean = RES2_TOL[kind]
+    params = res2_params(gen, dev)
+    ops = se_res2.kernel_operands(params, dtype)  # laid out once, as the model does
+    x = torch.randn(B, T_ECAPA, C_ECAPA, generator=gen).to(dev, dtype)
+
+    failures, means = [], []
+
+    def held(got, want, what, residual=None):
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        tol = rel_max * max(want.float().abs().max().item(), 1.0)
+        ok = bool(torch.isfinite(got.float()).all()) and err <= tol
+        if not ok:
+            failures.append(f"{what}: max {err:.3e} > {tol:.3e}")
+        if rel_mean is not None:
+            computed = want.float() if residual is None else want.float() - residual.float()
+            mean, mean_tol = diff.mean().item(), rel_mean * computed.abs().mean().item()
+            means.append((mean, mean_tol))
+            if not mean <= mean_tol:
+                failures.append(f"{what}: mean {mean:.3e} > {mean_tol:.3e}")
+        return err, tol
+
+    errs, stage_errs = {}, []
+    for d in (2, 3, 4):
+        got = se_res2.fused_se_res2_block(x, ops, d)
+        want = se_res2.se_res2_block_reference(x, *params, d)
+        torch.cuda.synchronize()
+        errs[d] = held(got, want, f"block d={d}", residual=x)
+        for stage in range(RES2_SCALE):
+            got = se_res2.se_res2_staged(x, ops, d, stage)
+            want = se_res2.se_res2_stage_reference(x, params, d, stage)
+            stage_errs.append(held(got, want, f"stage {stage} d={d}")[0])
+    for batch in (1, 2, 3, 8):
+        xb = x[:batch].contiguous()
+        held(se_res2.fused_se_res2_block(xb, params, 3), se_res2.se_res2_block_reference(xb, *params, 3),
+             f"block B={batch}", residual=xb)
+        held(se_res2.se_res2_staged(xb, params, 3, RES2_SCALE - 1),
+             se_res2.se_res2_stage_reference(xb, params, 3, RES2_SCALE - 1), f"concat B={batch}")
+    if failures:
+        raise AssertionError(f"se_res2[{kind}] disagrees with its plain version: " + "; ".join(failures))
+    mutant = None
+    if rel_mean is not None:  # the mean-error limit must catch a skipped rounding point
+        want = se_res2.se_res2_block_reference(x, *params, 2).float()
+        bad = res2_unrounded_gate(x, params, 2).float()
+        mutant = ((bad - want).abs().mean().item(), rel_mean * (want - x.float()).abs().mean().item())
+        log(f"  se_res2[{kind}] a plain block with z2 * gate unrounded: mean abs err {mutant[0]:.3e} "
+            f"(tol {mutant[1]:.3e})")
+        if not mutant[0] > mutant[1]:
+            raise AssertionError(f"se_res2[{kind}]: the mean-error check does not catch a skipped rounding")
+    err = max(e for e, _ in errs.values())
+    tol = max(t for _, t in errs.values())
+    worst_mean = max(means, key=lambda m: m[0] / m[1]) if means else None
+    ms = time_ms(lambda: se_res2.fused_se_res2_block(x, ops, 2), 20)
+    plain_ms = time_ms(lambda: se_res2.se_res2_block_reference(x, *params, 2), 5)
+    elt = x.element_size()
+    groups, width = RES2_SCALE - 1, C_ECAPA // RES2_SCALE
+    nbytes = 2 * x.numel() * elt + (2 * C_ECAPA * C_ECAPA + groups * 3 * width * width) * elt
+    nbytes += 4 * (9 * C_ECAPA + 3 * groups * width + 2 * C_ECAPA * SE_HIDDEN + SE_HIDDEN)
+    flops = 2.0 * B * T_ECAPA * (2 * C_ECAPA * C_ECAPA + groups * 3 * width * width)
+    flops += 2.0 * B * 2 * C_ECAPA * SE_HIDDEN
+    bms, by = bound_ms(nbytes, flops, kind)
+    # the stage mode's longest run: z1 and the whole cascade (the concat)
+    last = RES2_SCALE - 1
+    stage_ms = time_ms(lambda: se_res2.se_res2_staged(x, ops, 2, last), 20)
+    stage_plain_ms = time_ms(lambda: se_res2.se_res2_stage_reference(x, params, 2, last), 5)
+    stage_bytes = 2 * x.numel() * elt + (C_ECAPA * C_ECAPA + groups * 3 * width * width) * elt
+    stage_bytes += 4 * (3 * C_ECAPA + 3 * groups * width)
+    stage_flops = 2.0 * B * T_ECAPA * (C_ECAPA * C_ECAPA + groups * 3 * width * width)
+    stage_bms, stage_by = bound_ms(stage_bytes, stage_flops, kind)
+    log(
+        f"se_res2[{kind}] x=({B},{T_ECAPA},{C_ECAPA}) scale {RES2_SCALE}: block max_abs_err "
+        + ", ".join(f"d={d} {e:.3e} (tol {t:.3e})" for d, (e, t) in errs.items())
+        + f"; {len(stage_errs)} stages max_abs_err={max(stage_errs):.3e}; batch 1/2/3/8 ok; "
+        + (f"mean abs err, worst against its tol: {worst_mean[0]:.3e} (tol {worst_mean[1]:.3e} = "
+           f"2^-12 x mean|computed|); " if worst_mean else "")
+        + f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.5f} ({by}); "
+        f"stage {last} kernel_ms={stage_ms:.4f} plain_ms={stage_plain_ms:.4f} "
+        f"bound_ms={stage_bms:.5f} ({stage_by})"
+    )
+    stage = dict(max_abs_err=max(stage_errs), stages_checked=len(stage_errs), ms=stage_ms,
+                 plain_ms=stage_plain_ms, bound_ms=stage_bms, bound_by=stage_by)
+    return dict(max_abs_err=err, tol=tol, worst_mean_err=worst_mean, unrounded_gate_mean_err=mutant,
+                ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=None, stage=stage)
+
+
 # --------------------------------------------------------------------- #
 def make_audio(rng, hops, batch, step):
     """int16 PCM: noise bursts of per-stream loudness, so windows differ."""
@@ -181,31 +371,64 @@ def make_audio(rng, hops, batch, step):
     return pcm.reshape(batch, hops, step).transpose(1, 0, 2).copy()  # (hops, B, step)
 
 
-def build_engine(device, batch, seg_dtype="f32", emb_dtype="bf16", precision=None):
+EMBEDDINGS = {"xvector": "tpu/xvector", "ecapa": "tpu/ecapa"}
+
+
+def build_engine(device, batch, emb="xvector", seg_dtype="f32", emb_dtype="bf16", precision=None):
     from diart_tpu_torch import EmbeddingModel, MultiStreamEngine, SegmentationModel
 
     seg = SegmentationModel.from_registry("tpu/pyannet", device=device, seed=0, dtype=seg_dtype)
-    emb = EmbeddingModel.from_registry("tpu/xvector", device=device, seed=1, dtype=emb_dtype)
+    model = EmbeddingModel.from_registry(EMBEDDINGS[emb], device=device, seed=1, dtype=emb_dtype)
     return MultiStreamEngine(
-        seg, emb, duration=5.0, step=0.5, latency=0.5, sample_rate=16000,
+        seg, model, duration=5.0, step=0.5, latency=0.5, sample_rate=16000,
         max_speakers=20, batch_size=batch, precision=precision,
     )
 
 
-def drive_engine(out_dir):
-    import torch
-    from diart_tpu_torch.ops.linear_stats import fused_linear_stats
-    from diart_tpu_torch.ops.lstm_sweep import lstm_sweep_tm
+def launch_counters() -> dict:
+    """Each kernel's wrapper, which counts its launches."""
+    from diart_tpu_torch.ops import attn_stats, linear_stats, lstm_sweep, se_res2
 
-    engine = build_engine("cuda", B)
-    rng = np.random.default_rng(0)
-    audio = make_audio(rng, HOPS + 20, B, engine.step_samples)
+    return {
+        "lstm_sweep": lstm_sweep.lstm_sweep_tm,
+        "linear_stats": linear_stats.fused_linear_stats,
+        "attn_stats": attn_stats.fused_attentive_stats,
+        "se_res2": se_res2.fused_se_res2_block,
+        "se_res2_staged": se_res2.se_res2_staged,
+    }
+
+
+def device_summary(prof, steps: int, top: int = 12) -> dict:
+    """Device busy ms, device launches (kernels, copies, fills) per step and
+    the ``top`` device items by time per step, from a profile."""
+    import torch
+
+    items = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+        items.append((us / 1e3 / steps, e.count / steps, e.key))
+    items.sort(reverse=True)
+    return dict(device_busy_ms=sum(ms for ms, _, _ in items),
+                kernels_per_step=sum(n for _, n, _ in items),
+                top_device_items=[dict(ms_per_step=ms, per_step=n, name=k[:90]) for ms, n, k in items[:top]])
+
+
+def drive_engine(emb, audio, out_dir):
+    """The full-width engine with embedding ``emb`` for B streams: 14 hops
+    with warm-up, a paused stream and a slot reset, the launch counts of
+    every kernel over them, then the steady-state step time and a profile."""
+    import torch
+
+    engine = build_engine("cuda", B, emb)
     blocks = torch.from_numpy(audio).cuda()  # staged on the device, as a server would
     state = engine.init_state()
     paused, reset_slot = 3, 5
 
-    lstm_sweep_tm.launches = 0
-    fused_linear_stats.launches = 0
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
     outs = []
     for i in range(HOPS):
         audio_mask = np.ones(B, bool)
@@ -219,11 +442,17 @@ def drive_engine(out_dir):
         if i == HOPS - 2:
             state = engine.reset_stream(state, reset_slot)
     torch.cuda.synchronize()
-    launches = {"lstm_sweep": lstm_sweep_tm.launches, "linear_stats": fused_linear_stats.launches}
-    log(f"engine: {HOPS} hops x {B} streams, launches {launches}")
+    launches = {k: fn.launches for k, fn in counters.items()}
     layers = engine._seg.module.lstm.num_layers
-    if launches != {"lstm_sweep": layers * HOPS, "linear_stats": HOPS}:
-        raise AssertionError(f"expected {layers} sweeps and 1 stats launch per hop; got {launches}")
+    per_hop = {"lstm_sweep": layers, "linear_stats": int(emb == "xvector"),
+               "attn_stats": int(emb == "ecapa"), "se_res2": 3 * int(emb == "ecapa"),
+               "se_res2_staged": 0}
+    log(f"engine[{emb}]: {HOPS} hops x {B} streams, launches {launches}"
+        f"{', frame ring' if engine._fring is not None else ''}")
+    if launches != {k: v * HOPS for k, v in per_hop.items()}:
+        raise AssertionError(f"engine[{emb}]: expected {per_hop} launches per hop; got {launches}")
+    if (engine._fring is None) != (emb == "xvector"):
+        raise AssertionError(f"engine[{emb}]: the mel frame ring is engaged only for mel models")
 
     last = outs[-1]
     num_out = engine.geometry.num_out
@@ -236,7 +465,7 @@ def drive_engine(out_dir):
     assert idx[0] == running - 1 and idx[paused] == running - 2 and idx[reset_slot] == -1, idx
     assert not bool(state.initialized[reset_slot]) and int(state.chunk_count[reset_slot]) == 0
     active = state.center_active.sum(dim=1).float().mean().item()
-    log(f"engine outputs ok: aggregated {tuple(last.aggregated.shape)}, chunk_index[0..6]="
+    log(f"engine[{emb}] outputs ok: aggregated {tuple(last.aggregated.shape)}, chunk_index[0..6]="
         f"{idx[:7].tolist()}, mean active centres per stream {active:.2f}")
 
     # steady-state step time (all streams running), host clock + synchronize
@@ -247,9 +476,10 @@ def drive_engine(out_dir):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     step_ms = float(np.median(times[5:]))
-    log(f"engine step at B={B}: median {step_ms:.3f} ms over {len(times) - 5} steps "
+    log(f"engine[{emb}] step at B={B}: median {step_ms:.3f} ms over {len(times) - 5} steps "
         f"(min {min(times[5:]):.3f}, max {max(times[5:]):.3f})")
 
+    run = dict(launches=launches, step_ms=step_ms, step_ms_all=times, active_centres=active)
     profile = None
     try:
         from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -259,74 +489,86 @@ def drive_engine(out_dir):
                 state, out = engine.step(state, blocks[HOPS + i])
             torch.cuda.synchronize()
         profile = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
+        run.update(device_summary(prof, 5))
+        log(f"engine[{emb}] profile of 5 steps: device busy {run['device_busy_ms']:.3f} ms/step, "
+            f"{run['kernels_per_step']:.0f} device launches/step; top device items per step:")
+        for item in run["top_device_items"]:
+            log(f"  {item['ms_per_step']:8.3f} ms  x{item['per_step']:6.1f}  {item['name']}")
         if out_dir:
-            prof.export_chrome_trace(os.path.join(out_dir, "engine_step_trace.json"))
+            prof.export_chrome_trace(os.path.join(out_dir, f"engine_step_trace_{emb}.json"))
+            with open(os.path.join(out_dir, f"engine_step_profile_{emb}.txt"), "w") as f:
+                f.write(profile)
     except Exception as exc:  # diagnostic only
         log(f"profiler unavailable: {type(exc).__name__}: {exc}")
-    return engine, audio, dict(launches=launches, step_ms=step_ms, step_ms_all=times,
-                               active_centres=active), profile
+    return run
 
 
-def compare_cpu(audio):
-    """probe_frame_scores of 2 streams on the card vs the same engine on the
-    CPU (the kernels' plain versions), from the same full window."""
+def compare_cpu(emb, audio):
+    """The engine with embedding ``emb`` for 2 streams on the card against
+    the same engine on the CPU (the kernels' plain versions): the frame
+    scores that ``probe_frame_scores`` gives after 10 hops, in f32 and in
+    the serving configuration, and 12 f32 hops with clustering active."""
     import torch
     from diart_tpu_torch.precision import Precision
 
     results = {}
-    window = audio[:10, :2].transpose(1, 0, 2).reshape(2, -1).astype(np.float32) / 32768.0
-    nxt = audio[10, :2]
     cases = [
         # f32 everywhere: the kernels' f32 paths against plain f32 on the CPU
-        ("f32", dict(seg_dtype="f32", emb_dtype="f32", precision=Precision.portable()), 1e-4, 1e-3),
+        ("f32", dict(seg_dtype="f32", emb_dtype="f32",
+                     precision=Precision(bf16_lstm=False, bf16_frontend=False)), 1e-4, 1e-3),
         # the serving configuration: bf16 LSTM stream, bf16 pre-pool frontend
         # and bf16 embedding trunk on the card; the CPU runs f32 LSTM and
-        # frontend (the bf16 switches are CUDA-only) with the bf16 trunk
-        ("serving", dict(), 3e-2, 5e-2),
+        # frontend (the bf16 switches are CUDA-only) with the bf16 trunk.
+        # Both limits sit ~5-10x above the readings on an H100 (seg 9.3e-5,
+        # embeddings 1.5e-4 ECAPA / 2.1e-4 x-vector), far below the ~0.07
+        # of one element of a unit-norm 192-d embedding
+        ("serving", dict(), 1e-3, 1e-3),
     ]
+    hops, agg_tol = 12, 1e-3
     for name, kw, seg_tol, emb_tol in cases:
-        outs = []
+        probes, aggs, centres = [], [], []
+        steps = hops if name == "f32" else WARMUP_HOPS
         for device in ("cuda", "cpu"):
-            engine = build_engine(device, 2, **kw)
-            state = engine.init_state()._replace(audio=torch.from_numpy(window).to(engine.device))
-            seg, emb = engine.probe_frame_scores(state, nxt)
-            outs.append((seg.float().cpu(), emb.float().cpu()))
-        (sg, eg), (sc, ec) = outs
+            engine = build_engine(device, 2, emb, **kw)
+            # thresholds low enough that the random models' ~0.5 activations
+            # map speakers, so assignment and centroid updates run
+            engine.set_hyperparameters(tau_active=0.45, rho_update=0.05)
+            state, seq = engine.init_state(), []
+            for i in range(steps + 1):
+                if i == WARMUP_HOPS:
+                    seg, e = engine.probe_frame_scores(state, audio[i, :2])
+                    probes.append((seg.float().cpu(), e.float().cpu()))
+                if i == steps:
+                    break
+                state, out = engine.step(state, audio[i, :2], run_mask=np.full(2, i + 1 >= WARMUP_HOPS))
+                seq.append(out.aggregated.float().cpu())
+            aggs.append(torch.stack(seq))
+            centres.append(state.center_active.sum().item())
+        (sg, eg), (sc, ec) = probes
         seg_err = (sg - sc).abs().max().item()
         emb_err = (eg - ec).abs().max().item()
-        log(f"probe vs CPU [{name}]: seg {tuple(sg.shape)} max_abs_err={seg_err:.3e} (tol {seg_tol:.0e}), "
-            f"emb {tuple(eg.shape)} max_abs_err={emb_err:.3e} (tol {emb_tol:.0e})")
+        log(f"probe vs CPU [{emb}, {name}]: seg {tuple(sg.shape)} max_abs_err={seg_err:.3e} "
+            f"(tol {seg_tol:.0e}), emb {tuple(eg.shape)} max_abs_err={emb_err:.3e} (tol {emb_tol:.0e})")
         if not (torch.isfinite(sg).all() and torch.isfinite(eg).all()):
-            raise AssertionError(f"probe [{name}] produced non-finite values")
+            raise AssertionError(f"probe [{emb}, {name}] produced non-finite values")
         if not (seg_err <= seg_tol and emb_err <= emb_tol):
-            raise AssertionError(f"probe [{name}] disagrees with the CPU engine")
+            raise AssertionError(f"probe [{emb}, {name}] disagrees with the CPU engine")
         results[name] = dict(seg_err=seg_err, seg_tol=seg_tol, emb_err=emb_err, emb_tol=emb_tol)
-
-    # whole steps, f32: clustering thresholds low enough that the random
-    # models' ~0.5 activations map speakers, so assignment and centroid
-    # updates run on the card; the aggregated scores must match the CPU's
-    hops, tol = 12, 1e-3
-    aggs, centres = [], []
-    for device in ("cuda", "cpu"):
-        engine = build_engine(device, 2, seg_dtype="f32", emb_dtype="f32",
-                              precision=Precision.portable())
-        engine.set_hyperparameters(tau_active=0.45, rho_update=0.05)
-        state, seq = engine.init_state(), []
-        for i in range(hops):
-            state, out = engine.step(state, audio[i, :2], run_mask=np.full(2, i + 1 >= WARMUP_HOPS))
-            seq.append(out.aggregated.cpu())
-        aggs.append(torch.stack(seq))
-        centres.append(state.center_active.sum().item())
-    agg_err = (aggs[0] - aggs[1]).abs().max().item()
-    log(f"steps vs CPU [f32, {hops} hops, 2 streams]: aggregated max_abs_err={agg_err:.3e} "
-        f"(tol {tol:.0e}); active centres card/CPU {centres[0]}/{centres[1]}")
-    if not (agg_err <= tol and centres[0] == centres[1] and centres[0] > 0):
-        raise AssertionError("engine steps on the card disagree with the CPU engine")
-    results["steps_f32"] = dict(agg_err=agg_err, tol=tol, active_centres=centres[0])
+        if name != "f32":
+            continue
+        agg_err = (aggs[0] - aggs[1]).abs().max().item()
+        log(f"steps vs CPU [{emb}, f32, {hops} hops, 2 streams]: aggregated max_abs_err={agg_err:.3e} "
+            f"(tol {agg_tol:.0e}); active centres card/CPU {centres[0]}/{centres[1]}")
+        if not (agg_err <= agg_tol and centres[0] == centres[1] and centres[0] > 0):
+            raise AssertionError(f"engine[{emb}] steps on the card disagree with the CPU engine")
+        results["steps_f32"] = dict(agg_err=agg_err, tol=agg_tol, active_centres=centres[0])
     return results
 
 
 # --------------------------------------------------------------------- #
+KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="directory for detailed results")
@@ -349,7 +591,7 @@ def main() -> int:
     if args.out:
         os.makedirs(args.out, exist_ok=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = _build.build(force=True)
     log(f"built {', '.join(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
@@ -357,34 +599,52 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  [{name}] {line.strip()}")
 
+    t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(0)
-    lstm = {k: check_lstm(dt, gen) for k, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
-    stats = {k: check_stats(dt, gen) for k, dt in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    bf16_f32 = (("bf16", torch.bfloat16), ("f32", torch.float32))
+    lstm = {k: check_lstm(dt, gen) for k, dt in reversed(bf16_f32)}
+    stats = {k: check_stats(dt, gen) for k, dt in bf16_f32}
+    attn = {k: check_attn(dt, gen) for k, dt in bf16_f32}
+    res2 = {k: check_res2(dt, gen) for k, dt in bf16_f32}
+    log(f"kernel checks in {time.perf_counter() - t0:.1f} s")
+    result = dict(gpu=smi, lstm=lstm, stats=stats, attn=attn, res2=res2)
 
-    engine, audio, run, profile = drive_engine(args.out)
-    if profile:
-        log("profile of 5 engine steps (top kernels by CUDA time):")
-        log(profile)
-    probe = compare_cpu(audio)
+    runs, probes = {}, {}
+    for emb in ("xvector", "ecapa"):
+        t0 = time.perf_counter()
+        audio = make_audio(np.random.default_rng(0), HOPS + 20, B, 8000)
+        runs[emb] = drive_engine(emb, audio, args.out)
+        probes[emb] = compare_cpu(emb, audio)
+        log(f"engine[{emb}] phase in {time.perf_counter() - t0:.1f} s")
 
-    # the main path runs the bf16 LSTM stream and the bf16 embedding trunk
+    # the main paths run the bf16 LSTM stream and bf16 embedding trunks
+    xv, ec = runs["xvector"]["launches"], runs["ecapa"]["launches"]
     kernels = [
         dict(name="lstm_sweep", route="cuda", source="diart_tpu_torch/csrc/lstm_sweep.cu",
-             replaces="diart_tpu/ops/pallas_lstm.py:494", launches=run["launches"]["lstm_sweep"],
-             **{k: lstm["bf16"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms")}),
+             replaces="diart_tpu/ops/pallas_lstm.py:494", launches=ec["lstm_sweep"],
+             launches_xvector_path=xv["lstm_sweep"], **{k: lstm["bf16"][k] for k in KEYS}),
         dict(name="linear_stats", route="cuda", source="diart_tpu_torch/csrc/linear_stats.cu",
-             replaces="diart_tpu/ops/pallas_stats.py:163", launches=run["launches"]["linear_stats"],
-             **{k: stats["bf16"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms")}),
+             replaces="diart_tpu/ops/pallas_stats.py:163", launches=xv["linear_stats"],
+             **{k: stats["bf16"][k] for k in KEYS}),
+        dict(name="attn_stats", route="cuda", source="diart_tpu_torch/csrc/attn_stats.cu",
+             replaces="diart_tpu/ops/pallas_attn_stats.py:170", launches=ec["attn_stats"],
+             **{k: attn["bf16"][k] for k in KEYS}),
+        dict(name="se_res2", route="cuda", source="diart_tpu_torch/csrc/se_res2.cu",
+             replaces="diart_tpu/ops/pallas_res2.py:294", launches=ec["se_res2"],
+             **{k: res2["bf16"][k] for k in KEYS},
+             stage_mode=dict(res2["bf16"]["stage"], entry="se_res2_staged",
+                             replaces=["scripts/res2_stage_debug.py:141",
+                                       "scripts/res2_stage_debug.py:49",
+                                       "scripts/res2_fix_experiments.py:126"],
+                             launches=ec["se_res2_staged"],
+                             stages_checked=sum(res2[k]["stage"]["stages_checked"] for k in res2),
+                             max_abs_err=max(res2[k]["stage"]["max_abs_err"] for k in res2),
+                             library_ms=None)),
     ]
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump(dict(gpu=smi, lstm=lstm, stats=stats, engine=run, probe=probe,
-                           kernels=kernels), f, indent=1)
-        if profile:
-            with open(os.path.join(args.out, "engine_step_profile.txt"), "w") as f:
-                f.write(profile)
+            json.dump(dict(result, engines=runs, probes=probes, kernels=kernels), f, indent=1)
+    log(f"total {time.perf_counter() - t_start:.1f} s after start-up")
     log(f"gpu: {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Model wrappers and the registry (reduced port of
-``diart_tpu/models/base.py``: the ``tpu/pyannet`` and ``tpu/xvector``
-registry entries, under the JAX package's names).
+``diart_tpu/models/base.py``: the ``tpu/pyannet``, ``tpu/xvector`` and
+``tpu/ecapa`` registry entries, under the JAX package's names).
 
 Weights come from a seeded ``torch.Generator`` (the seed defaults to a
 CRC of the registry name) or, with ``flax_params=``, from the JAX
@@ -18,6 +18,7 @@ from torch import nn
 
 from ..ops._build import require_cuda
 from .common import QuantizableConv
+from .ecapa import EcapaTDNN
 from .embedding import XVectorSincNet
 from .lstm import BiLSTM
 from .segmentation import PyanNet
@@ -55,7 +56,8 @@ def init_weights(module: nn.Module, gen: torch.Generator) -> nn.Module:
         if isinstance(sub, (nn.Linear, nn.Conv1d, QuantizableConv)):
             fan_in = sub.weight[0].numel()
             sub.weight.copy_(torch.randn(sub.weight.shape, generator=gen) / fan_in**0.5)
-            sub.bias.zero_()
+            if sub.bias is not None:
+                sub.bias.zero_()
         elif isinstance(sub, BiLSTM):
             for layer in range(sub.num_layers):
                 w_ih = getattr(sub, f"l{layer}_w_ih")
@@ -126,11 +128,13 @@ class SegmentationModel:
 
 
 class EmbeddingModel:
-    """Waveform + per-speaker weights -> embeddings, with a trunk/head split."""
+    """Waveform + per-speaker weights -> embeddings, with a trunk/head split.
+    Mel models (``fbank_ring_kind`` not None) also take the engine's raw
+    log-mel frames through :meth:`trunk_from_raw_fbank`."""
 
-    KNOWN = ("tpu/xvector",)
+    KNOWN = ("tpu/ecapa", "tpu/xvector")
 
-    def __init__(self, module: XVectorSincNet, name: str, device):
+    def __init__(self, module: nn.Module, name: str, device):
         self.module = module
         self.name = name
         self.device = torch.device(device)
@@ -139,17 +143,26 @@ class EmbeddingModel:
     def from_registry(
         name: str, device="cuda", seed: Optional[int] = None, flax_params=None, **kwargs
     ) -> "EmbeddingModel":
-        """``tpu/xvector`` with the JAX registry's size arguments
-        (embedding_dim, dtype)."""
+        """``tpu/xvector`` (embedding_dim, dtype) or ``tpu/ecapa``
+        (embedding_dim, channels, dtype), with the JAX registry's size
+        arguments and defaults."""
         if name not in EmbeddingModel.KNOWN:
             raise ValueError(
                 f"unknown embedding registry name {name!r}; known: {list(EmbeddingModel.KNOWN)}"
             )
-        _check_kwargs(name, kwargs, ("embedding_dim", "dtype"))
+        ecapa = name == "tpu/ecapa"
+        _check_kwargs(name, kwargs, ("embedding_dim", "dtype") + (("channels",) if ecapa else ()))
         device = require_cuda(device)
-        module = XVectorSincNet(
-            embedding_dim=kwargs.get("embedding_dim", 512), compute_dtype=_dtype_kwarg(kwargs)
-        )
+        if ecapa:
+            module = EcapaTDNN(
+                embedding_dim=kwargs.get("embedding_dim", 192),
+                channels=kwargs.get("channels", 512),
+                compute_dtype=_dtype_kwarg(kwargs),
+            )
+        else:
+            module = XVectorSincNet(
+                embedding_dim=kwargs.get("embedding_dim", 512), compute_dtype=_dtype_kwarg(kwargs)
+            )
         return EmbeddingModel(_build(module, name, device, seed, flax_params), name, device)
 
     @property
@@ -160,10 +173,23 @@ class EmbeddingModel:
     def sample_rate(self) -> int:
         return self.module.sample_rate
 
+    @property
+    def fbank_ring_kind(self) -> Optional[str]:
+        """The mel frontend kind the engine's frame ring computes, or None."""
+        return getattr(self.module, "fbank_ring_kind", None)
+
+    @property
+    def num_mels(self) -> int:
+        return self.module.num_mels
+
     @torch.no_grad()
     def trunk(self, waveform: torch.Tensor) -> torch.Tensor:
         return self.module.trunk(waveform)
 
     @torch.no_grad()
-    def head(self, frames: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    def trunk_from_raw_fbank(self, raw: torch.Tensor) -> torch.Tensor:
+        return self.module.trunk_from_raw_fbank(raw)
+
+    @torch.no_grad()
+    def head(self, frames: torch.Tensor, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.module.head(frames, weights)

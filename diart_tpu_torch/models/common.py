@@ -1,13 +1,33 @@
 """Building blocks shared by the embedding models (port of the parts of
-``diart_tpu/models/common.py`` the x-vector path uses)."""
+``diart_tpu/models/common.py`` the x-vector and ECAPA paths use)."""
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["InferenceBatchNorm", "QuantizableConv", "resample_weights"]
+from ..ops.attn_stats import fused_attentive_stats
+from ..ops.functional import reflect_index
+
+__all__ = [
+    "InferenceBatchNorm",
+    "QuantizableConv",
+    "attentive_stats_pool",
+    "reflect_pad_time",
+    "resample_weights",
+]
+
+
+def reflect_pad_time(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Reflect-pad the time axis of a (B, T, C) activation, as speechbrain's
+    ``Conv1d`` pads 'same' (``padding_mode="reflect"``)."""
+    if pad == 0:
+        return x
+    t = x.shape[1]
+    return x.index_select(1, reflect_index(t, -pad, t + pad, x.device))
 
 
 def resample_weights(weights: torch.Tensor, num_frames: int) -> torch.Tensor:
@@ -46,12 +66,14 @@ class QuantizableConv(nn.Module):
 
 
 class InferenceBatchNorm(nn.Module):
-    """Inference-form batch norm over (batch, channels, time) with running
-    statistics held as parameters; the affine is folded in f32 and applied in
-    the input's dtype."""
+    """Inference-form batch norm with running statistics held as parameters;
+    the affine is folded in f32 and applied in the input's dtype. Channels
+    lie on ``channel_dim``: 1 for (batch, channels, time), -1 for the ECAPA
+    family's (batch, time, channels)."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, channel_dim: int = 1):
         super().__init__()
+        self.channel_dim = channel_dim
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.mean = nn.Parameter(torch.zeros(features))
@@ -64,4 +86,43 @@ class InferenceBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a, b = self.folded()
-        return x * a.to(x.dtype)[None, :, None] + b.to(x.dtype)[None, :, None]
+        shape = [1] * x.dim()
+        shape[self.channel_dim] = -1
+        return x * a.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
+
+
+def attentive_stats_pool(
+    frames: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    att_local: nn.Linear,
+    att_global: nn.Linear,
+    att_bn: InferenceBatchNorm,
+    att_scores: nn.Linear,
+) -> Tuple[torch.Tensor, bool]:
+    """External-weight-aware channel-attentive statistics pooling (the ECAPA
+    head): attention over ``[x; global mean; global std]`` once per chunk,
+    then per-speaker pooling where the frame weights re-normalize the shared
+    attention. The softmax and the three moments run in
+    :func:`fused_attentive_stats` (the hand-written kernel on a CUDA tensor),
+    so the (B, T, C) logits never reach memory.
+
+    frames (B, T, C); weights (B, S, Tw) or None -> (pooled (B, S, 2C) f32,
+    squeeze), ``squeeze`` telling the caller the speaker axis was made up."""
+    squeeze = weights is None
+    if weights is None:
+        weights = torch.ones(frames.shape[0], 1, frames.shape[1], device=frames.device)
+    weights = resample_weights(weights, frames.shape[1]).float()
+    f32 = frames.float()
+    gmean = f32.mean(dim=1, keepdim=True)
+    gvar = ((f32 - gmean) ** 2).mean(dim=1, keepdim=True)
+    gstd = torch.sqrt(torch.clamp(gvar, min=1e-12))
+    hidden = att_local(f32) + att_global(torch.cat([gmean, gstd], dim=-1))
+    hidden = torch.tanh(att_bn(torch.relu(hidden)))  # (B, T, bottleneck)
+    den, s1, s2 = fused_attentive_stats(
+        frames, hidden, att_scores.weight.t(), att_scores.bias, weights
+    )
+    den = torch.clamp(den, min=1e-12)
+    mu = s1 / den
+    var = s2 / den - mu**2
+    sg = torch.sqrt(torch.clamp(var, min=1e-12))
+    return torch.cat([mu, sg], dim=-1), squeeze

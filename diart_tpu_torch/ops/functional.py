@@ -11,6 +11,7 @@ __all__ = [
     "min_max_normalize",
     "normalize_embeddings",
     "overlapped_speech_penalty",
+    "reflect_index",
 ]
 
 
@@ -51,3 +52,11 @@ def min_max_normalize(weights: torch.Tensor, dim: int = -2) -> torch.Tensor:
     max_v = weights.amax(dim=dim, keepdim=True)
     out = (weights - min_v) / (max_v - min_v)
     return torch.nan_to_num(out, nan=1e-8, posinf=1e-8, neginf=1e-8)
+
+
+def reflect_index(time: int, start: int, stop: int, device=None) -> torch.Tensor:
+    """Frame indices ``start .. stop - 1`` reflected into ``[0, time)``
+    without repeating the edge frame (``t < 0 -> -t``,
+    ``t >= time -> 2 (time - 1) - t``), as speechbrain's reflect padding."""
+    idx = torch.arange(start, stop, device=device).abs()
+    return torch.where(idx >= time, 2 * (time - 1) - idx, idx)

@@ -1,0 +1,237 @@
+"""Fused ECAPA SE-Res2Block, with a stage mode for diagnosis.
+
+Counterpart of ``diart_tpu/ops/pallas_res2.py``'s ``fused_se_res2_block``,
+equal to its ``se_res2_block_reference``; the stage mode is the counterpart
+of ``staged`` / ``reference_stage`` (``scripts/res2_stage_debug.py``). On
+a CUDA tensor they launch the hand-written kernels of ``csrc/se_res2.cu``;
+on a CPU tensor they run the plain versions below. There is no fallback
+between the two.
+
+``params`` is the 16-tuple ``(w1, b1, a1, c1, wg, bg, ag, cg, w2, b2, a2,
+c2, ws1, bs1, ws2, bs2)`` of the JAX package: w1/w2 (C, C) as (in, out);
+b*/a*/c* (C,), the folded inference batch norms; wg (G, K, W, W) group
+convolutions (tap, in, out); bg/ag/cg (G, W); ws1 (C, H), bs1 (H,),
+ws2 (H, C), bs2 (C,). The 1x1 and group weights are rounded to the
+activation dtype, as the TPU kernel's wrapper does; the gate MLP stays f32.
+:func:`kernel_operands` lays the tuple out for the kernel once; the
+wrappers take either form, so a model with fixed weights prepares its
+operands once instead of on every call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Sequence, Union
+
+import torch
+
+from . import _build
+from .functional import reflect_index
+
+__all__ = [
+    "Res2Operands",
+    "fused_se_res2_block",
+    "kernel_operands",
+    "se_res2_block_reference",
+    "se_res2_stage_reference",
+    "se_res2_staged",
+]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_WIDTH = 64  # the cascade kernel takes 64-wide groups (C = 64 * scale)
+KERNEL_MAX_TIME = 512  # and at most 512 frames (one stream's group in shared memory)
+
+
+def _tdnn(v, w, b, a, c):
+    """dt(a * relu(v @ w + b) + c) with f32 sums; w rounded to v's dtype."""
+    dt = v.dtype
+    y = torch.matmul(v.float(), w.to(dt).float()) + b.float()
+    return (torch.relu(y) * a.float() + c.float()).to(dt)
+
+
+def _cascade(z1, wg, bg, ag, cg, dilation: int, run_groups: int):
+    """cat(g0, y1..y_run, zeros) from z1 (B, T, C): the sequential
+    reflect-padded dilated group convolutions."""
+    dt = z1.dtype
+    groups, taps, width, _ = wg.shape
+    chunks = torch.split(z1, width, dim=-1)
+    pad = (taps - 1) * dilation // 2
+    wq = wg.to(dt).float()
+    outputs, y = [chunks[0]], None
+    for i in range(run_groups):
+        inp = chunks[i + 1] if y is None else chunks[i + 1] + y
+        acc = 0.0
+        for j in range(taps):
+            shift, time = j * dilation - pad, inp.shape[1]
+            idx = reflect_index(time, shift, time + shift, inp.device)
+            acc = acc + torch.matmul(inp.index_select(1, idx).float(), wq[i, j])
+        y = (torch.relu(acc + bg[i].float()) * ag[i].float() + cg[i].float()).to(dt)
+        outputs.append(y)
+    outputs.extend(torch.zeros_like(chunks[0]) for _ in range(groups - run_groups))
+    return torch.cat(outputs, dim=-1)
+
+
+def se_res2_block_reference(x, w1, b1, a1, c1, wg, bg, ag, cg, w2, b2, a2, c2,
+                            ws1, bs1, ws2, bs2, dilation: int):
+    """Plain version of one SE-Res2Block on x (B, T, C): compute in x's
+    dtype with f32 sums; BN affines and the SE MLP in f32; z1, each
+    ``chunk + y``, each y, the concat and z2 rounded to the dtype; the gate
+    cast to it; ``z2 * gate`` rounded, then ``x + ...`` rounded."""
+    dt = x.dtype
+    z1 = _tdnn(x, w1, b1, a1, c1)
+    cat = _cascade(z1, wg, bg, ag, cg, dilation, wg.shape[0])
+    z2 = _tdnn(cat, w2, b2, a2, c2)
+    s = z2.float().mean(dim=1)
+    s = torch.relu(torch.matmul(s, ws1.float()) + bs1.float())
+    gate = torch.sigmoid(torch.matmul(s, ws2.float()) + bs2.float())
+    return x + z2 * gate[:, None, :].to(dt)
+
+
+def se_res2_stage_reference(x, params: Sequence[torch.Tensor], dilation: int, stage: int):
+    """Plain version of the stage mode: z1 for ``stage == 0``, else
+    ``cat(g0, y1..y_stage, zeros)`` (stages beyond the group count give the
+    whole concat)."""
+    w1, b1, a1, c1, wg, bg, ag, cg = params[:8]
+    z1 = _tdnn(x, w1, b1, a1, c1)
+    if stage == 0:
+        return z1
+    return _cascade(z1, wg, bg, ag, cg, dilation, min(wg.shape[0], stage))
+
+
+class Res2Operands(NamedTuple):
+    """The block's parameters laid out for the kernel: the 1x1 and group
+    weights in the activation dtype, each (bias, scale, shift) triple
+    stacked in f32 — v1/v2 (3, C), vg (G, 3, W) — and the gate MLP in f32."""
+
+    w1: torch.Tensor
+    v1: torch.Tensor
+    wg: torch.Tensor
+    vg: torch.Tensor
+    w2: torch.Tensor
+    v2: torch.Tensor
+    ws1: torch.Tensor
+    bs1: torch.Tensor
+    ws2: torch.Tensor
+    bs2: torch.Tensor
+
+    def params(self):
+        """The 16-tuple these operands were made from (weights rounded)."""
+        return (self.w1, *self.v1, self.wg, *self.vg.unbind(1), self.w2, *self.v2,
+                self.ws1, self.bs1, self.ws2, self.bs2)
+
+
+def kernel_operands(params: Sequence[torch.Tensor], dtype: torch.dtype) -> Res2Operands:
+    """Lay the 16-tuple ``params`` out for activations of ``dtype``."""
+    if len(params) != 16:
+        raise ValueError(f"params must be the 16-tuple of the block; got {len(params)} entries")
+    w1, b1, a1, c1, wg, bg, ag, cg, w2, b2, a2, c2, ws1, bs1, ws2, bs2 = params
+    f32 = lambda v: v.float().contiguous()
+    return Res2Operands(
+        w1=w1.to(dtype).contiguous(), v1=f32(torch.stack([b1, a1, c1])),
+        wg=wg.to(dtype).contiguous(), vg=f32(torch.stack([bg, ag, cg], dim=1)),
+        w2=w2.to(dtype).contiguous(), v2=f32(torch.stack([b2, a2, c2])),
+        ws1=f32(ws1), bs1=f32(bs1), ws2=f32(ws2), bs2=f32(bs2),
+    )
+
+
+Params = Union[Sequence[torch.Tensor], Res2Operands]
+
+
+def _signature(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.se_res2_block_launch.argtypes = [p] * 16 + [i] * 8 + [p]
+    lib.se_res2_block_launch.restype = i
+    lib.se_res2_staged_launch.argtypes = [p] * 6 + [i] * 8 + [p]
+    lib.se_res2_staged_launch.restype = i
+
+
+def _operands(x, params: Params, dilation: int) -> Res2Operands:
+    """``params`` as checked kernel operands for x."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, T, C); got {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16; got {x.dtype}")
+    ops = params if isinstance(params, Res2Operands) else kernel_operands(params, x.dtype)
+    if ops.w1.dtype != x.dtype:
+        raise TypeError(f"the operands were laid out for {ops.w1.dtype}, x is {x.dtype}")
+    batch, time, chans = x.shape
+    w1, wg, w2, ws1, ws2 = ops.w1, ops.wg, ops.w2, ops.ws1, ops.ws2
+    groups, taps, width, width_out = wg.shape
+    if chans != (groups + 1) * width or width_out != width:
+        raise ValueError(f"wg {tuple(wg.shape)} does not split {chans} channels")
+    if tuple(w1.shape) != (chans, chans) or tuple(w2.shape) != (chans, chans):
+        raise ValueError(f"w1 and w2 must be ({chans}, {chans})")
+    if ws1.shape[0] != chans or tuple(ws2.shape) != (ws1.shape[1], chans):
+        raise ValueError(f"ws1 must be ({chans}, H) and ws2 (H, {chans})")
+    if (taps - 1) * dilation // 2 >= time:
+        raise ValueError(f"{time} frames are too few to reflect-pad dilation {dilation}")
+    if any(p.device != x.device for p in ops):
+        raise ValueError("all inputs must be on the same device")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    if x.device.type == "cuda" and (width != KERNEL_WIDTH or time > KERNEL_MAX_TIME or taps % 2 == 0):
+        raise ValueError(
+            f"the SE-Res2Block kernel takes {KERNEL_WIDTH}-wide groups, an odd tap count and "
+            f"at most {KERNEL_MAX_TIME} frames; got width {width}, {taps} taps, {time} frames"
+        )
+    return ops
+
+
+def fused_se_res2_block(x, params: Params, dilation: int):
+    """One SE-Res2Block of x (B, T, C) f32 or bf16 with the 16-tuple
+    ``params`` or its :class:`Res2Operands`; returns (B, T, C) in x's
+    dtype. Counts one launch per call (the block's five kernels run on the
+    caller's stream)."""
+    k = _operands(x, params, dilation)
+    if x.device.type == "cpu":
+        return se_res2_block_reference(x, *k.params(), dilation)
+    batch, time, chans = x.shape
+    groups, taps = k.wg.shape[:2]
+    hidden = k.ws1.shape[1]
+    lib = _build.library("se_res2", _signature)
+    xc = x.contiguous()
+    out, cat, z2 = torch.empty_like(xc), torch.empty_like(xc), torch.empty_like(xc)
+    part = torch.empty(batch, -(-time // 64), chans, device=x.device)
+    gate = torch.empty(batch, chans, device=x.device)
+    ptr = lambda t: t.data_ptr()
+    with torch.cuda.device(x.device):
+        err = lib.se_res2_block_launch(
+            ptr(xc), ptr(out), ptr(cat), ptr(z2), ptr(part), ptr(gate),
+            *map(ptr, k),
+            batch, time, chans, groups, taps, hidden, int(dilation), _DTYPES[x.dtype],
+            _build.stream_handle(x.device),
+        )
+    _build.check(lib, "se_res2", err)
+    fused_se_res2_block.launches += 1
+    return out
+
+
+fused_se_res2_block.launches = 0
+
+
+def se_res2_staged(x, params: Params, dilation: int, stage: int):
+    """The block's partial result after ``stage``: z1 for 0, else
+    ``cat(g0, y1..y_stage, zeros)``; (B, T, C) in x's dtype. Stages beyond
+    the group count give the whole concat."""
+    k = _operands(x, params, dilation)
+    if stage < 0:
+        raise ValueError(f"stage must be >= 0; got {stage}")
+    if x.device.type == "cpu":
+        return se_res2_stage_reference(x, k.params(), dilation, stage)
+    batch, time, chans = x.shape
+    groups, taps = k.wg.shape[:2]
+    lib = _build.library("se_res2", _signature)
+    xc = x.contiguous()
+    out = torch.empty_like(xc)
+    with torch.cuda.device(x.device):
+        err = lib.se_res2_staged_launch(
+            xc.data_ptr(), out.data_ptr(), k.w1.data_ptr(), k.v1.data_ptr(),
+            k.wg.data_ptr(), k.vg.data_ptr(), batch, time, chans, groups, taps,
+            int(dilation), min(int(stage), groups), _DTYPES[x.dtype], _build.stream_handle(x.device),
+        )
+    _build.check(lib, "se_res2", err)
+    se_res2_staged.launches += 1
+    return out
+
+
+se_res2_staged.launches = 0

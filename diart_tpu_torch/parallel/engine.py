@@ -3,10 +3,11 @@
 
 One ``step`` advances B independent audio streams by one hop:
 
-  audio ring update -> segmentation forward -> OSP weights -> embedding
-  trunk (once) + fused per-speaker statistics head -> embedding
-  normalization -> masked online clustering (batched over streams) ->
-  score ring update -> Hamming overlap-add aggregation
+  audio ring update (and, for a mel embedding, its log-mel frame ring) ->
+  segmentation forward -> OSP weights -> embedding trunk (once) + fused
+  per-speaker statistics head -> embedding normalization -> masked online
+  clustering (batched over streams) -> score ring update -> Hamming
+  overlap-add aggregation
 
 Every tensor is fixed-shape and batched over streams, and the step never
 synchronizes with the host: warm-up, pauses and resets are masks selected
@@ -15,21 +16,36 @@ retuning changes no code path. The host supplies one block of audio per
 stream per hop (float32 or int16 PCM) and reads the latency-delayed
 aggregated scores.
 
+Mel frame ring (``fbank_ring``, as in the JAX engine): every log-mel stage
+up to the window-level normalization is frame-local, so a mel embedding's
+raw per-frame features of the unchanged samples live in a chronological
+ring across hops; each step computes only the new block's frames and the
+window-edge frames, and the model's ``trunk_from_raw_fbank`` takes the
+assembled window. The ring advances by a static slice + concat, and a
+paused stream's ring freezes by a masked select, like the waveform window.
+
 Differences from the JAX engine: no mesh (one device), no phase-major
 audio ring (a TPU layout trick — the window is the plain (B, samples)
-array it describes), and no mel-frontend ring (mel families are not
-ported yet).
+array it describes), no stacked SincNet frontend.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .. import precision as precision_policy
 from ..models.base import EmbeddingModel, SegmentationModel
+from ..models.fbank import (
+    FbankRingSpec,
+    fbank_block_raw,
+    fbank_edge_left,
+    fbank_edge_right,
+    fbank_ring_fill,
+    fbank_ring_spec,
+)
 from ..ops.aggregation import AggregationGeometry, aggregate, build_geometry
 from ..ops.clustering import ClusteringParams, ClusteringState, cluster_step
 from ..ops.functional import (
@@ -44,7 +60,11 @@ __all__ = ["MultiStreamEngine", "StepOutput", "StreamState"]
 class StreamState(NamedTuple):
     """Batched per-stream state (leading axis = streams)."""
 
-    audio: torch.Tensor  # (B, chunk_samples) rolling waveform window
+    # (B, chunk_samples) rolling waveform window; with the mel frame ring
+    # the dict {"window": that window, "ring": (B, nb * fpb, mels) raw
+    # log-mel frames, chronological, "head": (B, nb, head_len) each block's
+    # first samples, "tail": (B, tail_len) newest samples}
+    audio: Union[torch.Tensor, dict]
     ring: torch.Tensor  # (B, W, frames, M) permuted score ring, newest first
     centers: torch.Tensor  # (B, M, E) centroid sums
     center_active: torch.Tensor  # (B, M) bool
@@ -122,6 +142,17 @@ class MultiStreamEngine:
 
         self.chunk_samples = int(round(duration * sample_rate))
         self.step_samples = int(round(step * sample_rate))
+        # the mel frame ring engages for a mel embedding whose geometry the
+        # incremental decomposition covers (fbank_ring_spec says which)
+        self._fring: Optional[FbankRingSpec] = None
+        with precision_policy.use(self.precision):
+            fring_on = precision_policy.enabled("fbank_ring", self.device)
+        if fring_on and not self.is_vad and embedding.fbank_ring_kind is not None:
+            self._fring = fbank_ring_spec(
+                embedding.fbank_ring_kind, int(embedding.num_mels),
+                int(embedding.sample_rate), self.chunk_samples, self.step_samples,
+            )
+        self._audio_row = None
         self.num_frames = segmentation.num_frames(self.chunk_samples)
         self.num_local = segmentation.num_speakers
         self._score_dims = 1 if self.is_vad else max_speakers
@@ -168,11 +199,29 @@ class MultiStreamEngine:
         return float(self._hparams[4])
 
     # ------------------------------------------------------------------ #
+    def _audio_init(self, b: int):
+        """The initial audio state of ``b`` streams: a zero window and, with
+        the frame ring, a ring holding the frames of an all-zero signal (a
+        non-zero constant for log features) and zero head/tail samples."""
+        window = torch.zeros(b, self.chunk_samples, device=self.device)
+        if self._fring is None:
+            return window
+        s = self._fring
+        fill = torch.from_numpy(fbank_ring_fill(s)).to(self.device)
+        return {
+            "window": window,
+            "ring": fill.expand(b, s.nb * s.fpb, s.num_mels).clone(),
+            # per-block window-start samples, chronological: head[:, 0] is
+            # the oldest block's, which the left-edge frames read
+            "head": torch.zeros(b, s.nb, max(s.head_len, 1), device=self.device),
+            "tail": torch.zeros(b, max(s.tail_len, 1), device=self.device),
+        }
+
     def init_state(self, batch_size: Optional[int] = None) -> StreamState:
         b = batch_size or self.batch_size
         dev = self.device
         return StreamState(
-            audio=torch.zeros(b, self.chunk_samples, device=dev),
+            audio=self._audio_init(b),
             ring=torch.zeros(
                 b, self.geometry.num_windows, self.num_frames, self._score_dims, device=dev
             ),
@@ -189,14 +238,28 @@ class MultiStreamEngine:
         return self.reset_streams(state, mask)
 
     def reset_streams(self, state: StreamState, mask) -> StreamState:
-        """Reset every stream slot where ``mask`` (B,) is True."""
+        """Reset every stream slot where ``mask`` (B,) is True to its initial
+        value. The audio state takes :meth:`_audio_init`'s row, not zero: an
+        empty slot of the mel frame ring holds the zero-signal constant."""
         mask = self._to_device(mask, torch.bool)
+        if self._audio_row is None:
+            init = self._audio_init(1)
+            self._audio_row = (
+                {k: v[0] for k, v in init.items()} if isinstance(init, dict) else init[0]
+            )
 
-        def keep(cur):
+        def reset(cur, init=None):
             m = mask.view((-1,) + (1,) * (cur.dim() - 1))
-            return torch.where(m, torch.zeros((), dtype=cur.dtype, device=cur.device), cur)
+            if init is None:
+                init = torch.zeros((), dtype=cur.dtype, device=cur.device)
+            return torch.where(m, init.to(cur.dtype), cur)
 
-        return StreamState(*(keep(t) for t in state))
+        audio, row = state.audio, self._audio_row
+        if isinstance(audio, dict):
+            audio = {k: reset(v, row[k]) for k, v in audio.items()}
+        else:
+            audio = reset(audio, row)
+        return StreamState(audio, *(reset(t) for t in state[1:]))
 
     # ------------------------------------------------------------------ #
     def _to_device(self, value, dtype=None) -> torch.Tensor:
@@ -221,16 +284,55 @@ class MultiStreamEngine:
         run_mask = true_mask if run_mask is None else self._to_device(run_mask, torch.bool)
         return audio_mask, run_mask
 
-    def _advance_audio(self, window: torch.Tensor, blocks: torch.Tensor, audio_mask) -> torch.Tensor:
-        """Roll one hop's blocks (B, step_samples) into the windows of the
-        streams in ``audio_mask``; int16 PCM is dequantized here."""
+    def _fring_advance(self, st: dict, blocks: torch.Tensor, audio_mask):
+        """Advance the mel frame ring by one hop and assemble the window's
+        raw log-mel frames. st: the audio state dict; blocks: (B, step) f32.
+        Returns ({"ring", "head", "tail"}, raw (B, frames, mels)). Static
+        slices and concats with a per-stream masked select: a paused
+        stream's ring, head and tail freeze wholesale."""
+        spec = self._fring
+
+        def keep(new, old):
+            return torch.where(audio_mask.view((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+        y = fbank_block_raw(spec, st["tail"], blocks)  # (B, fpb, mels)
+        ring = keep(torch.cat([st["ring"][:, spec.fpb :], y], dim=1), st["ring"])
+        head = st["head"]
+        if spec.edge:
+            head = keep(torch.cat([head[:, 1:], blocks[:, None, : spec.head_len]], dim=1), head)
+        tail = keep(blocks[:, -st["tail"].shape[1] :], st["tail"])
+        interior = ring[:, spec.trim : spec.trim + spec.interior]
+        if spec.edge:
+            left = fbank_edge_left(spec, head[:, 0, : spec.head_len])
+            right = fbank_edge_right(spec, tail)
+            raw = torch.cat([left, interior, right], dim=1)
+        else:
+            raw = interior
+        return {"ring": ring, "head": head, "tail": tail}, raw
+
+    def _advance_audio(self, audio_state, blocks: torch.Tensor, audio_mask):
+        """Ingest one hop's blocks (B, step_samples) into the audio state of
+        the streams in ``audio_mask``; int16 PCM is dequantized here.
+        Returns ``(new_audio_state, window, emb_raw)``: the waveform window
+        the models consume and, with the frame ring, the embedding's
+        assembled raw log-mel frames (else None)."""
         if not blocks.is_floating_point():
             blocks = blocks.float() / 32768.0
-        rolled = torch.cat([window[:, self.step_samples :], blocks.float()], dim=1)
-        return torch.where(audio_mask[:, None], rolled, window)
+        blocks = blocks.float()
+        window = audio_state["window"] if self._fring is not None else audio_state
+        rolled = torch.cat([window[:, self.step_samples :], blocks], dim=1)
+        window = torch.where(audio_mask[:, None], rolled, window)
+        if self._fring is None:
+            return window, window, None
+        fst, emb_raw = self._fring_advance(audio_state, blocks, audio_mask)
+        return dict(fst, window=window), window, emb_raw
 
-    def _frame_scores(self, window: torch.Tensor, gamma, beta) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, samples) -> (segmentation (B, F, K), embeddings (B, K, E))."""
+    def _frame_scores(
+        self, window: torch.Tensor, gamma, beta, emb_raw: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, samples) -> (segmentation (B, F, K), embeddings (B, K, E)).
+        ``emb_raw``: the frame ring's raw log-mel frames, which the
+        embedding then takes instead of the waveform."""
         wave = window[:, None, :]
         seg = self._seg(wave)
         if self.is_vad:
@@ -238,7 +340,10 @@ class MultiStreamEngine:
         weights = overlapped_speech_penalty(seg, gamma, beta)
         if self.normalize_weights:
             weights = min_max_normalize(weights, dim=-2)
-        frames = self._emb.trunk(wave)
+        if emb_raw is not None:
+            frames = self._emb.trunk_from_raw_fbank(emb_raw)
+        else:
+            frames = self._emb.trunk(wave)
         emb = self._emb.head(frames, weights.transpose(1, 2))
         return seg, normalize_embeddings(emb, 1.0)
 
@@ -250,8 +355,8 @@ class MultiStreamEngine:
         the first duration/step - 1 hops a stream warms up with
         audio_mask=True, run_mask=False."""
         tau, rho, delta, gamma, beta = self._hparams
-        window = self._advance_audio(state.audio, blocks, audio_mask)
-        seg, emb = self._frame_scores(window, gamma, beta)
+        audio, window, emb_raw = self._advance_audio(state.audio, blocks, audio_mask)
+        seg, emb = self._frame_scores(window, gamma, beta, emb_raw)
 
         def keep(new, old):
             return torch.where(run_mask.view((-1,) + (1,) * (new.dim() - 1)), new, old)
@@ -274,7 +379,7 @@ class MultiStreamEngine:
         count = state.chunk_count + run_mask.to(state.chunk_count.dtype)
         agg = aggregate(self.geometry, ring, count, self._plan)
         new_state = StreamState(
-            audio=window,
+            audio=audio,
             ring=keep(ring, state.ring),
             centers=new_centers,
             center_active=new_active,
@@ -317,5 +422,5 @@ class MultiStreamEngine:
         audio_mask, _ = self._masks(blocks.shape[0], audio_mask, None)
         with precision_policy.use(self.precision):
             _, _, _, gamma, beta = self._hparams
-            window = self._advance_audio(state.audio, blocks, audio_mask)
-            return self._frame_scores(window, gamma, beta)
+            _, window, emb_raw = self._advance_audio(state.audio, blocks, audio_mask)
+            return self._frame_scores(window, gamma, beta, emb_raw)

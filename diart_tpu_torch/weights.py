@@ -3,12 +3,16 @@
 The port's modules name their parameters and submodules as the flax
 modules do, so a tree maps onto them by path. Layouts that differ:
 
-* flax ``Dense`` kernel (in, out) -> ``nn.Linear`` weight (out, in);
+* flax ``Dense`` kernel (in, out) -> ``nn.Linear`` weight (out, in), with
+  or without a bias;
 * flax conv kernel (k, in, out) over NWC -> Conv1d-layout weight
   (out, in, k) over NCW;
 * everything else (LSTM ``l{i}_w_ih/w_hh/b``, ``InferenceBatchNorm``
   ``scale/bias/mean/var``, SincNet ``low_hz/band_hz/wav_norm_*/norm*_*``)
   copies as it is.
+
+Coverage is strict: every leaf of the tree is used and every parameter of
+the module is covered, or the load raises.
 
 The tree is given as nested dicts of numpy arrays (convert jax arrays with
 ``np.asarray`` first); the port never imports jax.
@@ -29,13 +33,14 @@ __all__ = ["load_flax_params"]
 
 def _flatten(module: nn.Module, tree: dict, prefix: str, out: Dict[str, np.ndarray]) -> None:
     sub = module.get_submodule(prefix[:-1]) if prefix else module
-    if isinstance(sub, nn.Linear):
-        out[prefix + "weight"] = np.asarray(tree["kernel"]).T
-        out[prefix + "bias"] = np.asarray(tree["bias"])
-        return
-    if isinstance(sub, (nn.Conv1d, QuantizableConv)):
-        out[prefix + "weight"] = np.asarray(tree["kernel"]).transpose(2, 1, 0)
-        out[prefix + "bias"] = np.asarray(tree["bias"])
+    if isinstance(sub, (nn.Linear, nn.Conv1d, QuantizableConv)):
+        leaves = {"kernel"} | ({"bias"} if sub.bias is not None else set())
+        if set(tree) != leaves:
+            raise KeyError(f"{prefix[:-1]}: the tree has {sorted(tree)}, the module takes {sorted(leaves)}")
+        kernel = np.asarray(tree["kernel"])
+        out[prefix + "weight"] = kernel.T if isinstance(sub, nn.Linear) else kernel.transpose(2, 1, 0)
+        if sub.bias is not None:
+            out[prefix + "bias"] = np.asarray(tree["bias"])
         return
     for key, value in tree.items():
         if isinstance(value, dict):
