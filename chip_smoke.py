@@ -10,13 +10,17 @@ Phases (any failure exits non-zero):
    ``nvcc`` each, in parallel) and print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes of the main paths with 64 streams: the LSTM sweep at T=293,
-   H=128 (f32 and bf16 streams); the stats head at X (64, 279, 512)
-   (bf16 and f32), W (512, 1500), 4 speakers; the attention statistics at
-   x (64, 501, 1536), hidden (64, 501, 128), 4 speakers (bf16 and f32);
-   the SE-Res2Block at (64, 501, 512), scale 8, dilations 2, 3, 4 (bf16
-   and f32), with every stage of its stage mode and other batch sizes.
-   Print each error beside its tolerance and the kernel / plain / library
-   times (CUDA events) and bounds.
+   H=128 (f32 and bf16 streams, raw and packed ``w_hh``), with other batch
+   sizes (3 to 600) and hidden sizes on both of its routes; the stats head
+   at X (64, 279, 512) (bf16 and f32), W (512, 1500), 4 speakers; the
+   attention statistics at x (64, 501, 1536), hidden (64, 501, 128), 4
+   speakers (bf16 and f32); the SE-Res2Block at (64, 501, 512), scale 8,
+   dilations 2, 3, 4 (bf16 and f32), with every stage of its stage mode,
+   other batch sizes, and other lengths and time tiles of its cascade
+   (the result must not depend on the tile). Print each error beside its
+   tolerance, the kernel / plain / library times (CUDA events) and bounds,
+   the LSTM sweep at B=256 and the SE-Res2Block at B=8, and the device
+   time of each of the block's launches by name.
 3. Drive each full-width engine for 64 streams over 14 hops of int16
    audio (warm-up, running hops, one paused stream, one slot reset):
    ``tpu/pyannet`` 4x128 + ``tpu/xvector`` 512/1500, then ``tpu/pyannet``
@@ -37,6 +41,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -65,6 +70,16 @@ def smi_line() -> str:
         return f"nvidia-smi unavailable ({exc})"
 
 
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi gives it (for the LSTM's
+    latency floor). Raises where it cannot be read."""
+    text = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=30, check=True,
+    ).stdout.strip().splitlines()[0]
+    return float(text) * 1e6
+
+
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
 
@@ -87,56 +102,97 @@ def bound_ms(nbytes: float, flops: float, kind: str):
 
 
 # --------------------------------------------------------------------- #
+# The shortest dependent chain of one step of the tensor-core sweep that the
+# instruction latencies allow, in cycles: the barrier (~30), ldmatrix of h
+# (~33), one mma (~33; with every k tile in a chain of its own), the add tree
+# and the gate-stream add (~16), sigmoid/tanh of the gates side by side (~50:
+# two special-function calls and a few FMAs), the c update (8), tanh(c) (~50),
+# the scale and the bf16 rounding (8), the shared-memory store until the
+# barrier sees it (~30).
+LSTM_STEP_FLOOR_CYCLES = 258
+# bf16 stream: the kernel and the plain version round h to bf16 at the same
+# point; a last-bit difference in an f32 gate sum flips a bf16 rounding of an
+# output in [-1, 1] now and then (one ulp there is <= 2**-8) and feeds the
+# later steps: two ulps. f32: summation order only.
+LSTM_TOL = {"f32": 1e-4, "bf16": 2.0**-7}
+
+
 def check_lstm(dtype, gen):
     import torch
     from diart_tpu_torch.ops import lstm_sweep
 
     dev = "cuda"
-    proj = torch.randn(T_LSTM, 2, B, 4 * H, generator=gen).to(dev, dtype)
-    q = torch.linalg.qr(torch.randn(2, 4 * H, H, generator=gen))[0]  # orthonormal columns
-    w_hh = q.to(dev)
-    got = lstm_sweep.lstm_sweep_tm(proj, w_hh)
+    kind = "f32" if dtype == torch.float32 else "bf16"
+    tol = LSTM_TOL[kind]
+
+    def inputs(time, batch, hidden):
+        proj = torch.randn(time, 2, batch, 4 * hidden, generator=gen).to(dev, dtype)
+        q = torch.linalg.qr(torch.randn(2, 4 * hidden, hidden, generator=gen))[0]  # orthonormal columns
+        return proj, q.to(dev)
+
+    proj, w_hh = inputs(T_LSTM, B, H)
+    packed = lstm_sweep.pack_w_hh(w_hh, dtype)  # laid out once, as the model does
+    got = lstm_sweep.lstm_sweep_tm(proj, packed)
     want = lstm_sweep.lstm_sweep_reference(proj, w_hh)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    tol = 1e-4 if dtype == torch.float32 else 3e-2
-    kind = "f32" if dtype == torch.float32 else "bf16"
-    ms = time_ms(lambda: lstm_sweep.lstm_sweep_tm(proj, w_hh), 20)
+    if not torch.equal(got, lstm_sweep.lstm_sweep_tm(proj, w_hh)):
+        raise AssertionError(f"lstm_sweep[{kind}]: the raw and the packed w_hh give different results")
+    ms = time_ms(lambda: lstm_sweep.lstm_sweep_tm(proj, packed), 20)
+    raw_ms = time_ms(lambda: lstm_sweep.lstm_sweep_tm(proj, w_hh), 20)
     plain_ms = time_ms(lambda: lstm_sweep.lstm_sweep_reference(proj, w_hh), 3, warmup=1)
-    lib_ms, lib_note = None, ""
-    try:
-        # yardstick only: cuDNN's LSTM over the same (T, B) with the input
-        # projection included (input width 2H, as layers 2-4 of PyanNet)
-        lstm = torch.nn.LSTM(2 * H, H, bidirectional=True).to(dev, dtype)
-        lstm.flatten_parameters()
-        xin = torch.randn(T_LSTM, B, 2 * H, generator=gen).to(dev, dtype)
-        with torch.no_grad():
-            lib_ms = time_ms(lambda: lstm(xin), 20)
-    except Exception as exc:
-        lib_note = f" (cuDNN LSTM unavailable in {kind}: {type(exc).__name__})"
+    # yardstick only: cuDNN's LSTM over the same (T, B) includes the input
+    # projection (input width 2H, as layers 2-4 of PyanNet), so the time of
+    # that projection alone (one product and the bias, both directions) is
+    # taken off it
+    lstm = torch.nn.LSTM(2 * H, H, bidirectional=True).to(dev, dtype)
+    lstm.flatten_parameters()
+    xin = torch.randn(T_LSTM, B, 2 * H, generator=gen).to(dev, dtype)
+    w_ih = torch.randn(8 * H, 2 * H, generator=gen).to(dev, dtype)
+    b_ih = torch.randn(8 * H, generator=gen).to(dev, dtype)
+    with torch.no_grad():
+        cudnn_ms = time_ms(lambda: lstm(xin), 20)
+        proj_ms = time_ms(lambda: torch.addmm(b_ih, xin.view(-1, 2 * H), w_ih.t()), 20)
+    lib_ms = cudnn_ms - proj_ms
     elt = proj.element_size()
     nbytes = proj.numel() * elt + w_hh.numel() * 4 + got.numel() * elt
     flops = 2.0 * T_LSTM * 2 * B * 4 * H * H
     bms, by = bound_ms(nbytes, flops, kind)
     plan = lstm_sweep.launch_plan(B, H, dtype, proj.device)
+    floor_ms = T_LSTM * LSTM_STEP_FLOOR_CYCLES / sm_clock_hz() * 1e3 if plan["route"] == "mma" else None
+    # off B=64: 256 streams (the same plan on more blocks) and 528 (one wave of
+    # 8-row blocks on the tensor-core route)
+    p256, p528 = inputs(T_LSTM, 256, H)[0], inputs(T_LSTM, 528, H)[0]
+    ms_256 = time_ms(lambda: lstm_sweep.lstm_sweep_tm(p256, packed), 20)
+    ms_528 = time_ms(lambda: lstm_sweep.lstm_sweep_tm(p528, packed), 20)
+    del p256, p528
     log(
-        f"lstm_sweep[{kind}] T={T_LSTM} B={B} H={H}: max_abs_err={err:.3e} (tol {tol:.0e}) "
-        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} cudnn_lstm_ms={lib_ms}{lib_note} "
-        f"bound_ms={bms:.5f} ({by}) plan={plan}"
+        f"lstm_sweep[{kind}] T={T_LSTM} B={B} H={H}: max_abs_err={err:.3e} (tol {tol:.1e}) "
+        f"kernel_ms={ms:.4f} (raw w_hh, packed per call: {raw_ms:.4f}) plain_ms={plain_ms:.3f} "
+        f"cudnn_lstm_ms={cudnn_ms:.4f} less its input projection {proj_ms:.4f} = {lib_ms:.4f} "
+        f"bound_ms={bms:.5f} ({by}) argued latency_floor_ms={floor_ms} "
+        f"({LSTM_STEP_FLOOR_CYCLES} cycles a step at the card's highest clock; not a measurement) plan={plan}; "
+        f"B=256: kernel_ms={ms_256:.4f} plan={lstm_sweep.launch_plan(256, H, dtype, dev)}; "
+        f"B=528: kernel_ms={ms_528:.4f} plan={lstm_sweep.launch_plan(528, H, dtype, dev)}"
     )
     if not err <= tol:
         raise AssertionError(f"lstm_sweep[{kind}] disagrees with its plain version: {err} > {tol}")
-    # the other batch tiles of the launch plan, on short sequences
-    for batch in (3, 100, 200, 600):
-        p = torch.randn(37, 2, batch, 4 * H, generator=gen).to(dev, dtype)
-        e = (lstm_sweep.lstm_sweep_tm(p, w_hh).float()
-             - lstm_sweep.lstm_sweep_reference(p, w_hh).float()).abs().max().item()
-        log(f"  lstm_sweep[{kind}] T=37 B={batch} plan={lstm_sweep.launch_plan(batch, H, dtype, dev)}: "
-            f"max_abs_err={e:.3e} (tol {tol:.0e})")
+    # the other plans: batch tiles and the one-wave edge on short sequences,
+    # and other hidden sizes (64 takes the tensor-core route in bf16; 16, 40
+    # and 136 the FMA route)
+    cases = [(37, batch, H) for batch in (3, 8, 100, 200, 528, 529, 600)]
+    cases += [(37, 5, 64), (37, 9, 16), (21, 3, 40), (21, 3, 136)]
+    for time_, batch, hidden in cases:
+        p, w = inputs(time_, batch, hidden)
+        e = (lstm_sweep.lstm_sweep_tm(p, w).float()
+             - lstm_sweep.lstm_sweep_reference(p, w).float()).abs().max().item()
+        log(f"  lstm_sweep[{kind}] T={time_} B={batch} H={hidden} "
+            f"plan={lstm_sweep.launch_plan(batch, hidden, dtype, dev)}: max_abs_err={e:.3e} (tol {tol:.1e})")
         if not e <= tol:
-            raise AssertionError(f"lstm_sweep[{kind}] B={batch} disagrees with its plain version")
-    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms, plan=plan)
+            raise AssertionError(f"lstm_sweep[{kind}] B={batch} H={hidden} disagrees with its plain version")
+    return dict(max_abs_err=err, tol=tol, ms=ms, raw_w_hh_ms=raw_ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms, cudnn_lstm_ms=cudnn_ms, input_projection_ms=proj_ms,
+                argued_latency_floor_ms=floor_ms, ms_b256=ms_256, ms_b528=ms_528, plan=plan)
 
 
 def check_stats(dtype, gen):
@@ -267,6 +323,32 @@ def res2_unrounded_gate(x, params, dilation):
     return (x.float() + z2.float() * gate.float()[:, None, :]).to(dt)
 
 
+def res2_launch_times(call, calls: int = 10):
+    """Device time of each of the kernels one SE-Res2Block launches, from a
+    profile of ``calls`` blocks, longest first: (name, ms per block, launches
+    per block)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    call()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+        m = re.search(r"([A-Za-z_]\w*)\s*(<[^(]*>)?\s*\(", e.key.replace("(anonymous namespace)::", ""))
+        name = m.group(1) + (m.group(2) or "") if m else e.key[:40]
+        rows.append((name, us / 1e3 / calls, e.count / calls))
+    if not rows:
+        raise AssertionError("the profiler saw no device time for the SE-Res2Block")
+    return sorted(rows, key=lambda r: -r[1])
+
+
 def check_res2(dtype, gen):
     """The SE-Res2Block at (B, 501, 512), dilations 2, 3, 4; every stage of
     the stage mode; the full block and the concat at batch 1, 2, 3, 8."""
@@ -313,6 +395,28 @@ def check_res2(dtype, gen):
              f"block B={batch}", residual=xb)
         held(se_res2.se_res2_staged(xb, params, 3, RES2_SCALE - 1),
              se_res2.se_res2_stage_reference(xb, params, 3, RES2_SCALE - 1), f"concat B={batch}")
+    # the cascade's time split, at d = 4, under the tiles the wrapper plans:
+    # a length that is not a multiple of the tile (333 frames, 3 streams: 5
+    # tiles of 67); the shortest length d = 4 takes (pad < T) and 40 frames,
+    # where both reflected ends fall inside one tile; 7 tiles a stream; 100
+    # streams, whose windows have more than 256 rows (the 16-warp kernel).
+    # The same streams in a smaller batch run under another tile, and the
+    # kernel's result must not depend on the tile at all.
+    last = RES2_SCALE - 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for time_, batch in ((333, 3), (5, 2), (40, 2), (T_ECAPA, 2), (T_ECAPA, 100)):
+        xb = (x if batch <= B else torch.cat([x, x[:batch - B]]))[:batch, :time_].contiguous()
+        got_c = se_res2.se_res2_staged(xb, ops, 4, last)
+        got_b = se_res2.fused_se_res2_block(xb, ops, 4)
+        tile = se_res2.cascade_tile(batch, time_, dtype, sms)
+        held(got_c, se_res2.se_res2_stage_reference(xb, params, 4, last), f"concat T={time_} tile={tile}")
+        held(got_b, se_res2.se_res2_block_reference(xb, *params, 4), f"block T={time_} tile={tile}",
+             residual=xb)
+        if batch > 1 and se_res2.cascade_tile(1, time_, dtype, sms) != tile:
+            one_c = se_res2.se_res2_staged(xb[:1], ops, 4, last)
+            one_b = se_res2.fused_se_res2_block(xb[:1], ops, 4)
+            if not (torch.equal(one_c, got_c[:1]) and torch.equal(one_b, got_b[:1])):
+                failures.append(f"T={time_}: the result depends on the time tile ({tile})")
     if failures:
         raise AssertionError(f"se_res2[{kind}] disagrees with its plain version: " + "; ".join(failures))
     mutant = None
@@ -336,8 +440,10 @@ def check_res2(dtype, gen):
     flops = 2.0 * B * T_ECAPA * (2 * C_ECAPA * C_ECAPA + groups * 3 * width * width)
     flops += 2.0 * B * 2 * C_ECAPA * SE_HIDDEN
     bms, by = bound_ms(nbytes, flops, kind)
+    x8 = x[:8].contiguous()
+    ms_b8 = time_ms(lambda: se_res2.fused_se_res2_block(x8, ops, 2), 20)
+    by_launch = res2_launch_times(lambda: se_res2.fused_se_res2_block(x, ops, 2))
     # the stage mode's longest run: z1 and the whole cascade (the concat)
-    last = RES2_SCALE - 1
     stage_ms = time_ms(lambda: se_res2.se_res2_staged(x, ops, 2, last), 20)
     stage_plain_ms = time_ms(lambda: se_res2.se_res2_stage_reference(x, params, 2, last), 5)
     stage_bytes = 2 * x.numel() * elt + (C_ECAPA * C_ECAPA + groups * 3 * width * width) * elt
@@ -348,16 +454,25 @@ def check_res2(dtype, gen):
         f"se_res2[{kind}] x=({B},{T_ECAPA},{C_ECAPA}) scale {RES2_SCALE}: block max_abs_err "
         + ", ".join(f"d={d} {e:.3e} (tol {t:.3e})" for d, (e, t) in errs.items())
         + f"; {len(stage_errs)} stages max_abs_err={max(stage_errs):.3e}; batch 1/2/3/8 ok; "
+        + "time tiles ok (T=333, 5, 40, 501; the result does not depend on the tile); "
         + (f"mean abs err, worst against its tol: {worst_mean[0]:.3e} (tol {worst_mean[1]:.3e} = "
            f"2^-12 x mean|computed|); " if worst_mean else "")
         + f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.5f} ({by}); "
         f"stage {last} kernel_ms={stage_ms:.4f} plain_ms={stage_plain_ms:.4f} "
-        f"bound_ms={stage_bms:.5f} ({stage_by})"
+        f"bound_ms={stage_bms:.5f} ({stage_by}); B=8: kernel_ms={ms_b8:.4f} "
+        f"(time tile {se_res2.cascade_tile(8, T_ECAPA, dtype, torch.cuda.get_device_properties(0).multi_processor_count)}, "
+        f"B={B}: {se_res2.cascade_tile(B, T_ECAPA, dtype, torch.cuda.get_device_properties(0).multi_processor_count)})"
     )
+    device_ms = sum(ms_ for _, ms_, _ in by_launch)
+    log(f"  se_res2[{kind}] device ms of each launch of one block (profile of 10 calls): "
+        + ", ".join(f"{name} {ms_:.4f} x{n:g}" for name, ms_, n in by_launch)
+        + f"; sum {device_ms:.4f} (kernel_ms above is CUDA events around 20 calls: it also holds the "
+        "gaps between the five launches when the host enqueues slower than the card runs)")
     stage = dict(max_abs_err=max(stage_errs), stages_checked=len(stage_errs), ms=stage_ms,
                  plain_ms=stage_plain_ms, bound_ms=stage_bms, bound_by=stage_by)
     return dict(max_abs_err=err, tol=tol, worst_mean_err=worst_mean, unrounded_gate_mean_err=mutant,
-                ms=ms, plain_ms=plain_ms,
+                ms=ms, plain_ms=plain_ms, ms_b8=ms_b8, device_ms=device_ms,
+                by_launch=[dict(name=n, ms=m, per_block=c) for n, m, c in by_launch],
                 bound_ms=bms, bound_by=by, library_ms=None, stage=stage)
 
 
@@ -622,7 +737,9 @@ def main() -> int:
     kernels = [
         dict(name="lstm_sweep", route="cuda", source="diart_tpu_torch/csrc/lstm_sweep.cu",
              replaces="diart_tpu/ops/pallas_lstm.py:494", launches=ec["lstm_sweep"],
-             launches_xvector_path=xv["lstm_sweep"], **{k: lstm["bf16"][k] for k in KEYS}),
+             launches_xvector_path=xv["lstm_sweep"], **{k: lstm["bf16"][k] for k in KEYS},
+             ms_b256=lstm["bf16"]["ms_b256"], ms_b528=lstm["bf16"]["ms_b528"],
+             ms_f32=lstm["f32"]["ms"], plan=lstm["bf16"]["plan"]),
         dict(name="linear_stats", route="cuda", source="diart_tpu_torch/csrc/linear_stats.cu",
              replaces="diart_tpu/ops/pallas_stats.py:163", launches=xv["linear_stats"],
              **{k: stats["bf16"][k] for k in KEYS}),
@@ -631,7 +748,9 @@ def main() -> int:
              **{k: attn["bf16"][k] for k in KEYS}),
         dict(name="se_res2", route="cuda", source="diart_tpu_torch/csrc/se_res2.cu",
              replaces="diart_tpu/ops/pallas_res2.py:294", launches=ec["se_res2"],
-             **{k: res2["bf16"][k] for k in KEYS},
+             **{k: res2["bf16"][k] for k in KEYS}, ms_b8=res2["bf16"]["ms_b8"],
+             device_ms=res2["bf16"]["device_ms"],
+             ms_f32=res2["f32"]["ms"], by_launch=res2["bf16"]["by_launch"],
              stage_mode=dict(res2["bf16"]["stage"], entry="se_res2_staged",
                              replaces=["scripts/res2_stage_debug.py:141",
                                        "scripts/res2_stage_debug.py:49",

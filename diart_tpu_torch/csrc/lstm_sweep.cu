@@ -11,44 +11,49 @@
 //
 // h and c are f32; h is rounded to the stream dtype before it multiplies
 // w_hh (as the TPU kernel casts h to w_hh's dtype), and the output is
-// written in the stream dtype. Gate math uses precise expf/tanhf.
+// written in the stream dtype.
 //
 // What bounds it on the H100: not bytes or FLOPs. At T=293, B=64, H=128 a
-// layer moves ~48 MB (bf16) and does ~4.9 GFLOP — ~15 us at the card's
-// peaks — but the recurrence is 293 dependent steps, each a (B, H) x (H, 4H)
-// product followed by a barrier. The kernel is latency-bound: its time is
-// T x (the time of one step inside one block).
+// layer moves ~48 MB (bf16) and does ~4.9 GFLOP -- ~15 us at the card's
+// peaks -- but the recurrence is T dependent steps. The kernel is
+// latency-bound: its time is T x (the time of one step inside one block),
+// so the design shortens the step. ONE persistent launch per layer runs the
+// whole time loop; one block per (direction, batch tile).
 //
-// Design:
-// * ONE persistent launch per layer: the whole time loop runs inside the
-//   kernel (never one launch per step). One block per (direction, tile of
-//   BT batch rows). Each step has two phases split by __syncthreads:
-//   1. the (BT, H) x (H, 4H) product: KS groups of H threads each take a
-//      quarter (KS=4) or half (KS=2) of the k range; thread j of a group
-//      accumulates all four gate rows of hidden unit j for the BT rows and
-//      leaves its partial sums in shared memory;
-//   2. thread (j, q) sums the KS partials of its gates in a fixed order
-//      (deterministic) and updates the cell of hidden unit j for batch
-//      rows b = q, q + KS, ...: c stays in that thread's registers, h goes
-//      to shared memory for the next step and to the output.
-// * w_hh is packed by the wrapper as (2, H_k, H_j, 4 gates) so thread j
-//   reads its 4 gate weights for one k with one vector load, neighbouring
-//   threads on neighbouring addresses. In bf16 (the default stream dtype)
-//   one direction's w_hh is 4H*H*2 = 128 KB and is held in dynamic shared
-//   memory for the whole sweep. In f32 it is 256 KB, above the 227 KB a
-//   block may use, so the f32 path reads it through L2 (resident there:
-//   512 KB for both directions).
-// * Each step's gate-stream values are loaded one step ahead, so their
-//   latency hides behind the previous step.
-// * BT adapts to the batch and the card: with w_hh in shared memory the
-//   smallest BT in {1, 2, 4, 8} whose 2 * ceil(B / BT) blocks fit one wave
-//   on the card's SMs (B=64 on an H100: BT=1, 128 blocks) — the per-step
-//   latency shrinks with BT while every extra block takes an idle SM. The
-//   f32 path, whose weights come from L2 per step, keeps BT=4 so fewer
-//   blocks re-read them.
-// * Known limit, left for later work: beyond one wave (B > 4 x SMs) the
-//   blocks run in several waves; splitting a direction's gate rows over a
-//   thread-block cluster would then cut the per-step time.
+// Two routes, chosen by the wrapper (`lstm_sweep_plan` reports them):
+//
+// * Tensor-core route (bf16 stream, H = 128 or 64):
+//   gates^T (4H x 8) = w_hh (4H x H) @ h^T (H x 8) as `mma.sync` m16n8k16
+//   tiles. Warp w owns hidden units 8w..8w+7: its two m16 tiles hold rows
+//   (i, f) and (g, o) of those units, so the accumulator layout hands ONE
+//   thread all four gates of one unit for its two batch columns. w_hh is
+//   packed by the wrapper in fragment order and loaded ONCE into registers
+//   (H/2 registers a thread) for the whole sweep: no weight traffic per
+//   step, no partial sums in shared memory. A step is: ldmatrix of h (bf16,
+//   shared memory), H/16 mma per tile in two interleaved chains, the cell
+//   update in registers (c never leaves them), h rounded to bf16 into the
+//   other half of a double-buffered (8 x H) tile and to `out`, ONE barrier.
+//   The gate stream arrives through a 4-stage `cp.async` ring (16 B per
+//   thread per step), three steps ahead, issued under the products.
+//   A block holds 4 batch rows while 2 * ceil(B / 4) blocks fit one wave of
+//   the card, else 8: with 8 every lane updates two cells, and the gate
+//   math of the 16 warps, not the products, is what a step waits for; with
+//   4 the two lanes of each quad that would idle take one cell each by a
+//   shuffle. The gate math uses ex2.approx / rcp.approx (see
+//   `fast_sigmoid`): with 4 warps on each scheduler, expf, tanhf and the
+//   IEEE division made a sweep a quarter longer. What a step still waits for:
+//   the tensor pipe takes the 64 mma of a scheduler's 4 warps one after
+//   another, and every warp re-reads the whole h tile.
+// * FMA route (f32 stream, or any other H <= 256): true f32 has no
+//   tensor-core form. KS groups of H threads split the k range, leave
+//   partial sums in shared memory and sum them in a fixed order after a
+//   barrier; w_hh packed as (2, H_k, H_j, 4 gates) sits in shared memory
+//   when it fits (bf16) and is read through L2 otherwise (f32, 256 KB a
+//   direction); the batch tile BT in {1, 2, 4, 8} fills one wave of SMs;
+//   precise expf/tanhf. Known limit, left for later work: a cluster of 2
+//   blocks could hold the f32 w_hh in shared memory and exchange h through
+//   distributed shared memory.
+// Both are deterministic (no atomics).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -214,6 +219,233 @@ __global__ void __launch_bounds__(512) lstm_sweep_kernel(
   }
 }
 
+// --------------------------------------------------------------------- //
+// Tensor-core route.
+
+constexpr int MMA_N = 8;       // the n of m16n8k16: the h tile's rows
+constexpr int MMA_STAGES = 4;  // gate-stream ring
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared; `bytes` = 0 fills the destination with zeros
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// row strides (elements) of the h tile and of a gate-stream row
+__host__ __device__ constexpr int mma_h_stride(int kt) { return (kt + 1) / 2 * 32 + 8; }
+__host__ __device__ constexpr int mma_x_stride(int kt) { return kt * 64 + 8; }
+__host__ __device__ constexpr size_t mma_smem(int kt, int bt) {
+  return sizeof(__nv_bfloat16) *
+         (2 * MMA_N * mma_h_stride(kt) + MMA_STAGES * bt * mma_x_stride(kt));
+}
+
+// Gate math of the tensor-core route: ex2.approx and rcp.approx in place of
+// expf, tanhf and the IEEE division. Their absolute error in [0, 1] and
+// [-1, 1] is below 1e-6, the size of the f32 sums' own reordering noise,
+// and far below the bf16 rounding of h. Measured on an H100 against the same
+// kernel with the precise functions: the same error against the plain
+// version, and a fifth less time a sweep.
+__device__ __forceinline__ float fast_sigmoid(float x) {
+  return __fdividef(1.0f, 1.0f + __expf(-x));
+}
+__device__ __forceinline__ float fast_tanh(float x) {
+  return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * x));
+}
+
+// H = 16 KT, blockDim.x = 4H (H/8 warps). proj (T, 2, B, 4H) bf16; wp: w_hh
+// in fragment order, one uint4 per [d][warp][tile][k tile][lane] (the
+// wrapper's pack); out (T, 2, B, H) bf16. BT = 8 batch rows a block: lane
+// (gid, tig) updates unit 8 warp + gid for rows 2 tig and 2 tig + 1, as the
+// accumulators fall. BT = 4: rows 4..7 of the n = 8 tile stay empty, and the
+// two lanes that would idle take over each second row by one shuffle per
+// gate, so every lane updates one cell.
+template <int KT, int BT>
+__global__ void __launch_bounds__(KT * 64, 1) lstm_sweep_mma(
+    const __nv_bfloat16* __restrict__ proj, const uint4* __restrict__ wp,
+    __nv_bfloat16* __restrict__ out, int time, int batch) {
+  static_assert(BT == 4 || BT == 8, "4 or 8 batch rows a block");
+  constexpr int ST = MMA_STAGES;
+  static_assert(ST % 2 == 0, "a trip of ST steps must leave the h buffers where they were");
+  constexpr int H = KT * 16;
+  constexpr int NT = KT * 64;
+  constexpr int HS = mma_h_stride(KT);
+  constexpr int XS = mma_x_stride(KT);
+  constexpr int CHUNKS = H / 2;  // 16-byte chunks of one gate-stream row
+  constexpr int CELLS = BT / 4;  // cells a lane updates
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* h_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][8][HS]
+  __nv_bfloat16* x_s = h_s + 2 * MMA_N * HS;                    // [ST][BT][XS]
+
+  const int d = blockIdx.y;
+  const int b0 = blockIdx.x * BT;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int unit = warp * 8 + gid;  // the hidden unit this thread updates
+  // ... for batch rows b0 + col (+ 1 when BT = 8)
+  const int col = BT == 8 ? tig * 2 : (tig & 1) * 2 + (tig >> 1);
+
+  // w_hh: this thread's A fragments, for the whole sweep
+  uint4 wa[2][KT];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt)
+      wa[mt][kt] = wp[((((size_t)d * (H / 8) + warp) * 2 + mt) * KT + kt) * 32 + lane];
+
+  for (int i = tid; i < 2 * MMA_N * HS; i += NT) h_s[i] = __float2bfloat16(0.0f);
+
+  // Direction 1 walks time backwards: step 0 is frame T - 1, and every
+  // pointer moves by a signed stride per step.
+  const size_t slab = (size_t)batch * 4 * H;  // gate-stream elements per (t, d)
+  const size_t first = d == 0 ? 0 : (size_t)(time - 1);
+  const ptrdiff_t x_step = d == 0 ? (ptrdiff_t)(2 * slab) : -(ptrdiff_t)(2 * slab);
+  const ptrdiff_t o_step = x_step / 4;  // out has H per row where proj has 4H
+
+  // the gate-stream ring: thread -> one 16-byte chunk of one of the BT rows
+  // (BT = 4: the first half of the threads)
+  const int xr = tid / CHUNKS, xc = tid % CHUNKS;
+  const bool x_mine = xr < BT;
+  const int x_bytes = b0 + xr < batch ? 16 : 0;  // a row past the batch: zeros
+  const __nv_bfloat16* x_src =
+      proj + (first * 2 + d) * slab + (size_t)(x_bytes ? b0 + xr : 0) * 4 * H + xc * 8;
+  const unsigned x_dst = smem_u32(x_s + xr * XS + xc * 8);
+  auto issue = [&](int stage, bool in_time) {
+    if (x_mine && in_time) {
+      cp_async16(x_dst + stage * BT * XS * 2, x_src, x_bytes);
+      x_src += x_step;
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int t = 0; t < ST - 1; ++t) issue(t, t < time);
+  cp_async_wait<ST - 2>();
+  __syncthreads();
+
+  // ldmatrix row address of this lane: batch row lane % 8, k offset 8 (lane / 8)
+  const unsigned h_addr = smem_u32(h_s + (lane & 7) * HS + (lane >> 3) * 8);
+  __nv_bfloat16* orow = out + ((first * 2 + d) * batch + b0 + col) * H + unit;
+  const bool row_ok[2] = {b0 + col < batch, b0 + col + 1 < batch};
+  float c[CELLS];
+#pragma unroll
+  for (int j = 0; j < CELLS; ++j) c[j] = 0.0f;
+
+  // ST steps per trip, so the ring stage and the h buffer are constants
+  for (int t0 = 0; t0 < time; t0 += ST) {
+#pragma unroll
+    for (int u = 0; u < ST; ++u) {
+      if (t0 + u >= time) break;
+      const int cur = u & 1;
+      // this step's gate-stream values: [gate][cell]
+      const __nv_bfloat16* xs = x_s + (u * BT + col) * XS + unit;
+      float x[4][CELLS];
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int j = 0; j < CELLS; ++j) x[g][j] = __bfloat162float(xs[j * XS + g * H]);
+      // h^T as B fragments: one ldmatrix.x4 per pair of k tiles
+      unsigned hb[(KT + 1) / 2][4];
+#pragma unroll
+      for (int kp = 0; kp < (KT + 1) / 2; ++kp)
+        ldmatrix_x4(h_addr + (cur * MMA_N * HS + kp * 32) * 2, hb[kp]);
+      // two interleaved chains per tile (even and odd k tiles), summed at the end
+      float acc[2][2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int ch = 0; ch < 2; ++ch)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][ch][i] = 0.0f;
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          mma_bf16(acc[mt][kt & 1], wa[mt][kt], hb[kt >> 1][(kt & 1) * 2],
+                   hb[kt >> 1][(kt & 1) * 2 + 1]);
+      issue((u + ST - 1) % ST, t0 + u + ST - 1 < time);  // under the products
+
+      // accumulator rows gid / gid + 8 of tile 0 are gates i / f, of tile 1
+      // g / o; its columns are batch rows 2 tig, 2 tig + 1: s[gate][column]
+      float s[4][2];
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          s[g][j] = acc[g >> 1][0][(g & 1) * 2 + j] + acc[g >> 1][1][(g & 1) * 2 + j];
+      if constexpr (BT == 4) {  // lanes tig 2, 3 take column 1 of lanes tig 0, 1
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float other = __shfl_xor_sync(0xffffffffu, s[g][1], 2);
+          s[g][0] = (tig & 2) ? other : s[g][0];
+        }
+      }
+      __nv_bfloat16* hn = h_s + ((cur ^ 1) * MMA_N + col) * HS + unit;
+#pragma unroll
+      for (int j = 0; j < CELLS; ++j) {
+        const float gi = x[0][j] + s[0][j], gf = x[1][j] + s[1][j];
+        const float gg = x[2][j] + s[2][j], go = x[3][j] + s[3][j];
+        c[j] = fast_sigmoid(gf) * c[j] + fast_sigmoid(gi) * fast_tanh(gg);
+        const __nv_bfloat16 hq = __float2bfloat16_rn(fast_sigmoid(go) * fast_tanh(c[j]));
+        hn[j * HS] = hq;
+        if (row_ok[j]) orow[j * H] = hq;
+      }
+      orow += o_step;
+      cp_async_wait<ST - 2>();
+      __syncthreads();
+    }
+  }
+}
+
+template <int KT, int BT>
+int launch_mma(const void* proj, const void* wp, void* out, int time, int batch,
+               cudaStream_t stream) {
+  const dim3 grid((batch + BT - 1) / BT, 2);
+  lstm_sweep_mma<KT, BT><<<grid, KT * 64, mma_smem(KT, BT), stream>>>(
+      static_cast<const __nv_bfloat16*>(proj), static_cast<const uint4*>(wp),
+      static_cast<__nv_bfloat16*>(out), time, batch);
+  return (int)cudaGetLastError();
+}
+
+template <int BT>
+int launch_mma_kt(int kt, const void* proj, const void* wp, void* out, int time, int batch,
+                  cudaStream_t s) {
+  switch (kt) {
+    case 4: return launch_mma<4, BT>(proj, wp, out, time, batch, s);
+    case 8: return launch_mma<8, BT>(proj, wp, out, time, batch, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// 4 batch rows a block while that fits one wave of the card, else 8
+int mma_rows(int batch, int num_sms) { return 2 * ((batch + 3) / 4) <= num_sms ? 4 : 8; }
+
+// the tensor-core route takes a bf16 stream with H = 128 (the published
+// segmentation model) or 64 (the half-width `lstm_hidden` its entry point
+// also takes); every other size runs the FMA route
+bool mma_route(int hidden, int dtype) { return dtype == 1 && (hidden == 128 || hidden == 64); }
+
 struct Plan {
   int bt, ks, hp;
   bool w_smem;
@@ -282,26 +514,43 @@ int launch(const void* proj, const void* wp, void* out, int time, int batch, int
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; num_sms: the card's SM count (sizes the
-// batch tile). Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16; route: 1 = tensor cores (wp in fragment
+// order), 0 = FMA (wp as [d][k][j][gate]) -- it must be the route
+// `lstm_sweep_plan` gives for this size; num_sms: the card's SM count (sizes
+// the FMA route's batch tile). Returns the cudaError_t of the launch.
 extern "C" int lstm_sweep_launch(const void* proj, const void* wp, void* out, int time, int batch,
-                                 int hidden, int dtype, int num_sms, void* stream) {
-  if (time < 1 || batch < 1 || hidden < 1 || hidden > 256 || num_sms < 1)
+                                 int hidden, int dtype, int route, int num_sms, void* stream) {
+  if (time < 1 || batch < 1 || hidden < 1 || hidden > 256 || num_sms < 1 ||
+      (dtype != 0 && dtype != 1) || route != (int)mma_route(hidden, dtype))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (mma_rows(batch, num_sms) == 4)
+      return launch_mma_kt<4>(hidden / 16, proj, wp, out, time, batch, s);
+    return launch_mma_kt<8>(hidden / 16, proj, wp, out, time, batch, s);
+  }
   if (dtype == 0) return launch<float>(proj, wp, out, time, batch, hidden, num_sms, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(proj, wp, out, time, batch, hidden, num_sms, s);
-  return (int)cudaErrorInvalidValue;
+  return launch<__nv_bfloat16>(proj, wp, out, time, batch, hidden, num_sms, s);
 }
 
-// The launch plan for a sweep of this size: rows per block (BT), k groups
-// (KS), and 1 if w_hh is held in shared memory — for reports.
-extern "C" void lstm_sweep_plan(int batch, int hidden, int dtype, int num_sms, int* bt, int* ks,
-                                int* w_smem) {
+// The launch plan for a sweep of this size, for reports: the route (1 =
+// tensor cores, 0 = FMA), batch rows per block, k groups (FMA route; 0
+// otherwise) and where w_hh lives during the sweep (2 = registers, 1 =
+// shared memory, 0 = global memory through L2).
+extern "C" void lstm_sweep_plan(int batch, int hidden, int dtype, int num_sms, int* route, int* bt,
+                                int* ks, int* w_home) {
+  if (mma_route(hidden, dtype)) {
+    *route = 1;
+    *bt = mma_rows(batch, num_sms);
+    *ks = 0;
+    *w_home = 2;
+    return;
+  }
   const Plan p = plan(batch, hidden, dtype == 0 ? 4 : 2, num_sms);
+  *route = 0;
   *bt = p.bt;
   *ks = p.ks;
-  *w_smem = p.w_smem;
+  *w_home = p.w_smem ? 1 : 0;
 }
 
 extern "C" const char* lstm_sweep_error_string(int err) {

@@ -6,7 +6,10 @@ one matrix product outside the recurrence; the recurrence itself is
 :func:`diart_tpu_torch.ops.lstm_sweep.lstm_sweep_tm`, which walks direction 1
 backwards by indexing, so no time-flipped copy of the gate stream is ever
 made. Gate order is PyTorch's (i, f, g, o). With ``bf16_lstm`` (CUDA only)
-the gate stream and the hidden states are stored in bf16.
+the gate stream and the hidden states are stored in bf16. Each layer's
+``w_hh`` is laid out for the sweep kernel once per stream dtype
+(:func:`diart_tpu_torch.ops.lstm_sweep.pack_w_hh`) and laid out again only
+when the parameter changes.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 from torch import nn
 
 from .. import precision
-from ..ops.lstm_sweep import lstm_sweep_tm
+from ..ops.lstm_sweep import SweepWeights, lstm_sweep_tm, pack_w_hh
 
 __all__ = ["BiLSTM"]
 
@@ -37,6 +40,18 @@ class BiLSTM(nn.Module):
             self.register_parameter(f"l{layer}_w_ih", nn.Parameter(torch.zeros(2, 4 * h, in_dim)))
             self.register_parameter(f"l{layer}_w_hh", nn.Parameter(torch.zeros(2, 4 * h, h)))
             self.register_parameter(f"l{layer}_b", nn.Parameter(torch.zeros(2, 4 * h)))
+        self._packed = {}  # (layer, stream dtype) -> (key, SweepWeights)
+
+    def packed_w_hh(self, layer: int, dtype: torch.dtype) -> SweepWeights:
+        """Layer ``layer``'s ``w_hh`` laid out for a sweep in ``dtype``, made
+        once and made again only when the parameter changes (an in-place
+        update, a load, a move to another device)."""
+        w_hh = getattr(self, f"l{layer}_w_hh")
+        key = (w_hh.data_ptr(), w_hh._version, w_hh.device)
+        held = self._packed.get((layer, dtype))
+        if held is None or held[0] != key:
+            held = self._packed[(layer, dtype)] = (key, pack_w_hh(w_hh, dtype))
+        return held[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (T, B, F) -> (T, B, 2H), in the stream dtype."""
@@ -50,6 +65,8 @@ class BiLSTM(nn.Module):
             y = torch.matmul(x.to(stream), w_ih.to(stream).reshape(2 * g4, -1).t())
             proj = (y.view(time, batch, 2, g4).float() + b).to(stream)
             proj_t = proj.transpose(1, 2).contiguous()  # (T, 2, B, 4H)
-            out_t = lstm_sweep_tm(proj_t, w_hh)  # (T, 2, B, H)
+            # the pack is cut off from autograd: a trained w_hh goes in as it is
+            trained = torch.is_grad_enabled() and w_hh.requires_grad
+            out_t = lstm_sweep_tm(proj_t, w_hh if trained else self.packed_w_hh(layer, stream))
             x = torch.cat([out_t[:, 0], out_t[:, 1]], dim=-1)
         return x

@@ -1,6 +1,6 @@
 from .attn_stats import attentive_stats_reference, fused_attentive_stats
 from .linear_stats import fused_linear_stats, linear_stats_reference
-from .lstm_sweep import lstm_sweep_reference, lstm_sweep_tm
+from .lstm_sweep import SweepWeights, lstm_sweep_reference, lstm_sweep_tm, pack_w_hh
 from .se_res2 import (
     Res2Operands,
     fused_se_res2_block,
@@ -12,6 +12,7 @@ from .se_res2 import (
 
 __all__ = [
     "Res2Operands",
+    "SweepWeights",
     "attentive_stats_reference",
     "fused_attentive_stats",
     "fused_linear_stats",
@@ -20,6 +21,7 @@ __all__ = [
     "linear_stats_reference",
     "lstm_sweep_reference",
     "lstm_sweep_tm",
+    "pack_w_hh",
     "se_res2_block_reference",
     "se_res2_stage_reference",
     "se_res2_staged",

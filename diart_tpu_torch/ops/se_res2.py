@@ -16,6 +16,11 @@ activation dtype, as the TPU kernel's wrapper does; the gate MLP stays f32.
 :func:`kernel_operands` lays the tuple out for the kernel once; the
 wrappers take either form, so a model with fixed weights prepares its
 operands once instead of on every call.
+
+The kernel splits the group cascade in time: :func:`cascade_tile` gives the
+frames of one tile for a batch on a card, and :func:`cascade_tiled` is the
+plain version of that split (window, halo, the in-place group input), equal
+to the unsplit cascade whatever the tile.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from .functional import reflect_index
 
 __all__ = [
     "Res2Operands",
+    "cascade_tile",
+    "cascade_tiled",
     "fused_se_res2_block",
     "kernel_operands",
     "se_res2_block_reference",
@@ -39,7 +46,8 @@ __all__ = [
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_WIDTH = 64  # the cascade kernel takes 64-wide groups (C = 64 * scale)
-KERNEL_MAX_TIME = 512  # and at most 512 frames (one stream's group in shared memory)
+KERNEL_MAX_TIME = 512  # and at most 512 frames (a tile's window of one group in shared memory)
+MIN_TILE = 64  # frames: shorter tiles mostly recompute halos
 
 
 def _tdnn(v, w, b, a, c):
@@ -69,6 +77,54 @@ def _cascade(z1, wg, bg, ag, cg, dilation: int, run_groups: int):
         outputs.append(y)
     outputs.extend(torch.zeros_like(chunks[0]) for _ in range(groups - run_groups))
     return torch.cat(outputs, dim=-1)
+
+
+def cascade_tile(batch: int, time: int, dtype: torch.dtype, num_sms: int) -> int:
+    """Frames of one time tile of the kernel's cascade: as many tiles a
+    stream as fill the card's block slots (two a multiprocessor for the bf16
+    kernel, one for the f32 kernel) in one wave, none shorter than
+    ``MIN_TILE``. The kernel's result does not depend on the tile, only its
+    time does."""
+    slots = num_sms * (2 if dtype == torch.bfloat16 else 1)
+    tiles = max(1, min(slots // batch, time // MIN_TILE))
+    return -(-time // tiles)
+
+
+def cascade_tiled(z1, wg, bg, ag, cg, dilation: int, run_groups: int, tile: int):
+    """:func:`_cascade` the way the kernel splits it: each tile of ``tile``
+    frames works alone on its window, the tile and ``run_groups * pad``
+    frames a side, clipped to the sequence. Group i is computed on the tile
+    and ``(run_groups - i) * pad`` frames a side; its input rows, shifted by
+    each tap and reflected only at the sequence's two ends, all lie where
+    group i - 1 was computed, and ``g_{i+1} + y_i`` overwrites them in
+    place. Only the tile's own rows of each y go out."""
+    dt = z1.dtype
+    groups, taps, width, _ = wg.shape
+    time = z1.shape[1]
+    pad = (taps - 1) * dilation // 2
+    wq = wg.to(dt).float()
+    out = torch.zeros_like(z1)
+    for t0 in range(0, time, tile):
+        t1 = min(time, t0 + tile)
+        out[:, t0:t1, :width] = z1[:, t0:t1, :width]
+        wlo, whi = max(0, t0 - run_groups * pad), min(time, t1 + run_groups * pad)
+        inp = z1[:, wlo:whi, width:2 * width].clone()  # the window's group input
+        for i in range(1, run_groups + 1):
+            lo, hi = max(0, t0 - (run_groups - i) * pad), min(time, t1 + (run_groups - i) * pad)
+            rows = torch.arange(lo, hi, device=z1.device)
+            acc = 0.0
+            for j in range(taps):
+                src = rows + (j * dilation - pad)
+                src = torch.where(src < 0, -src, src)
+                src = torch.where(src >= time, 2 * (time - 1) - src, src)
+                if int(src.min()) < wlo or int(src.max()) >= whi:
+                    raise AssertionError("a tap reads outside the tile's window")
+                acc = acc + torch.matmul(inp.index_select(1, src - wlo).float(), wq[i - 1, j])
+            y = (torch.relu(acc + bg[i - 1].float()) * ag[i - 1].float() + cg[i - 1].float()).to(dt)
+            out[:, t0:t1, i * width:(i + 1) * width] = y[:, t0 - lo:t1 - lo]
+            if i < run_groups:
+                inp[:, lo - wlo:hi - wlo] = z1[:, lo:hi, (i + 1) * width:(i + 2) * width] + y
+    return out
 
 
 def se_res2_block_reference(x, w1, b1, a1, c1, wg, bg, ag, cg, w2, b2, a2, c2,
@@ -139,9 +195,9 @@ Params = Union[Sequence[torch.Tensor], Res2Operands]
 
 def _signature(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.se_res2_block_launch.argtypes = [p] * 16 + [i] * 8 + [p]
+    lib.se_res2_block_launch.argtypes = [p] * 15 + [i] * 9 + [p]
     lib.se_res2_block_launch.restype = i
-    lib.se_res2_staged_launch.argtypes = [p] * 6 + [i] * 8 + [p]
+    lib.se_res2_staged_launch.argtypes = [p] * 7 + [i] * 9 + [p]
     lib.se_res2_staged_launch.restype = i
 
 
@@ -177,11 +233,18 @@ def _operands(x, params: Params, dilation: int) -> Res2Operands:
     return ops
 
 
+def _aligned(x):
+    """x contiguous at a 16-byte boundary (the kernels move 16 bytes a thread)."""
+    xc = x.contiguous()
+    return xc.clone() if xc.data_ptr() % 16 else xc
+
+
 def fused_se_res2_block(x, params: Params, dilation: int):
     """One SE-Res2Block of x (B, T, C) f32 or bf16 with the 16-tuple
     ``params`` or its :class:`Res2Operands`; returns (B, T, C) in x's
-    dtype. Counts one launch per call (the block's five kernels run on the
-    caller's stream)."""
+    dtype. Counts one launch per call (the block's five kernels run on the caller's stream). Two
+    (B, T, C) buffers: the output, which holds z1 and z2 on the way, and the
+    concat."""
     k = _operands(x, params, dilation)
     if x.device.type == "cpu":
         return se_res2_block_reference(x, *k.params(), dilation)
@@ -189,16 +252,17 @@ def fused_se_res2_block(x, params: Params, dilation: int):
     groups, taps = k.wg.shape[:2]
     hidden = k.ws1.shape[1]
     lib = _build.library("se_res2", _signature)
-    xc = x.contiguous()
-    out, cat, z2 = torch.empty_like(xc), torch.empty_like(xc), torch.empty_like(xc)
+    xc = _aligned(x)
+    out, cat = torch.empty_like(xc), torch.empty_like(xc)
     part = torch.empty(batch, -(-time // 64), chans, device=x.device)
     gate = torch.empty(batch, chans, device=x.device)
+    tile = cascade_tile(batch, time, x.dtype, _build.num_sms(x.device))
     ptr = lambda t: t.data_ptr()
     with torch.cuda.device(x.device):
         err = lib.se_res2_block_launch(
-            ptr(xc), ptr(out), ptr(cat), ptr(z2), ptr(part), ptr(gate),
+            ptr(xc), ptr(out), ptr(cat), ptr(part), ptr(gate),
             *map(ptr, k),
-            batch, time, chans, groups, taps, hidden, int(dilation), _DTYPES[x.dtype],
+            batch, time, chans, groups, taps, hidden, int(dilation), tile, _DTYPES[x.dtype],
             _build.stream_handle(x.device),
         )
     _build.check(lib, "se_res2", err)
@@ -221,13 +285,16 @@ def se_res2_staged(x, params: Params, dilation: int, stage: int):
     batch, time, chans = x.shape
     groups, taps = k.wg.shape[:2]
     lib = _build.library("se_res2", _signature)
-    xc = x.contiguous()
+    xc = _aligned(x)
+    stage = min(int(stage), groups)
     out = torch.empty_like(xc)
+    z1 = torch.empty_like(xc) if stage else out  # the cascade reads z1 and writes out
+    tile = cascade_tile(batch, time, x.dtype, _build.num_sms(x.device))
     with torch.cuda.device(x.device):
         err = lib.se_res2_staged_launch(
-            xc.data_ptr(), out.data_ptr(), k.w1.data_ptr(), k.v1.data_ptr(),
+            xc.data_ptr(), out.data_ptr(), z1.data_ptr(), k.w1.data_ptr(), k.v1.data_ptr(),
             k.wg.data_ptr(), k.vg.data_ptr(), batch, time, chans, groups, taps,
-            int(dilation), min(int(stage), groups), _DTYPES[x.dtype], _build.stream_handle(x.device),
+            int(dilation), stage, tile, _DTYPES[x.dtype], _build.stream_handle(x.device),
         )
     _build.check(lib, "se_res2", err)
     se_res2_staged.launches += 1
