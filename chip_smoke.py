@@ -14,7 +14,11 @@ Phases (any failure exits non-zero):
    sizes (3 to 600) and hidden sizes on both of its routes; the stats head
    at X (64, 279, 512) (bf16 and f32), W (512, 1500), 4 speakers; the
    attention statistics at x (64, 501, 1536), hidden (64, 501, 128), 4
-   speakers (bf16 and f32); the SE-Res2Block at (64, 501, 512), scale 8,
+   speakers (bf16 and f32), both with prepared and raw operands, with
+   streams run alone against their rows of the whole batch (bitwise),
+   beside the cuBLAS product alone, and over a sweep of batch, length,
+   width and speaker count (bitwise equal over repeated calls); the
+   SE-Res2Block at (64, 501, 512), scale 8,
    dilations 2, 3, 4 (bf16 and f32), with every stage of its stage mode,
    other batch sizes, and other lengths and time tiles of its cascade
    (the result must not depend on the tile). Print each error beside its
@@ -49,7 +53,7 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # tensor-core bf16; f32 outside the tensor cores
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}  # tensor cores; f32 outside them
 T_LSTM, B, H = 293, 64, 128
 T_EMB, C_IN, C_OUT, S = 279, 512, 1500, 4
 T_ECAPA, C_ECAPA, C_MFA, H_ATT, RES2_SCALE, SE_HIDDEN = 501, 512, 1536, 128, 8, 128
@@ -195,83 +199,205 @@ def check_lstm(dtype, gen):
                 argued_latency_floor_ms=floor_ms, ms_b256=ms_256, ms_b528=ms_528, plan=plan)
 
 
-def check_stats(dtype, gen):
+def bitwise_equal(a, b) -> bool:
     import torch
-    from diart_tpu_torch.ops import linear_stats
 
-    dev = "cuda"
-    x = torch.randn(B, T_EMB, C_IN, generator=gen).to(dev, dtype)
-    w = (torch.randn(C_IN, C_OUT, generator=gen) * C_IN**-0.5).to(dev)
-    b = (torch.randn(C_OUT, generator=gen) * 0.1).to(dev)
-    scale = (1.0 + 0.1 * torch.randn(C_OUT, generator=gen)).to(dev)
-    shift = (0.1 * torch.randn(C_OUT, generator=gen)).to(dev)
-    wt = torch.sigmoid(torch.randn(B, S, T_EMB, generator=gen)).to(dev)
-    args = (x, w, b, scale, shift, wt)
-    got = linear_stats.fused_linear_stats(*args)
-    want = linear_stats.linear_stats_reference(*args)
-    torch.cuda.synchronize()
-    # both round W to X's dtype and multiply exactly in f32; only the order
-    # of the f32 sums differs — relative to each output's scale
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def held_to(got, want, rel, floor=0.0):
+    """(max abs error, tolerance = rel x max(floor, max|want|)) over tuples."""
     err = max((g - r).abs().max().item() for g, r in zip(got, want))
-    scale_ref = max(r.abs().max().item() for r in want)
-    tol = 1e-5 * scale_ref
+    return err, rel * max(floor, max(r.abs().max().item() for r in want))
+
+
+# linear_stats: both versions round W to X's dtype and multiply exactly in
+# f32; only the order of the f32 sums differs — relative to the outputs' scale
+STATS_TOL = 1e-5
+# (B, T, C_in, C, S) held on the card beside the main shape: every batch in
+# {1, 2, 3, 64, 256}, length in {1, 37, 279, 600}, width in {100, 1500,
+# 1536} and speaker count in {1, 4, 8}; C_in = 200 has a partial k slice,
+# C_in = 60 takes the FMA route
+STATS_SWEEP = [
+    (1, 279, 512, 1500, 4), (2, 37, 512, 1500, 1), (3, 1, 512, 1500, 8), (64, 600, 512, 1500, 4),
+    (256, 279, 512, 1500, 4), (3, 279, 512, 100, 4), (2, 600, 512, 1536, 8), (1, 37, 512, 100, 1),
+    (256, 1, 512, 1536, 8), (3, 279, 200, 1500, 4), (2, 37, 60, 100, 4),
+]
+
+
+# streams run alone against their rows of the B=64 call: one stream (one a
+# block there, six a block at B=64) and the last four (the last, partial
+# block at B=64)
+PART_STREAMS = ((37, 38), (60, 64))
+
+
+def stats_inputs(batch, time_, c_in, channels, speakers, dtype, gen):
+    import torch
+
+    dev = gen.device
+    n = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    x = n(batch, time_, c_in).to(dtype)
+    w = n(c_in, channels) * c_in**-0.5
+    return (x, w, n(channels) * 0.1, 1.0 + 0.1 * n(channels), 0.1 * n(channels),
+            torch.sigmoid(n(batch, speakers, time_)))
+
+
+def check_stats(dtype, gen):
+    """The stats head at X (64, 279, 512), W (512, 1500), 4 speakers, with
+    prepared (the model's call) and raw operands; streams run alone (one a
+    block) give the bits of their rows in the whole batch (six a block);
+    then the shape sweep, each case held to the same tolerance and bitwise
+    equal over repeated calls."""
+    import torch
+    from diart_tpu_torch.ops import linear_stats as ls
+
     kind = "f32" if dtype == torch.float32 else "bf16"
-    ms = time_ms(lambda: linear_stats.fused_linear_stats(*args), 20)
-    plain_ms = time_ms(lambda: linear_stats.linear_stats_reference(*args), 20)
+    x, w, b, scale, shift, wt = stats_inputs(B, T_EMB, C_IN, C_OUT, S, dtype, gen)
+    ops = ls.prepare_stats_operands(w, b, scale, shift, dtype)  # once, as the model does
+    want = ls.linear_stats_reference(x, w, b, scale, shift, wt)
+    got = ls.fused_linear_stats(x, ops, weights=wt)
+    torch.cuda.synchronize()
+    err, tol = held_to(got, want, STATS_TOL)
+    if not bitwise_equal(got, ls.fused_linear_stats(x, w, b, scale, shift, wt)):
+        raise AssertionError(f"linear_stats[{kind}]: raw and prepared operands give different results")
+    plan = ls._plan(x, ops, S)
+    for lo, hi in PART_STREAMS:
+        part = ls.fused_linear_stats(x[lo:hi], ops, weights=wt[lo:hi])
+        if not bitwise_equal([g[lo:hi] for g in got], part):
+            raise AssertionError(f"linear_stats[{kind}]: streams {lo}..{hi - 1} alone "
+                                 f"({ls._plan(x[lo:hi], ops, S)}) differ from their rows at B={B}")
+    ms = time_ms(lambda: ls.fused_linear_stats(x, ops, weights=wt), 20)
+    device_ms = device_times(lambda: ls.fused_linear_stats(x, ops, weights=wt), "linear_stats")[0][1]
+    raw_ms = time_ms(lambda: ls.fused_linear_stats(x, w, b, scale, shift, wt), 20)
+    plain_ms = time_ms(lambda: ls.linear_stats_reference(x, w, b, scale, shift, wt), 20)
+    wl = w.to(dtype)
+    product_ms = time_ms(lambda: torch.matmul(x, wl), 20)  # yardstick: the product alone
     nbytes = x.numel() * x.element_size() + sum(t.numel() * 4 for t in (w, b, scale, shift, wt))
     nbytes += 2 * B * S * C_OUT * 4
-    flops = 2.0 * B * T_EMB * C_IN * C_OUT + 6.0 * B * T_EMB * C_OUT + 4.0 * B * S * T_EMB * C_OUT
+    gemm = 2.0 * B * T_EMB * C_IN * C_OUT
+    flops = gemm + 6.0 * B * T_EMB * C_OUT + 4.0 * B * S * T_EMB * C_OUT
     bms, by = bound_ms(nbytes, flops, kind)
     log(
         f"linear_stats[{kind}] X=({B},{T_EMB},{C_IN}) W=({C_IN},{C_OUT}) S={S}: "
-        f"max_abs_err={err:.3e} (tol {tol:.3e} = 1e-5 x max|ref| {scale_ref:.1f}) "
-        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.5f} ({by}) "
-        f"tensor_cores={linear_stats.uses_tensor_cores(C_IN, dtype)}"
+        f"max_abs_err={err:.3e} (tol {tol:.3e} = {STATS_TOL:g} x max|ref|) "
+        f"kernel_ms={ms:.4f} (device {device_ms:.4f}; product {gemm / ms / 1e9:.1f} TFLOP/s; "
+        f"raw operands, prepared per call: {raw_ms:.4f}; streams alone bitwise equal) "
+        f"plain_ms={plain_ms:.4f} product_library_ms={product_ms:.4f} (torch.matmul of X and W alone) "
+        f"bound_ms={bms:.5f} ({by}) plan={plan}"
     )
     if not err <= tol:
         raise AssertionError(f"linear_stats[{kind}] disagrees with its plain version: {err} > {tol}")
-    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=None)
+    sweep_worst = 0.0
+    for case in STATS_SWEEP if dtype == torch.bfloat16 else STATS_SWEEP[::3]:
+        args = stats_inputs(*case, dtype, gen)
+        batch, time_, c_in, channels, speakers = case
+        cops = ls.prepare_stats_operands(*args[1:5], dtype)
+        got = ls.fused_linear_stats(args[0], cops, weights=args[5])
+        e, t = held_to(got, ls.linear_stats_reference(*args), STATS_TOL)
+        p = ls._plan(args[0], cops, speakers)
+        same = bitwise_equal(got, ls.fused_linear_stats(args[0], cops, weights=args[5]))
+        log(f"  linear_stats[{kind}] B={batch} T={time_} C_in={c_in} C={channels} S={speakers} "
+            f"{p['route']} grid {p['grid']} x{p['streams_per_block']} smem {p['smem']}: "
+            f"max_abs_err={e:.3e} (tol {t:.3e}), repeat bitwise {same}")
+        if not (e <= t and same):
+            raise AssertionError(f"linear_stats[{kind}] fails at {case}")
+        sweep_worst = max(sweep_worst, e / t)
+    return dict(max_abs_err=err, tol=tol, ms=ms, device_ms=device_ms, raw_operands_ms=raw_ms,
+                plain_ms=plain_ms, product_library_ms=product_ms, bound_ms=bms, bound_by=by,
+                library_ms=None, plan=plan, product_tflops=gemm / ms / 1e9,
+                sweep_cases=len(STATS_SWEEP), sweep_worst_err_over_tol=sweep_worst)
+
+
+# attn_stats: the logits are f32-accurate (3xTF32), the rest is the same f32
+# arithmetic (bf16 x is read exactly); the order of the f32 sums and the
+# online softmax's rescaling differ — relative to max(1, the outputs' scale)
+ATTN_TOL = 1e-5
+# (B, T, C, H, S) held on the card beside the main shape (see STATS_SWEEP)
+ATTN_SWEEP = [
+    (1, 501, 1536, 128, 4), (2, 37, 100, 64, 1), (3, 1, 1536, 128, 8), (64, 600, 1536, 64, 4),
+    (256, 501, 1536, 128, 4), (3, 501, 1500, 128, 8), (2, 600, 100, 128, 4), (256, 37, 1500, 64, 1),
+    (1, 279, 1500, 64, 8),
+]
+
+
+def attn_inputs(batch, time_, channels, hdim, speakers, dtype, gen):
+    import torch
+
+    dev = gen.device
+    n = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    return (n(batch, time_, channels).to(dtype), torch.tanh(n(batch, time_, hdim)),
+            n(hdim, channels) * hdim**-0.5, n(channels) * 0.1, torch.sigmoid(n(batch, speakers, time_)))
 
 
 def check_attn(dtype, gen):
     """Attention statistics at the ECAPA head: x (B, 501, 1536), hidden
-    (B, 501, 128), 4 speakers."""
+    (B, 501, 128), 4 speakers, with prepared and raw operands and streams
+    run alone; then the shape sweep (see check_stats)."""
     import torch
-    from diart_tpu_torch.ops import attn_stats
+    from diart_tpu_torch.ops import attn_stats as at
 
-    dev = "cuda"
-    x = torch.randn(B, T_ECAPA, C_MFA, generator=gen).to(dev, dtype)
-    hidden = torch.tanh(torch.randn(B, T_ECAPA, H_ATT, generator=gen)).to(dev)
-    w2 = (torch.randn(H_ATT, C_MFA, generator=gen) * H_ATT**-0.5).to(dev)
-    b2 = (torch.randn(C_MFA, generator=gen) * 0.1).to(dev)
-    wt = torch.sigmoid(torch.randn(B, S, T_ECAPA, generator=gen)).to(dev)
-    args = (x, hidden, w2, b2, wt)
-    got = attn_stats.fused_attentive_stats(*args)
-    want = attn_stats.attentive_stats_reference(*args)
-    torch.cuda.synchronize()
-    # the same f32 arithmetic (bf16 x is read exactly); only the order of
-    # the f32 sums and the online softmax's rescaling differ — relative to
-    # each output's scale
-    err = max((g - r).abs().max().item() for g, r in zip(got, want))
-    scale_ref = max(r.abs().max().item() for r in want)
-    tol = 1e-5 * max(scale_ref, 1.0)
     kind = "f32" if dtype == torch.float32 else "bf16"
-    ms = time_ms(lambda: attn_stats.fused_attentive_stats(*args), 20)
-    plain_ms = time_ms(lambda: attn_stats.attentive_stats_reference(*args), 5)
+    x, hidden, w2, b2, wt = attn_inputs(B, T_ECAPA, C_MFA, H_ATT, S, dtype, gen)
+    ops = at.prepare_attn_operands(w2, b2)  # once, as the model does
+    want = at.attentive_stats_reference(x, hidden, w2, b2, wt)
+    got = at.fused_attentive_stats(x, hidden, ops, weights=wt)
+    torch.cuda.synchronize()
+    err, tol = held_to(got, want, ATTN_TOL, floor=1.0)
+    if not bitwise_equal(got, at.fused_attentive_stats(x, hidden, w2, b2, wt)):
+        raise AssertionError(f"attn_stats[{kind}]: raw and prepared operands give different results")
+    plan = at._plan(x, hidden, S)
+    for lo, hi in PART_STREAMS:
+        part = at.fused_attentive_stats(x[lo:hi], hidden[lo:hi], ops, weights=wt[lo:hi])
+        if not bitwise_equal([g[lo:hi] for g in got], part):
+            raise AssertionError(f"attn_stats[{kind}]: streams {lo}..{hi - 1} alone "
+                                 f"({at._plan(x[lo:hi], hidden, S)}) differ from their rows at B={B}")
+    ms = time_ms(lambda: at.fused_attentive_stats(x, hidden, ops, weights=wt), 20)
+    device_ms = device_times(lambda: at.fused_attentive_stats(x, hidden, ops, weights=wt), "attn_stats")[0][1]
+    raw_ms = time_ms(lambda: at.fused_attentive_stats(x, hidden, w2, b2, wt), 20)
+    plain_ms = time_ms(lambda: at.attentive_stats_reference(x, hidden, w2, b2, wt), 5)
+    product_ms = time_ms(lambda: torch.matmul(hidden, w2), 20)  # yardstick: f32 logits alone
     nbytes = x.numel() * x.element_size() + sum(t.numel() * 4 for t in (hidden, w2, b2, wt))
     nbytes += 3 * B * S * C_MFA * 4
-    flops = 2.0 * B * T_ECAPA * H_ATT * C_MFA + 6.0 * B * S * T_ECAPA * C_MFA
-    bms, by = bound_ms(nbytes, flops, "f32")  # the logits are an f32 product
+    logits = 2.0 * B * T_ECAPA * H_ATT * C_MFA
+    rest = 6.0 * B * S * T_ECAPA * C_MFA
+    # f32-accurate logits on this card are three TF32 products (3xTF32); the
+    # softmax and the sums run on the f32 units beside them
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(3 * logits / PEAK_FLOPS["tf32"], rest / PEAK_FLOPS["f32"])
+    bms, by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    fma_bms, fma_by = bound_ms(nbytes, logits + rest, "f32")  # the logits as f32 FMAs
     log(
         f"attn_stats[{kind}] x=({B},{T_ECAPA},{C_MFA}) hidden=({B},{T_ECAPA},{H_ATT}) S={S}: "
-        f"max_abs_err={err:.3e} (tol {tol:.3e} = 1e-5 x max(1, max|ref| {scale_ref:.2f})) "
-        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.5f} ({by})"
+        f"max_abs_err={err:.3e} (tol {tol:.3e} = {ATTN_TOL:g} x max(1, max|ref|)) "
+        f"kernel_ms={ms:.4f} (device {device_ms:.4f}; 3xTF32 logits {3 * logits / ms / 1e9:.1f} TFLOP/s; "
+        f"raw operands, prepared per call: {raw_ms:.4f}; streams alone bitwise equal) "
+        f"plain_ms={plain_ms:.4f} product_library_ms={product_ms:.4f} (torch.matmul of hidden and w2 alone, f32) "
+        f"bound_ms={bms:.5f} ({by}; 3xTF32 logits at {PEAK_FLOPS['tf32'] / 1e12:.0f} TFLOP/s) "
+        f"f32_fma_bound_ms={fma_bms:.5f} ({fma_by}; the logits as f32 FMAs) plan={plan}"
     )
     if not err <= tol:
         raise AssertionError(f"attn_stats[{kind}] disagrees with its plain version: {err} > {tol}")
-    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=None)
+    sweep_worst = 0.0
+    for case in ATTN_SWEEP if dtype == torch.bfloat16 else ATTN_SWEEP[::2]:
+        x_, h_, w_, b_, wt_ = attn_inputs(*case, dtype, gen)
+        batch, time_, channels, hdim, speakers = case
+        cops = at.prepare_attn_operands(w_, b_)
+        got = at.fused_attentive_stats(x_, h_, cops, weights=wt_)
+        e, t = held_to(got, at.attentive_stats_reference(x_, h_, w_, b_, wt_), ATTN_TOL, floor=1.0)
+        p = at._plan(x_, h_, speakers)
+        same = bitwise_equal(got, at.fused_attentive_stats(x_, h_, cops, weights=wt_))
+        log(f"  attn_stats[{kind}] B={batch} T={time_} C={channels} H={hdim} S={speakers} "
+            f"grid {p['grid']} x{p['streams_per_block']} smem {p['smem']}: "
+            f"max_abs_err={e:.3e} (tol {t:.3e}), repeat bitwise {same}")
+        if not (e <= t and same):
+            raise AssertionError(f"attn_stats[{kind}] fails at {case}")
+        sweep_worst = max(sweep_worst, e / t)
+        del x_, h_, w_, b_, wt_, got
+    return dict(max_abs_err=err, tol=tol, ms=ms, device_ms=device_ms, raw_operands_ms=raw_ms,
+                plain_ms=plain_ms, product_library_ms=product_ms, bound_ms=bms, bound_by=by,
+                bound_ms_f32_fma=fma_bms, library_ms=None, plan=plan,
+                logits_tflops=3 * logits / ms / 1e9, sweep_cases=len(ATTN_SWEEP),
+                sweep_worst_err_over_tol=sweep_worst)
 
 
 def res2_params(gen, dev):
@@ -323,10 +449,9 @@ def res2_unrounded_gate(x, params, dilation):
     return (x.float() + z2.float() * gate.float()[:, None, :]).to(dt)
 
 
-def res2_launch_times(call, calls: int = 10):
-    """Device time of each of the kernels one SE-Res2Block launches, from a
-    profile of ``calls`` blocks, longest first: (name, ms per block, launches
-    per block)."""
+def device_times(call, what: str, calls: int = 10):
+    """Device time of each kernel that ``call`` launches, from a profile of
+    ``calls`` calls, longest first: (name, ms per call, launches per call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -345,7 +470,7 @@ def res2_launch_times(call, calls: int = 10):
         name = m.group(1) + (m.group(2) or "") if m else e.key[:40]
         rows.append((name, us / 1e3 / calls, e.count / calls))
     if not rows:
-        raise AssertionError("the profiler saw no device time for the SE-Res2Block")
+        raise AssertionError(f"the profiler saw no device time for {what}")
     return sorted(rows, key=lambda r: -r[1])
 
 
@@ -442,7 +567,7 @@ def check_res2(dtype, gen):
     bms, by = bound_ms(nbytes, flops, kind)
     x8 = x[:8].contiguous()
     ms_b8 = time_ms(lambda: se_res2.fused_se_res2_block(x8, ops, 2), 20)
-    by_launch = res2_launch_times(lambda: se_res2.fused_se_res2_block(x, ops, 2))
+    by_launch = device_times(lambda: se_res2.fused_se_res2_block(x, ops, 2), "the SE-Res2Block")
     # the stage mode's longest run: z1 and the whole cascade (the concat)
     stage_ms = time_ms(lambda: se_res2.se_res2_staged(x, ops, 2, last), 20)
     stage_plain_ms = time_ms(lambda: se_res2.se_res2_stage_reference(x, params, 2, last), 5)
@@ -682,6 +807,9 @@ def compare_cpu(emb, audio):
 
 # --------------------------------------------------------------------- #
 KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+# the statistics kernels' extra readings: prepared and raw operands, the
+# product alone (a yardstick, not the same function)
+STATS_KEYS = ("device_ms", "raw_operands_ms", "product_library_ms", "plan")
 
 
 def main() -> int:
@@ -718,8 +846,9 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     bf16_f32 = (("bf16", torch.bfloat16), ("f32", torch.float32))
     lstm = {k: check_lstm(dt, gen) for k, dt in reversed(bf16_f32)}
-    stats = {k: check_stats(dt, gen) for k, dt in bf16_f32}
-    attn = {k: check_attn(dt, gen) for k, dt in bf16_f32}
+    cgen = torch.Generator(device="cuda").manual_seed(0)  # the sweeps' large inputs, made on the card
+    stats = {k: check_stats(dt, cgen) for k, dt in bf16_f32}
+    attn = {k: check_attn(dt, cgen) for k, dt in bf16_f32}
     res2 = {k: check_res2(dt, gen) for k, dt in bf16_f32}
     log(f"kernel checks in {time.perf_counter() - t0:.1f} s")
     result = dict(gpu=smi, lstm=lstm, stats=stats, attn=attn, res2=res2)
@@ -742,10 +871,10 @@ def main() -> int:
              ms_f32=lstm["f32"]["ms"], plan=lstm["bf16"]["plan"]),
         dict(name="linear_stats", route="cuda", source="diart_tpu_torch/csrc/linear_stats.cu",
              replaces="diart_tpu/ops/pallas_stats.py:163", launches=xv["linear_stats"],
-             **{k: stats["bf16"][k] for k in KEYS}),
+             **{k: stats["bf16"][k] for k in KEYS + STATS_KEYS}, ms_f32=stats["f32"]["ms"]),
         dict(name="attn_stats", route="cuda", source="diart_tpu_torch/csrc/attn_stats.cu",
              replaces="diart_tpu/ops/pallas_attn_stats.py:170", launches=ec["attn_stats"],
-             **{k: attn["bf16"][k] for k in KEYS}),
+             **{k: attn["bf16"][k] for k in KEYS + STATS_KEYS}, ms_f32=attn["f32"]["ms"]),
         dict(name="se_res2", route="cuda", source="diart_tpu_torch/csrc/se_res2.cu",
              replaces="diart_tpu/ops/pallas_res2.py:294", launches=ec["se_res2"],
              **{k: res2["bf16"][k] for k in KEYS}, ms_b8=res2["bf16"]["ms_b8"],

@@ -10,237 +10,476 @@
 //   s1[b, s, c]  = sum_t wt[b, s, t] * alpha[t, c] * x[b, t, c]
 //   s2[b, s, c]  = sum_t wt[b, s, t] * alpha[t, c] * x[b, t, c]^2
 //
-// x (B, T, C) is f32 or bf16 and read once; hidden (B, T, H), w2 (H, C),
-// b2 (C) and wt (B, S, T) are f32 (the wrapper casts them, as the TPU
-// wrapper does). Only den/s1/s2 (B, S, C) f32 are written: the (B, T, C)
+// x (B, T, C) is f32 or bf16 and read once; hidden (B, T, H) and wt
+// (B, S, T) are f32. Only den/s1/s2 (B, S, C) f32 are written: the (B, T, C)
 // logits and products never reach memory.
 //
 // What bounds it on the H100: at the ECAPA head (B=64, T=501, H=128,
-// C=1536, S=4) the logits product is 12.6 GFLOP of f32 against ~115 MB
-// of inputs, so the function is bound by f32 operations (~0.2 ms at
-// 67 TFLOP/s), not bytes (~0.03 ms).
+// C=1536, S=4) the logits product is 12.6 GFLOP against ~115 MB of inputs
+// (~0.034 ms at 3.35 TB/s). In f32 FMAs that product alone takes 0.19 ms at
+// 67 TFLOP/s. On the TF32 tensor cores (495 TFLOP/s) it is three products
+// at f32 accuracy (below), 0.076 ms: the design's bound.
 //
-// Design: one block (8 warps) per (stream, tile of 64 channels). The
-// block keeps w2's (H, 64) tile in shared memory and walks T in tiles of
-// 64 frames, staging the hidden tile (64, H) and the speakers' weights.
-// A thread owns 2 channels (lane) x 8 frames of the tile (warp): it
-// computes their 16 logits with FMAs (hidden read as broadcast float4,
-// w2 as float2) and folds them into its own online softmax: a running max
-// and normaliser per channel, with the den/s1/s2 sums of the S speakers
-// rescaled whenever the max rises. No thread waits on another inside the
-// walk. At the end the 8 warps' partial states of a channel are merged in
-// a fixed order through shared memory (max, then rescaled sums) and
-// divided by the normaliser: no atomics, so results are deterministic.
-// Frames t >= T are skipped. Tensor cores (the logits in TF32 or bf16)
-// would change the f32 numbers of the TPU kernel and are not used.
+// Design: the logits are computed transposed, logit^T = W2^T (channels x H)
+// . hidden^T (H x frames), with `wgmma` m64n64k8 on TF32, so channels are
+// the instruction's M and frames its N.
+//
+// * f32 accuracy from TF32 (3xTF32): each operand v is split into
+//   hi = rna_tf32(v) and lo = rna_tf32(v - hi), and the logits accumulate
+//   lo.hi + hi.lo + hi.hi in f32 (the lo.lo term is below f32's rounding).
+//   One TF32 pass would leave ~1e-3 relative error in the logits. W2^T's
+//   hi and lo come prepared by the wrapper (once per model); hidden is split
+//   in shared memory, slice by slice, while the previous slice's products
+//   run.
+// * A block is 128 channels, one warpgroup of 64 each, over the same frames:
+//   both read the same hidden slice, so hidden is copied and split once for
+//   128 channels. Each thread holds its rows of W2^T hi and lo as `wgmma` A
+//   fragments in registers for the whole walk (128 registers at H = 128), so
+//   the products read only hidden from shared memory: with both operands
+//   there, N = 64 TF32 products need all of shared memory's 128 bytes a
+//   cycle. Hidden arrives by TMA in 32-deep H slices of 64 frames (128 bytes
+//   of f32, 128-byte-swizzled, K-major as it lies in memory; frames past T
+//   and H read as zeros) through an 8-stage ring, seven slices ahead, each
+//   stage with its mbarrier; the next slice is split while this one's
+//   products run, and one barrier a slice frees its stage for TMA. The x
+//   tile (64 frames x 128 channels) and the speakers' weights come by
+//   `cp.async` under the products.
+// * A thread's accumulators are 2 channels (rows g, g + 8 of its warp) x 16
+//   frames, initialised to the bias. It runs its own online softmax over its
+//   frames, in base 2 (ex2): a running max and normaliser and 3 S rescaled
+//   sums a channel. At the end of a stream these are merged over the 4
+//   lanes of a quad (shuffles, max first) in a fixed order and divided by
+//   the normaliser. No atomics: results are deterministic and do not depend
+//   on the launch plan.
+// * What holds it: the epilogue (~20 instructions a logit on the FP32
+//   units, 2 warps a scheduler) does not overlap the next tile's products.
+//   Tried in development and slower: a second accumulator set (ptxas then
+//   serialized the `wgmma`s), and warpgroups that walk different streams
+//   of 64-channel blocks (twice the hidden copies and splits).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int CT = 64;   // channels per block (2 per lane)
-constexpr int TT = 64;   // frames per tile
-constexpr int NW = 8;    // warps; warp w owns frames w*RW .. w*RW+RW-1 of a tile
-constexpr int RW = TT / NW;
-constexpr int NT = NW * 32;
+using namespace hopper;
+
+constexpr int AC = 128;               // channels a block: two warpgroups of 64 (the wgmma M)
+constexpr int AFT = 64;               // frames a tile (the wgmma N)
+constexpr int AK = 32;                // H slice: 32 f32 = 128 bytes
+constexpr int AST = 8;                // hidden ring depth; slices are copied AST - 1 ahead
+constexpr int ANT = 256;              // threads: two warpgroups
+constexpr int AH_BYTES = AFT * 128;   // one hidden slice (hi or lo)
+constexpr int MAX_H = 4 * AK;         // W2^T's registers hold at most four H slices
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <typename T, int S>
-__global__ void __launch_bounds__(NT) attn_stats_kernel(
-    const T* __restrict__ x, const float* __restrict__ hidden, const float* __restrict__ w2,
-    const float* __restrict__ b2, const float* __restrict__ wt, float* __restrict__ den,
-    float* __restrict__ s1, float* __restrict__ s2, int time, int channels, int hdim) {
-  extern __shared__ __align__(16) float smem[];
-  float* w2s = smem;                    // [hdim][CT]
-  float* hs = w2s + hdim * CT;          // [TT][hdim]
-  float* wts = hs + TT * hdim;          // [S][TT]
-  float* red = hs;                      // [NW][CT], reused after the walk
-  float* lsum = hs + NW * CT;           // [CT]
+// the hidden ring (hi and lo), the x tile and the speakers' weights, from a
+// 1024-byte boundary
+__host__ __device__ constexpr size_t tile_bytes(int speakers, int elt) {
+  return (size_t)AST * 2 * AH_BYTES + (size_t)AFT * AC * elt + sizeof(float) * speakers * AFT;
+}
+// ... with room to reach that boundary from the 16-byte-aligned base; the
+// ring's barriers (8 AST bytes) go below the boundary, or above the tiles
+// where the base is less than 8 AST bytes below it
+__host__ __device__ constexpr size_t smem_bytes(int speakers, int elt) {
+  return 1008 + tile_bytes(speakers, elt);
+}
+static_assert(smem_bytes(8, 4) <= 232448, "the widest block (S = 8, f32 x) must fit 227 KB");
 
-  const int b = blockIdx.y;
-  const int c0 = blockIdx.x * CT;
+// byte offset of x tile row `row`, byte `col`: 16-byte chunks XOR-swizzled so
+// that the epilogue's reads (4 rows 2 apart, 16 channels) hit distinct banks
+__device__ __forceinline__ unsigned x_offset(int row, int col, int row_bytes) {
+  return row * row_bytes + ((((col >> 4) ^ (((row >> 1) & 3) << 1)) << 4) | (col & 15));
+}
+
+// 2^v (PTX ex2.approx: relative error below 2^-22; results below 2^-126 flush to 0)
+__device__ __forceinline__ float exp2_approx(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ float tf32_rna(float v) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nwait_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra wait_%=;\n}\n" ::"r"(bar), "r"(parity)
+      : "memory");
+}
+// TMA: the (32 H x 64 frames) box at (h0, t0, b) of the hidden map into a
+// 128-byte-swizzled tile; completion is counted on `bar`
+__device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap* map, int h0, int t0,
+                                            int b, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(h0), "r"(t0), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// d (64 x 64, f32) += A (64 x 8, registers) @ B (8 x 64, K-major), TF32
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[8][4], const unsigned (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// x: (B, T, C); hidden, through `hmap`: (B, T, H) f32, H % 8 == 0, H <= 32 NK;
+// whi/wlo: (C, Hp) f32 (W2^T split, Hp = H rounded up to 32, zero beyond H); b2 (C,);
+// wt (B, S, T). xvec: the bytes of one x copy (16, 8 or 4; every x row and
+// the base are aligned to it). Block (blockIdx.x, blockIdx.y): channels
+// blockIdx.x * 128 .., streams blockIdx.y * per .. (at most per of them).
+template <typename T, int S, int NK>
+__global__ void __launch_bounds__(ANT, 1) attn_stats_tc(
+    const __grid_constant__ CUtensorMap hmap, const T* __restrict__ x,
+    const float* __restrict__ whi, const float* __restrict__ wlo, const float* __restrict__ b2,
+    const float* __restrict__ wt, float* __restrict__ den, float* __restrict__ s1,
+    float* __restrict__ s2, int batch, int time, int channels, int hdim, int per, int xvec) {
+  constexpr int XROW = AC * sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const unsigned raw = smem_u32(smem_raw);
+  const unsigned base = (raw + 1023u) & ~1023u;  // swizzle period
+  unsigned char* tiles = smem_raw + (base - raw);
+  constexpr int nk = NK;  // H slices of 32
+  const int hp = (hdim + AK - 1) / AK * AK;  // whi/wlo's row stride
+  unsigned char* ring = tiles;                         // [AST][hi, lo][64 rows][128 B]
+  unsigned char* xs = ring + AST * 2 * AH_BYTES;       // [AFT][AC] of T, swizzled
+  float* wts = reinterpret_cast<float*>(xs + AFT * XROW);  // [S][AFT]
+  // [AST] mbarriers, one a stage
+  const unsigned bars = base - raw >= 8 * AST ? raw : base + (unsigned)tile_bytes(S, sizeof(T));
+
+  const int c0 = blockIdx.x * AC;
+  const int b0 = blockIdx.y * per;
+  const int nb = min(per, batch - b0);
+  const int ntiles = (time + AFT - 1) / AFT;
+  const int nq = nb * ntiles * nk;  // hidden slices the block walks: stream, frame tile, H slice
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int cl = 2 * lane;  // this thread's first channel within the tile
+  const int lane = tid & 31, wgrp = tid >> 7;
+  const int g = lane >> 2, tig = lane & 3;
+  const int cl = wgrp * 64 + ((tid >> 5) & 3) * 16 + g;  // channels c0 + cl and c0 + cl + 8
 
-  for (int e = tid; e < hdim * CT; e += NT) {
-    const int k = e / CT, c = e % CT;
-    w2s[e] = (c0 + c < channels) ? w2[(size_t)k * channels + c0 + c] : 0.0f;
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < AST; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // W2^T hi and lo as this thread's A fragments: rows cl and cl + 8, columns
+  // 8 k + tig and 8 k + tig + 4 of each k8 step
+  unsigned ahi[NK * 4][4], alo[NK * 4][4];
+#pragma unroll
+  for (int k = 0; k < NK * 4; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = c0 + cl + 8 * (i & 1), col = 8 * k + tig + 4 * (i >> 1);
+      const bool ok = c < channels && col < hp;
+      ahi[k][i] = ok ? __float_as_uint(whi[(size_t)c * hp + col]) : 0u;
+      alo[k][i] = ok ? __float_as_uint(wlo[(size_t)c * hp + col]) : 0u;
+    }
+  auto load_hidden = [&](int q) {  // slice q, raw, into the hi half of stage q % AST (one thread)
+    const int t = q / nk;
+    const unsigned bar = bars + 8 * (q % AST);
+    mbar_expect_tx(bar, AH_BYTES);
+    tma_load_3d(base + (q % AST) * 2 * AH_BYTES, &hmap, (q % nk) * AK,
+                (t % ntiles) * AFT, b0 + t / ntiles, bar);
+  };
+  auto wait_hidden = [&](int q) { mbar_wait(bars + 8 * (q % AST), (q / AST) & 1); };
+  auto load_tile = [&](int gt) {  // frame tile gt's x and speaker weights
+    const int b = b0 + gt / ntiles, t0 = (gt % ntiles) * AFT;
+    const unsigned char* xb = reinterpret_cast<const unsigned char*>(x + (size_t)b * time * channels);
+    const int row = XROW / xvec;  // copies a row
+    for (int e = tid; e < AFT * row; e += ANT) {
+      const int r = e / row, col = (e % row) * xvec;
+      const int ch = col / (int)sizeof(T);  // first channel of the copy, within the tile
+      const bool ok = t0 + r < time && c0 + ch < channels;
+      const unsigned char* src = xb + (ok ? ((size_t)(t0 + r) * channels + c0 + ch) * sizeof(T) : 0);
+      unsigned char* dst = xs + x_offset(r, col, XROW);
+      if (xvec == 16) cp_async16(dst, src, ok ? 16 : 0);
+      else if (xvec == 8) cp_async_ca<8>(dst, src, ok ? 8 : 0);
+      else cp_async_ca<4>(dst, src, ok ? 4 : 0);
+    }
+    const float* wtb = wt + (size_t)b * S * time;
+    for (int e = tid; e < S * AFT; e += ANT) {
+      const int s = e / AFT, t = t0 + e % AFT;
+      cp_async_ca<4>(wts + e, wtb + (t < time ? (size_t)s * time + t : 0), t < time ? 4 : 0);
+    }
+  };
+  auto split = [&](int q) {  // stage q % AST: raw -> hi in place, lo beside it
+    float4* hi = reinterpret_cast<float4*>(ring + (q % AST) * 2 * AH_BYTES);
+    float4* lo = reinterpret_cast<float4*>(ring + (q % AST) * 2 * AH_BYTES + AH_BYTES);
+#pragma unroll
+    for (int i = 0; i < AH_BYTES / 16 / ANT; ++i) {
+      const int e = tid + i * ANT;
+      const float4 v = hi[e];
+      const float4 h = make_float4(tf32_rna(v.x), tf32_rna(v.y), tf32_rna(v.z), tf32_rna(v.w));
+      hi[e] = h;
+      lo[e] = make_float4(tf32_rna(v.x - h.x), tf32_rna(v.y - h.y), tf32_rna(v.z - h.z),
+                          tf32_rna(v.w - h.w));
+    }
+  };
+
+  load_tile(0);
+  cp_async_commit();  // W2^T, tile 0's x and weights
+  __syncthreads();    // the barriers are initialised
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < AST - 1; ++i)
+      if (i < nq) load_hidden(i);
+  }
+  cp_async_wait<0>();
+  wait_hidden(0);
+  __syncthreads();
+  split(0);
+  fence_async_shared();
+  __syncthreads();
+
   float bias[2];
-  bool cok[2];
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    cok[q] = c0 + cl + q < channels;
-    bias[q] = cok[q] ? b2[c0 + cl + q] : 0.0f;
-  }
-
-  float m[2], l[2], ad[S][2], a1[S][2], a2[S][2];
+  for (int r = 0; r < 2; ++r) bias[r] = c0 + cl + 8 * r < channels ? b2[c0 + cl + 8 * r] : 0.0f;
+  // per channel row: running max (in log2 units), normaliser, and the
+  // speakers' den / s1 / s2 sums, all scaled by 2^-max
+  float m[2], l[2], ad[2][S], a1[2][S], a2[2][S];
+  auto reset = [&]() {
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    m[q] = -INFINITY;
-    l[q] = 0.0f;
+    for (int r = 0; r < 2; ++r) {
+      m[r] = -INFINITY;
+      l[r] = 0.0f;
 #pragma unroll
-    for (int s = 0; s < S; ++s) ad[s][q] = a1[s][q] = a2[s][q] = 0.0f;
-  }
-
-  const float* hb = hidden + (size_t)b * time * hdim;
-  const T* xb = x + (size_t)b * time * channels;
-  const float* wtb = wt + (size_t)b * S * time;
-
-  for (int t0 = 0; t0 < time; t0 += TT) {
-    __syncthreads();  // the previous tile's hs / wts are no longer read
-    for (int e = tid; e < TT * hdim; e += NT) {
-      const int t = e / hdim;
-      hs[e] = (t0 + t < time) ? hb[(size_t)t0 * hdim + e] : 0.0f;
+      for (int s = 0; s < S; ++s) ad[r][s] = a1[r][s] = a2[r][s] = 0.0f;
     }
-    for (int e = tid; e < S * TT; e += NT) {
-      const int s = e / TT, t = e % TT;
-      wts[e] = (t0 + t < time) ? wtb[(size_t)s * time + t0 + t] : 0.0f;
+  };
+  reset();
+  float acc[8][4];
+  // this thread's x in the tile: frame 8 j + 2 tig + h, whose swizzle is tig's
+  const unsigned char* xrow = xs + 2 * tig * XROW;
+  unsigned xcol[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) xcol[r] = x_offset(2 * tig, (cl + 8 * r) * (int)sizeof(T), XROW) - 2 * tig * XROW;
+
+  for (int gt = 0, q = 0; gt < nb * ntiles; ++gt) {  // frame tile gt of the block's walk
+    const int bi = gt / ntiles, tile = gt % ntiles;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      acc[j][0] = acc[j][1] = bias[0];
+      acc[j][2] = acc[j][3] = bias[1];
     }
+#pragma unroll
+    for (int kb = 0; kb < nk; ++kb, ++q) {
+      const unsigned bh = base + (q % AST) * 2 * AH_BYTES, bl = bh + AH_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < AK / 8; ++ks) {  // the small terms first, then hi . hi
+        wgmma_m64n64k8_tf32(acc, alo[4 * kb + ks], wgmma_desc(bh + ks * 32, 16, 1024));
+        wgmma_m64n64k8_tf32(acc, ahi[4 * kb + ks], wgmma_desc(bl + ks * 32, 16, 1024));
+        wgmma_m64n64k8_tf32(acc, ahi[4 * kb + ks], wgmma_desc(bh + ks * 32, 16, 1024));
+      }
+      wgmma_commit();
+      if (q + 1 < nq) {  // under slice q's products
+        wait_hidden(q + 1);
+        split(q + 1);
+      }
+      fence_async_shared();  // the split (and the stage it leaves) for the tensor cores and TMA
+      wgmma_wait<1>();  // slice q - 1 is consumed; slice q runs on
+      __syncthreads();  // ... in both warpgroups; slice q + 1 is split; the last epilogue is done
+      if (tid == 0 && q + AST - 1 < nq) load_hidden(q + AST - 1);  // into slice q - 1's stage
+      if (kb == 0 && gt > 0) {
+        load_tile(gt);
+        cp_async_commit();
+      }
+    }
+    cp_async_wait<0>();  // this tile's x and weights
     __syncthreads();
+    wgmma_wait<0>();
 
-    float lg[RW][2];
+    // epilogue of the tile: acc[j][h] -> channel cl, acc[j][2 + h] -> cl + 8;
+    // frame 8 j + 2 tig + h of the tile. Both channels side by side.
+    const int nvalid = time - tile * AFT;  // frames of the tile below T
+    float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < RW; ++i) lg[i][0] = lg[i][1] = 0.0f;
-    const float* hrow = hs + (warp * RW) * hdim;
-    for (int k = 0; k < hdim; k += 4) {
-      float2 wv[4];
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wv[kk] = *reinterpret_cast<const float2*>(&w2s[(k + kk) * CT + cl]);
+      for (int h = 0; h < 2; ++h)
+        if (8 * j + 2 * tig + h < nvalid) {
+          tmax[0] = fmaxf(tmax[0], acc[j][h]);
+          tmax[1] = fmaxf(tmax[1], acc[j][2 + h]);
+        }
+    float mn[2];
 #pragma unroll
-      for (int i = 0; i < RW; ++i) {
-        const float4 hv = *reinterpret_cast<const float4*>(&hrow[i * hdim + k]);
-        lg[i][0] = fmaf(hv.x, wv[0].x, lg[i][0]);
-        lg[i][1] = fmaf(hv.x, wv[0].y, lg[i][1]);
-        lg[i][0] = fmaf(hv.y, wv[1].x, lg[i][0]);
-        lg[i][1] = fmaf(hv.y, wv[1].y, lg[i][1]);
-        lg[i][0] = fmaf(hv.z, wv[2].x, lg[i][0]);
-        lg[i][1] = fmaf(hv.z, wv[2].y, lg[i][1]);
-        lg[i][0] = fmaf(hv.w, wv[3].x, lg[i][0]);
-        lg[i][1] = fmaf(hv.w, wv[3].y, lg[i][1]);
-      }
-    }
-
-    const int nvalid = min(RW, max(0, time - (t0 + warp * RW)));
-    if (nvalid == 0) continue;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < RW; ++i) {
-        lg[i][q] += bias[q];
-        if (i < nvalid) tmax = fmaxf(tmax, lg[i][q]);
-      }
-      const float mn = fmaxf(m[q], tmax);
-      const float sc = expf(m[q] - mn);  // 0 on the first valid tile
-      m[q] = mn;
-      l[q] *= sc;
+    for (int r = 0; r < 2; ++r) {  // rescale when the max rises (by 0 on the first frames)
+      mn[r] = fmaxf(m[r], tmax[r] * kLog2e);
+      const float sc = mn[r] == -INFINITY ? 1.0f : exp2f(m[r] - mn[r]);
+      m[r] = mn[r];
+      l[r] *= sc;
 #pragma unroll
       for (int s = 0; s < S; ++s) {
-        ad[s][q] *= sc;
-        a1[s][q] *= sc;
-        a2[s][q] *= sc;
+        ad[r][s] *= sc;
+        a1[r][s] *= sc;
+        a2[r][s] *= sc;
       }
     }
 #pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      if (i >= nvalid) break;
-      const int t = warp * RW + i;
-      const T* xr = xb + (size_t)(t0 + t) * channels + c0 + cl;
+    for (int j = 0; j < 8; ++j) {
+      const int f0 = 8 * j + 2 * tig;
+      float wv[S][2];
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const float e = expf(lg[i][q] - m[q]);
-        const float xv = cok[q] ? to_f(xr[q]) : 0.0f;
-        const float ex = e * xv;
-        const float exx = ex * xv;
-        l[q] += e;
+      for (int s = 0; s < S; ++s) {
+        const float2 v = *reinterpret_cast<const float2*>(&wts[s * AFT + f0]);
+        wv[s][0] = v.x;
+        wv[s][1] = v.y;
+      }
 #pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const float wv = wts[s * TT + t];
-          ad[s][q] = fmaf(wv, e, ad[s][q]);
-          a1[s][q] = fmaf(wv, ex, a1[s][q]);
-          a2[s][q] = fmaf(wv, exx, a2[s][q]);
+      for (int h = 0; h < 2; ++h) {
+        const bool ok = f0 + h < nvalid;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float e = ok ? exp2_approx(fmaf(acc[j][2 * r + h], kLog2e, -mn[r])) : 0.0f;
+          const float xv = to_f(*reinterpret_cast<const T*>(xrow + (8 * j + h) * XROW + xcol[r]));
+          const float ex = e * xv;
+          const float exx = ex * xv;
+          l[r] += e;
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            ad[r][s] = fmaf(wv[s][h], e, ad[r][s]);
+            a1[r][s] = fmaf(wv[s][h], ex, a1[r][s]);
+            a2[r][s] = fmaf(wv[s][h], exx, a2[r][s]);
+          }
         }
       }
     }
-  }
-  __syncthreads();
+    if (tile != ntiles - 1) continue;
 
-  // merge the NW warps' partial softmax states of each channel, fixed order
-  float f[2];
+    // the stream is done: merge the quad's 4 lanes, max first, in a fixed
+    // order, divide by the normaliser and store
+    const size_t ob = (size_t)(b0 + bi) * S * channels;
 #pragma unroll
-  for (int q = 0; q < 2; ++q) red[warp * CT + cl + q] = m[q];
-  __syncthreads();
+    for (int r = 0; r < 2; ++r) {
+      float mq = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+      mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 2));
+      const float f = m[r] == -INFINITY ? 0.0f : exp2f(m[r] - mq);
+      float v[1 + 3 * S];
+      v[0] = l[r] * f;
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    float mx = -INFINITY;
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, red[w * CT + cl + q]);
-    f[q] = (m[q] == -INFINITY) ? 0.0f : expf(m[q] - mx);
-  }
-  __syncthreads();
+      for (int s = 0; s < S; ++s) {
+        v[1 + 3 * s] = ad[r][s] * f;
+        v[2 + 3 * s] = a1[r][s] * f;
+        v[3 + 3 * s] = a2[r][s] * f;
+      }
 #pragma unroll
-  for (int q = 0; q < 2; ++q) red[warp * CT + cl + q] = l[q] * f[q];
-  __syncthreads();
-  if (tid < CT) {
-    float sum = 0.0f;
-    for (int w = 0; w < NW; ++w) sum += red[w * CT + tid];
-    lsum[tid] = sum;
-  }
-  __syncthreads();
+      for (int i = 0; i < 1 + 3 * S; ++i) {
+        v[i] += __shfl_xor_sync(0xffffffffu, v[i], 1);
+        v[i] += __shfl_xor_sync(0xffffffffu, v[i], 2);
+      }
+      const int c = c0 + cl + 8 * r;
+      if (tig == 0 && c < channels) {
 #pragma unroll
-  for (int j = 0; j < 3 * S; ++j) {
-    const int s = j / 3, which = j % 3;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const float v = which == 0 ? ad[s][q] : (which == 1 ? a1[s][q] : a2[s][q]);
-      red[warp * CT + cl + q] = v * f[q];
+        for (int s = 0; s < S; ++s) {
+          den[ob + (size_t)s * channels + c] = v[1 + 3 * s] / v[0];
+          s1[ob + (size_t)s * channels + c] = v[2 + 3 * s] / v[0];
+          s2[ob + (size_t)s * channels + c] = v[3 + 3 * s] / v[0];
+        }
+      }
     }
-    __syncthreads();
-    if (tid < CT && c0 + tid < channels) {
-      float sum = 0.0f;
-      for (int w = 0; w < NW; ++w) sum += red[w * CT + tid];
-      float* dst = which == 0 ? den : (which == 1 ? s1 : s2);
-      dst[((size_t)b * S + s) * channels + c0 + tid] = sum / lsum[tid];
-    }
-    __syncthreads();
+    reset();
   }
 }
 
-// w2 tile, then the walk's hidden tile and weights or, after it, the merge buffers
-size_t smem_bytes(int hdim, int speakers) {
-  const size_t walk = (size_t)TT * hdim + (size_t)speakers * TT;
-  const size_t merge = (size_t)NW * CT + CT;
-  return sizeof(float) * ((size_t)hdim * CT + (walk > merge ? walk : merge));
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    if (status == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
-template <typename T, int S>
-int launch_s(const void* x, const float* hidden, const float* w2, const float* b2,
-             const float* wt, float* den, float* s1, float* s2, int batch, int time,
-             int channels, int hdim, cudaStream_t stream) {
-  const size_t smem = smem_bytes(hdim, S);
-  cudaError_t err = cudaFuncSetAttribute(attn_stats_kernel<T, S>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// hidden (B, T, H) f32 as a TMA map of (32 H x 64 frames) boxes, 128-byte
+// swizzle; frames past T and H read as zeros
+int hidden_map(CUtensorMap* map, const void* hidden, int batch, int time, int hdim) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)hdim, (cuuint64_t)time, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)hdim * 4, (cuuint64_t)time * hdim * 4};
+  const cuuint32_t box[3] = {AK, AFT, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(hidden),
+                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <typename T, int S, int NK>
+int launch_nk(const CUtensorMap& hmap, const void* x, const float* whi, const float* wlo,
+             const float* b2, const float* wt, float* den, float* s1, float* s2, int batch,
+             int time, int channels, int hdim, int per, int xvec, cudaStream_t stream) {
+  const size_t smem = smem_bytes(S, sizeof(T));
+  const cudaError_t err = cudaFuncSetAttribute(
+      attn_stats_tc<T, S, NK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((channels + CT - 1) / CT, batch);
-  attn_stats_kernel<T, S><<<grid, NT, smem, stream>>>(static_cast<const T*>(x), hidden, w2, b2,
-                                                      wt, den, s1, s2, time, channels, hdim);
+  const dim3 grid((channels + AC - 1) / AC, (batch + per - 1) / per);
+  attn_stats_tc<T, S, NK><<<grid, ANT, smem, stream>>>(hmap, static_cast<const T*>(x), whi, wlo,
+                                                       b2, wt, den, s1, s2, batch, time, channels,
+                                                       hdim, per, xvec);
   return (int)cudaGetLastError();
 }
 
+// W2^T's registers are sized for two H slices (H <= 64) or four (H <= 128);
+// slices past H hold zeros
+template <typename T, int S>
+int launch_s(const CUtensorMap& hmap, const void* x, const float* whi, const float* wlo,
+             const float* b2, const float* wt, float* den, float* s1, float* s2, int batch,
+             int time, int channels, int hdim, int per, int xvec, cudaStream_t stream) {
+  if (hdim <= 2 * AK)
+    return launch_nk<T, S, 2>(hmap, x, whi, wlo, b2, wt, den, s1, s2, batch, time, channels,
+                              hdim, per, xvec, stream);
+  return launch_nk<T, S, 4>(hmap, x, whi, wlo, b2, wt, den, s1, s2, batch, time, channels, hdim,
+                            per, xvec, stream);
+}
+
 template <typename T>
-int launch(const void* x, const float* hidden, const float* w2, const float* b2, const float* wt,
-           float* den, float* s1, float* s2, int batch, int time, int channels, int hdim,
-           int speakers, cudaStream_t stream) {
-#define DIART_ATTN_CASE(S_) \
-  case S_:                  \
-    return launch_s<T, S_>(x, hidden, w2, b2, wt, den, s1, s2, batch, time, channels, hdim, stream);
+int launch(const CUtensorMap& hmap, const void* x, const float* whi, const float* wlo,
+           const float* b2, const float* wt, float* den, float* s1, float* s2, int batch,
+           int time, int channels, int hdim, int speakers, int per, int xvec,
+           cudaStream_t stream) {
+#define DIART_ATTN_CASE(S_)                                                                    \
+  case S_:                                                                                     \
+    return launch_s<T, S_>(hmap, x, whi, wlo, b2, wt, den, s1, s2, batch, time, channels, hdim, \
+                           per, xvec, stream);
   switch (speakers) {
     DIART_ATTN_CASE(1)
     DIART_ATTN_CASE(2)
@@ -258,27 +497,39 @@ int launch(const void* x, const float* hidden, const float* w2, const float* b2,
 
 }  // namespace
 
-// dtype of x: 0 = float32, 1 = bfloat16. hidden (B, T, H), w2 (H, C),
-// b2 (C,), wt (B, S, T): f32, contiguous; den/s1/s2: (B, S, C) f32.
-// H must be a multiple of 4 (float4 reads) and fit the shared-memory
-// budget. Returns the launch's cudaError_t.
-extern "C" int attn_stats_launch(const void* x, const void* hidden, const void* w2,
-                                 const void* b2, const void* wt, void* den, void* s1, void* s2,
-                                 int batch, int time, int channels, int hdim, int speakers,
-                                 int dtype, void* stream) {
-  if (batch < 1 || time < 1 || channels < 1 || hdim < 4 || hdim % 4 || batch > 65535 ||
-      smem_bytes(hdim, speakers) > 227 * 1024)
+// dtype of x: 0 = float32, 1 = bfloat16. hidden (B, T, H), wt (B, S, T), b2
+// (C,): f32, contiguous, hidden 16-byte aligned; whi/wlo (C, Hp): W2^T split
+// into TF32 hi and lo, Hp = H rounded up to 32, zero beyond H; den/s1/s2:
+// (B, S, C) f32. H must be a multiple of 8, at most 128 (MAX_H);
+// xvec (16, 8 or 4) divides C * sizeof(x) and x's address. per: streams a
+// block walks. Returns the launch's cudaError_t.
+extern "C" int attn_stats_launch(const void* x, const void* hidden, const void* whi,
+                                 const void* wlo, const void* b2, const void* wt, void* den,
+                                 void* s1, void* s2, int batch, int time, int channels, int hdim,
+                                 int speakers, int dtype, int per, int xvec, void* stream) {
+  const int elt = dtype == 1 ? 2 : 4;
+  if (batch < 1 || time < 1 || channels < 1 || hdim < 8 || hdim % 8 || per < 1 ||
+      (batch + per - 1) / per > 65535 || (dtype != 0 && dtype != 1) ||
+      (xvec != 16 && xvec != 8 && xvec != 4) || (channels * elt) % xvec ||
+      reinterpret_cast<uintptr_t>(hidden) % 16 || hdim > MAX_H)
     return (int)cudaErrorInvalidValue;
+  CUtensorMap hmap;
+  const int err = hidden_map(&hmap, hidden, batch, time, hdim);
+  if (err != 0) return err;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto o = [](void* p) { return static_cast<float*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(x, f(hidden), f(w2), f(b2), f(wt), o(den), o(s1), o(s2), batch, time,
-                         channels, hdim, speakers, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, f(hidden), f(w2), f(b2), f(wt), o(den), o(s1), o(s2), batch,
-                                 time, channels, hdim, speakers, st);
-  return (int)cudaErrorInvalidValue;
+    return launch<float>(hmap, x, f(whi), f(wlo), f(b2), f(wt), o(den), o(s1), o(s2), batch, time,
+                         channels, hdim, speakers, per, xvec, st);
+  return launch<__nv_bfloat16>(hmap, x, f(whi), f(wlo), f(b2), f(wt), o(den), o(s1), o(s2),
+                               batch, time, channels, hdim, speakers, per, xvec, st);
+}
+
+// Shared memory of a launch (the kernel's layout), 0 where H is not taken.
+extern "C" long long attn_stats_smem(int hdim, int speakers, int dtype) {
+  if (hdim < 8 || hdim % 8 || hdim > MAX_H) return 0;
+  return (long long)smem_bytes(speakers, dtype == 1 ? 2 : 4);
 }
 
 extern "C" const char* attn_stats_error_string(int err) {

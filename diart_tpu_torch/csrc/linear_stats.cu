@@ -8,41 +8,63 @@
 //   s2[b, s, :] = sum_t wt[b, s, t] * Z[b, t, :]^2
 //
 // X (B, T, Cin) is f32 or bf16 and W (Cin, C) has X's dtype (the wrapper
-// casts it, as the TPU wrapper does); every product accumulates in f32.
+// prepares it once per model, as the TPU wrapper casts it); every product
+// accumulates in f32.
 //
 // What bounds it on the H100: at the x-vector head (B=64, T=279, Cin=512,
 // C=1500, S=4) the X @ W product is 27.4 GFLOP against ~25 MB of inputs
-// and outputs, so the function is bound by operations, not bytes. Leaving
-// Z out of memory saves the 107 MB (f32) that the unfused version writes
-// and reads back twice.
+// and outputs, so the function is bound by the bf16 tensor cores (0.028 ms
+// at 989 TFLOP/s), not bytes. Leaving Z out of memory saves the 107 MB
+// (f32) that the unfused version writes and reads back twice.
 //
-// Two kernels, chosen by the wrapper from X's dtype and shape:
+// `linear_stats_wgmma` (bf16 X, Cin % 8 == 0, Cin <= 576 — the main path)
+// computes the transposed tile Z^T = W^T (channels x Cin) . X^T (Cin x
+// frames) with `wgmma` m64n144k16 (bf16 in, f32 accumulate; bf16 products
+// are exact in f32), so channels are the instruction's M and frames its N:
 //
-// * `linear_stats_mma` (bf16 X with Cin % 8 == 0 — the main path): the
-//   X @ W tile runs on the tensor cores with `mma.sync` m16n8k16 (bf16 in,
-//   f32 accumulate; bf16 products are exact in f32). One block (8 warps)
-//   per (stream, tile of 64 channels); the block walks T in tiles of 64
-//   frames and Cin in chunks of 64, staged through shared memory with
-//   16-byte loads (W's rows are padded by the wrapper to a multiple of 8
-//   channels so every load is aligned) and read into fragments with
-//   `ldmatrix` (`.trans` for W, which is stored k-major). Each warp owns a
-//   16-frame x 32-channel piece of the tile; its epilogue applies bias,
-//   leaky ReLU and the folded batch norm in registers and accumulates the
-//   S speakers' s1/s2 for its 8 columns.
-// * `linear_stats_fma` (f32 X, or any Cin): the same tiling with plain
-//   f32 FMAs — 256 threads each own 4 frames x 4 channels of the tile.
+// * A thread's accumulators are 2 channels (rows g and g + 8 of its warp's
+//   16) x 36 frames. The epilogue (bias, leaky ReLU, folded batch norm, the
+//   S speakers' weighted sums) therefore sums over frames inside the thread:
+//   2 x S x 2 running sums a thread (16 at S = 4), merged once per (stream,
+//   channel) over the 4 lanes of a quad with two shuffles in a fixed order.
+//   Nothing is merged per frame tile, and there are no atomics: the same
+//   inputs give the same bits, whatever the launch plan.
+// * A block is two warpgroups of 64 channels (128 channels). Its W tile
+//   (all of Cin, 128 KB at Cin = 512) is copied into shared memory once, as
+//   it lies in memory (channels contiguous: A is M-major, `wgmma`'s
+//   transpose flag), and stays there while the block walks its streams.
+// * X arrives in 64-deep k slices of 144 frames (K-major, as it lies in
+//   memory) through a 4-stage `cp.async` ring, two slices ahead of the
+//   products, with two `wgmma` groups in flight; both operands sit in the
+//   128-byte-swizzled layout the instruction reads. Frames past T are
+//   zero-filled and weigh 0 (T = 279 computes 288 frames).
+// * The launch plan (`per`, the streams a block walks) is the wrapper's: a
+//   persistent grid of about one block a multiprocessor, each walking
+//   several streams of one channel tile so that W is copied once a block
+//   (it measured faster than one stream a block). The route and the shared
+//   memory are this file's (`linear_stats_wgmma_smem`).
+// * What holds it (clock counters and stripped builds in development): the
+//   X copies. Each of the 12 channel tiles reads X again from L2, every
+//   thread issues its share by `cp.async`, and the epilogue does not overlap
+//   the next tile's products. TMA copies (as `attn_stats.cu` does for its
+//   hidden slices) and a cluster that multicasts X to several channel tiles
+//   are the next steps.
 //
-// In both, the (T, C) projection lives only in registers, and the partial
-// sums of a channel are combined at the end in a fixed order (a warp
-// butterfly, then shared memory): no atomics, so results are
-// deterministic. Padded frames (t >= T) get weight 0 and padded channels
-// are not written. `wgmma` and TMA are later work.
+// `linear_stats_fma` (f32 X, or a bf16 width the tensor-core kernel does not
+// take): 64 frames x 64 channels a tile with plain f32 FMAs — 256 threads
+// each own 4 frames x 4 channels — and the partial sums of a channel
+// combined at the end in a fixed order (shared memory). In both, padded
+// channels are not written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int CT = 64;   // channels per block
 constexpr int TT = 64;   // frames per tile
@@ -166,184 +188,220 @@ __global__ void __launch_bounds__(NT) linear_stats_fma(
   }
 }
 
+
 // --------------------------------------------------------------------- //
 // Tensor-core kernel (bf16)
 
-constexpr int MK = 64;       // Cin chunk of the mma kernel
-constexpr int MPAD = MK + 8;  // smem row stride (elements): 144 bytes, conflict-free ldmatrix
+constexpr int LC = 128;              // channels a block: two warpgroups of 64
+constexpr int LN = 144;              // frames a tile: the wgmma N
+constexpr int LK = 64;               // k slice: 128 bytes of bf16
+constexpr int LST = 4;               // X ring depth
+constexpr int LNT = 256;             // threads
+constexpr int LX_BYTES = LN * 128;   // one X slice, 144 rows of 128 bytes
+constexpr int LWT = (8 * LN + LNT - 1) / LNT;  // weights a thread prefetches (S <= 8)
+constexpr size_t kMaxSmem = 232448;  // 227 KB, the per-block opt-in limit
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// W (all of Cin, 128 channels), the X ring and one tile's weights
+__host__ __device__ constexpr size_t wgmma_smem_bytes(int cin, int speakers) {
+  return 1024 + (size_t)2 * round_up(cin, LK) * 128 + (size_t)LST * LX_BYTES +
+         sizeof(float) * speakers * LN;
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned addr, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
+// d (64 x 144, f32) += A (64 x 16, M-major) @ B (16 x 144, K-major)
+__device__ __forceinline__ void wgmma_m64n144k16(float (&d)[18][4], uint64_t da, uint64_t db) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71}, %72, %73, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]), "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]), "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3])
+      : "l"(da), "l"(db));
 }
 
-// x: (B, T, Cin) bf16, Cin % 8 == 0; w: (Cin, ldw) bf16, ldw % 8 == 0, zero beyond C.
+// x: (B, T, Cin) bf16, Cin % 8 == 0; w: (Cin, ldw) bf16, ldw % 8 == 0, zero
+// beyond C. Block (blockIdx.x, blockIdx.y): channels blockIdx.x * 128 ..,
+// streams blockIdx.y * per .. (at most per of them).
 template <int S>
-__global__ void __launch_bounds__(NT) linear_stats_mma(
+__global__ void __launch_bounds__(LNT, 1) linear_stats_wgmma(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
     const float* __restrict__ bias, const float* __restrict__ scale,
     const float* __restrict__ shift, const float* __restrict__ wt, float* __restrict__ s1,
-    float* __restrict__ s2, int time, int cin, int channels, int ldw, float slope) {
-  __shared__ __align__(16) __nv_bfloat16 xs[TT][MPAD];  // [frame][k]
-  __shared__ __align__(16) __nv_bfloat16 ws[MK][MPAD];  // [k][channel]
-  __shared__ float wts[S][TT];
-  __shared__ float red[4][CT];
+    float* __restrict__ s2, int batch, int time, int cin, int channels, int ldw, int per,
+    float slope) {
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle repeats every 1024 bytes: tiles start on that boundary
+  const unsigned base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* tiles = smem_raw + (base - smem_u32(smem_raw));
+  const int nk = (cin + LK - 1) / LK;
+  const int panel = nk * LK * 128;  // one warpgroup's 64 channels of W, k rows of 128 bytes
+  unsigned char* ws = tiles;                      // [2 panels][cin_pad][128 B]
+  unsigned char* xs = tiles + 2 * panel;          // [LST][LN][128 B]
+  float* wts = reinterpret_cast<float*>(xs + LST * LX_BYTES);  // [S][LN]
 
-  const int b = blockIdx.y;
-  const int c0 = blockIdx.x * CT;
+  const int c0 = blockIdx.x * LC;
+  const int b0 = blockIdx.y * per;
+  const int nb = min(per, batch - b0);
+  const int ntiles = (time + LN - 1) / LN;
+  const int nq = nb * ntiles * nk;  // X slices the block walks: stream, frame tile, k slice
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3;   // frames wm*16 .. +15 of the tile
-  const int wn = warp >> 2;  // channels wn*32 .. +31 of the tile
+  const int lane = tid & 31, wgrp = tid >> 7;
   const int g = lane >> 2, tig = lane & 3;
+  // this thread's channels: rows g and g + 8 of its warp's 16 in its warpgroup's 64
+  const int cr = c0 + wgrp * 64 + ((tid >> 5) & 3) * 16 + g;
 
-  // this thread's 8 output columns: wn*32 + nt*8 + tig*2 + {0, 1}
-  float bq[8], aq[8], cq[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int c = c0 + wn * 32 + (i >> 1) * 8 + tig * 2 + (i & 1);
-    const bool ok = c < channels;
-    bq[i] = ok ? bias[c] : 0.0f;
-    aq[i] = ok ? scale[c] : 0.0f;
-    cq[i] = ok ? shift[c] : 0.0f;
+  // W: cin_pad k rows x 16 chunks of 8 channels, two 64-channel panels
+  for (int e = tid; e < nk * LK * 16; e += LNT) {
+    const int k = e >> 4, cn = e & 15;
+    const bool ok = k < cin && c0 + cn * 8 < ldw;
+    cp_async16(ws + (cn >> 3) * panel + swizzle128(k, cn & 7),
+               w + (size_t)(ok ? k : 0) * ldw + (ok ? c0 + cn * 8 : 0), ok ? 16 : 0);
   }
-  float p1[S][8], p2[S][8];
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) p1[s][i] = p2[s][i] = 0.0f;
-
-  const __nv_bfloat16* xb = x + (size_t)b * time * cin;
-  const float* wtb = wt + (size_t)b * S * time;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  for (int t0 = 0; t0 < time; t0 += TT) {
-    for (int e = tid; e < S * TT; e += NT) {
-      const int s = e / TT, t = e % TT;
-      wts[s][t] = (t0 + t < time) ? wtb[(size_t)s * time + t0 + t] : 0.0f;
+  auto load = [&](int q) {  // X slice q into stage q % LST
+    const int gt = q / nk, k0 = (q % nk) * LK;
+    const int t0 = (gt % ntiles) * LN;
+    const __nv_bfloat16* xb = x + (size_t)(b0 + gt / ntiles) * time * cin;
+    unsigned char* xd = xs + (q % LST) * LX_BYTES;
+    for (int e = tid; e < LN * 8; e += LNT) {
+      const int r = e >> 3, c = e & 7;
+      const bool ok = t0 + r < time && k0 + c * 8 < cin;
+      cp_async16(xd + swizzle128(r, c), xb + (ok ? (size_t)(t0 + r) * cin + k0 + c * 8 : 0),
+                 ok ? 16 : 0);
     }
-    float acc[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.0f;
+  };
+  load(0);
+  cp_async_commit();  // W and slice 0
+  if (1 < nq) load(1);
+  cp_async_commit();
 
-    for (int k0 = 0; k0 < cin; k0 += MK) {
-      // stage 64 frames x 64 k of X and 64 k x 64 channels of W, 16 bytes a load
+  float bq[2], aq[2], sq[2];
 #pragma unroll
-      for (int r = 0; r < TT * MK / 8 / NT; ++r) {
-        const int e = tid + r * NT;
-        const int t = e / (MK / 8), k = (e % (MK / 8)) * 8;
-        const bool ok = (t0 + t < time) && (k0 + k < cin);
-        *reinterpret_cast<uint4*>(&xs[t][k]) =
-            ok ? *reinterpret_cast<const uint4*>(xb + (size_t)(t0 + t) * cin + k0 + k) : zero;
-      }
+  for (int r = 0; r < 2; ++r) {
+    const int c = cr + 8 * r;
+    const bool ok = c < channels;
+    bq[r] = ok ? bias[c] : 0.0f;
+    aq[r] = ok ? scale[c] : 0.0f;
+    sq[r] = ok ? shift[c] : 0.0f;
+  }
+  float p1[2][S], p2[2][S];
 #pragma unroll
-      for (int r = 0; r < MK * CT / 8 / NT; ++r) {
-        const int e = tid + r * NT;
-        const int k = e / (CT / 8), c = (e % (CT / 8)) * 8;
-        const bool ok = (k0 + k < cin) && (c0 + c < ldw);
-        *reinterpret_cast<uint4*>(&ws[k][c]) =
-            ok ? *reinterpret_cast<const uint4*>(w + (size_t)(k0 + k) * ldw + c0 + c) : zero;
-      }
-      __syncthreads();
+  for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int kk = 0; kk < MK; kk += 16) {
-        unsigned a[4];
-        const int mat = lane >> 3, row = lane & 7;
-        ldmatrix_x4(smem_u32(&xs[wm * 16 + (mat & 1) * 8 + row][kk + (mat >> 1) * 8]), a);
+    for (int s = 0; s < S; ++s) p1[r][s] = p2[r][s] = 0.0f;
+  float acc[18][4];
+  float wpre[LWT];
+
+  for (int gt = 0, q = 0; gt < nb * ntiles; ++gt) {  // frame tile gt of the block's walk
+    const int bi = gt / ntiles, tile = gt % ntiles;
 #pragma unroll
-        for (int np = 0; np < 2; ++np) {  // two n8 tiles per ldmatrix
-          unsigned bf[4];
-          ldmatrix_x4_trans(
-              smem_u32(&ws[kk + (mat & 1) * 8 + row][wn * 32 + np * 16 + (mat >> 1) * 8]), bf);
-          mma_bf16(acc[np * 2], a, bf[0], bf[1]);
-          mma_bf16(acc[np * 2 + 1], a, bf[2], bf[3]);
-        }
-      }
-      __syncthreads();
+    for (int j = 0; j < 18; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+    // this tile's speaker weights, in registers until the epilogue
+    const float* wtb = wt + (size_t)(b0 + bi) * S * time;
+#pragma unroll
+    for (int r = 0; r < LWT; ++r) {
+      const int e = tid + r * LNT, s = e / LN, t = tile * LN + e % LN;
+      wpre[r] = (s < S && t < time) ? wtb[(size_t)s * time + t] : 0.0f;
     }
-
-    // epilogue: rows wm*16 + g (acc[.][0..1]) and wm*16 + g + 8 (acc[.][2..3])
-    const int r0 = wm * 16 + g, r1 = r0 + 8;
+    for (int kb = 0; kb < nk; ++kb, ++q) {
+      cp_async_wait<1>();  // slice q has landed (only slice q + 1 may be in flight)
+      fence_async_shared();
+      __syncthreads();  // ... for every thread; and every warpgroup is done with slice q - 2
+      if (q + 2 < nq) load(q + 2);
+      cp_async_commit();
+      const unsigned wa = base + wgrp * panel + kb * LK * 128;
+      const unsigned xa = base + 2 * panel + (q % LST) * LX_BYTES;
+      wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
+      for (int ks = 0; ks < LK / 16; ++ks)
+        wgmma_m64n144k16(acc, wgmma_desc(wa + ks * 16 * 128, panel, 1024),
+                         wgmma_desc(xa + ks * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();  // slice q - 1 is consumed; slice q runs on
+    }
+    wgmma_wait<0>();
+
+    // epilogue of the tile: acc[j][h] -> channel row g, acc[j][2 + h] -> g + 8,
+    // frame tile * 144 + 8 j + 2 tig + h
+#pragma unroll
+    for (int r = 0; r < LWT; ++r) {
+      const int e = tid + r * LNT;
+      if (e < S * LN) wts[e] = wpre[r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 18; ++j) {
+      float wv[S][2];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float2 v = *reinterpret_cast<const float2*>(&wts[s * LN + 8 * j + 2 * tig]);
+        wv[s][0] = v.x;
+        wv[s][1] = v.y;
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int col = nt * 2 + (i & 1);
-        float y = acc[nt][i] + bq[col];
+        const int r = i >> 1, h = i & 1;
+        float y = acc[j][i] + bq[r];
         y = y >= 0.0f ? y : slope * y;
-        const float z = y * aq[col] + cq[col];
+        const float z = y * aq[r] + sq[r];
         const float zz = z * z;
-        const int r = i < 2 ? r0 : r1;
 #pragma unroll
         for (int s = 0; s < S; ++s) {
-          const float wv = wts[s][r];
-          p1[s][col] = fmaf(wv, z, p1[s][col]);
-          p2[s][col] = fmaf(wv, zz, p2[s][col]);
+          p1[r][s] = fmaf(wv[s][h], z, p1[r][s]);
+          p2[r][s] = fmaf(wv[s][h], zz, p2[r][s]);
         }
       }
     }
-    __syncthreads();  // wts is rewritten by the next tile
+    if (tile != ntiles - 1) continue;
+    // the stream is done: sum the quad's four lanes (fixed order) and store
+    const size_t ob = (size_t)(b0 + bi) * S * channels;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        float v1 = p1[r][s], v2 = p2[r][s];
+        v1 += __shfl_xor_sync(0xffffffffu, v1, 1);
+        v2 += __shfl_xor_sync(0xffffffffu, v2, 1);
+        v1 += __shfl_xor_sync(0xffffffffu, v1, 2);
+        v2 += __shfl_xor_sync(0xffffffffu, v2, 2);
+        const int c = cr + 8 * r;
+        if (tig == 0 && c < channels) {
+          s1[ob + (size_t)s * channels + c] = v1;
+          s2[ob + (size_t)s * channels + c] = v2;
+        }
+        p1[r][s] = p2[r][s] = 0.0f;
+      }
+    }
   }
+  cp_async_wait<0>();
+}
 
-  // sum over the 8 row groups of a warp (butterfly over lane bits 2..4),
-  // then over the 4 frame warps through shared memory, in a fixed order
-#pragma unroll
-  for (int m = 0; m < 2 * S; ++m) {
-    const int s = m >> 1;
-#pragma unroll
-    for (int col = 0; col < 8; ++col) {
-      float v = (m & 1) ? p2[s][col] : p1[s][col];
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (g == 0) red[wm][wn * 32 + (col >> 1) * 8 + tig * 2 + (col & 1)] = v;
-    }
-    __syncthreads();
-    if (tid < CT && c0 + tid < channels) {
-      const float sum = ((red[0][tid] + red[1][tid]) + red[2][tid]) + red[3][tid];
-      float* dst = (m & 1) ? s2 : s1;
-      dst[((size_t)b * S + s) * channels + c0 + tid] = sum;
-    }
-    __syncthreads();
-  }
+// The tensor-core kernel takes this call (bf16, Cin % 8 == 0, its tiles fit).
+bool wgmma_route(int cin, int ldw, int speakers, int dtype) {
+  return dtype == 1 && cin % 8 == 0 && ldw % 8 == 0 &&
+         wgmma_smem_bytes(cin, speakers) <= kMaxSmem;
 }
 
 // --------------------------------------------------------------------- //
 template <typename T, int S>
 int launch_s(const void* x, const void* w, const float* bias, const float* scale,
              const float* shift, const float* wt, float* s1, float* s2, int batch, int time,
-             int cin, int channels, int ldw, float slope, cudaStream_t stream) {
-  const dim3 grid((channels + CT - 1) / CT, batch);
+             int cin, int channels, int ldw, int per, float slope, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
-    if (cin % 8 == 0 && ldw % 8 == 0) {
-      linear_stats_mma<S><<<grid, NT, 0, stream>>>(
+    if (wgmma_route(cin, ldw, S, 1)) {
+      const size_t smem = wgmma_smem_bytes(cin, S);
+      const cudaError_t err = cudaFuncSetAttribute(
+          linear_stats_wgmma<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      const dim3 grid((channels + LC - 1) / LC, (batch + per - 1) / per);
+      linear_stats_wgmma<S><<<grid, LNT, smem, stream>>>(
           static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), bias,
-          scale, shift, wt, s1, s2, time, cin, channels, ldw, slope);
+          scale, shift, wt, s1, s2, batch, time, cin, channels, ldw, per, slope);
       return (int)cudaGetLastError();
     }
   }
+  const dim3 grid((channels + CT - 1) / CT, batch);
   linear_stats_fma<T, S><<<grid, NT, 0, stream>>>(static_cast<const T*>(x),
                                                   static_cast<const T*>(w), bias, scale, shift,
                                                   wt, s1, s2, time, cin, channels, ldw, slope);
@@ -353,11 +411,12 @@ int launch_s(const void* x, const void* w, const float* bias, const float* scale
 template <typename T>
 int launch(const void* x, const void* w, const float* bias, const float* scale,
            const float* shift, const float* wt, float* s1, float* s2, int batch, int time,
-           int cin, int channels, int ldw, int speakers, float slope, cudaStream_t stream) {
+           int cin, int channels, int ldw, int speakers, int per, float slope,
+           cudaStream_t stream) {
 #define DIART_STATS_CASE(S_)                                                                 \
   case S_:                                                                                  \
     return launch_s<T, S_>(x, w, bias, scale, shift, wt, s1, s2, batch, time, cin, channels, \
-                           ldw, slope, stream);
+                           ldw, per, slope, stream);
   switch (speakers) {
     DIART_STATS_CASE(1)
     DIART_STATS_CASE(2)
@@ -377,13 +436,15 @@ int launch(const void* x, const void* w, const float* bias, const float* scale,
 
 // dtype of x and w: 0 = float32, 1 = bfloat16. w: (Cin, ldw) row-major with
 // ldw >= C. bias/scale/shift: (C,) f32; wt: (B, S, T) f32; s1, s2: (B, S, C)
-// f32. Returns the launch's cudaError_t.
+// f32. per: streams a block walks on the tensor-core route (the launch
+// plan's; the FMA route takes one). Returns the launch's cudaError_t.
 extern "C" int linear_stats_launch(const void* x, const void* w, const void* bias,
                                    const void* scale, const void* shift, const void* wt,
                                    void* s1, void* s2, int batch, int time, int cin,
                                    int channels, int ldw, int speakers, int dtype, float slope,
-                                   void* stream) {
-  if (batch < 1 || time < 1 || cin < 1 || channels < 1 || ldw < channels || batch > 65535)
+                                   int per, void* stream) {
+  if (batch < 1 || time < 1 || cin < 1 || channels < 1 || ldw < channels || batch > 65535 ||
+      per < 1)
     return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -391,15 +452,17 @@ extern "C" int linear_stats_launch(const void* x, const void* w, const void* bia
   float* o2 = static_cast<float*>(s2);
   if (dtype == 0)
     return launch<float>(x, w, f(bias), f(scale), f(shift), f(wt), o1, o2, batch, time, cin,
-                         channels, ldw, speakers, slope, s);
+                         channels, ldw, speakers, per, slope, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, w, f(bias), f(scale), f(shift), f(wt), o1, o2, batch, time,
-                                 cin, channels, ldw, speakers, slope, s);
+                                 cin, channels, ldw, speakers, per, slope, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// 1 when a call with this dtype and Cin runs on the tensor cores.
-extern "C" int linear_stats_uses_mma(int cin, int dtype) { return dtype == 1 && cin % 8 == 0; }
+// Shared memory of a tensor-core launch, or 0 where the call takes the FMA route.
+extern "C" long long linear_stats_wgmma_smem(int cin, int ldw, int speakers, int dtype) {
+  return wgmma_route(cin, ldw, speakers, dtype) ? (long long)wgmma_smem_bytes(cin, speakers) : 0;
+}
 
 extern "C" const char* linear_stats_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -73,7 +73,15 @@
 
 #include <algorithm>
 
+#include "hopper.cuh"
+
 namespace {
+
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::smem_u32;
+using hopper::wgmma_desc;
 
 typedef __nv_bfloat16 bf16;
 
@@ -97,10 +105,6 @@ __device__ __forceinline__ float tdnn_epilogue(float acc, float b, float a, floa
   return __fadd_rn(__fmul_rn(y, a), c);
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -120,17 +124,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 bytes global -> shared; `bytes` = 0 fills the destination with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes = 16) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // --------------------------------------------------------------------- //
@@ -230,13 +223,6 @@ constexpr int WNT = 256;   // threads: 2 warpgroups
 constexpr int W_A_BYTES = WBM * WBK * 2;  // 16 KB: 128 rows of 128 bytes
 constexpr int W_B_BYTES = WBK * WBN * 2;  // 16 KB: 2 panels of 64 k rows of 128 bytes
 constexpr size_t kWgmmaSmem = 1024 + (size_t)WST * (W_A_BYTES + W_B_BYTES) + sizeof(float) * 8 * WBN;
-
-// shared-memory matrix descriptor, 128-byte swizzle
-__device__ __forceinline__ uint64_t wgmma_desc(unsigned addr, unsigned lbo_bytes,
-                                               unsigned sbo_bytes) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo_bytes >> 4) << 16) |
-         ((uint64_t)(sbo_bytes >> 4) << 32) | (1ull << 62);
-}
 
 // d (64 x 128, f32) += A (64 x 16, k-major) @ B (16 x 128, n-major)
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[16][4], uint64_t da, uint64_t db) {

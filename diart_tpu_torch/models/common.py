@@ -3,22 +3,43 @@
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attn_stats import fused_attentive_stats
+from ..ops.attn_stats import AttnOperands, fused_attentive_stats
 from ..ops.functional import reflect_index
 
 __all__ = [
     "InferenceBatchNorm",
     "QuantizableConv",
     "attentive_stats_pool",
+    "held_operands",
     "reflect_pad_time",
     "resample_weights",
+    "trained",
 ]
+
+
+def held_operands(store: Dict, tag, params: Iterable[torch.Tensor], make: Callable):
+    """``make()``'s kernel operands, held in ``store`` under ``tag`` and made
+    again only when one of ``params`` changes: an in-place update, a load or
+    a move to another device (each is keyed on its ``data_ptr``,
+    ``_version`` and device)."""
+    key = tuple((p.data_ptr(), p._version, p.device) for p in params)
+    held = store.get(tag)
+    if held is None or held[0] != key:
+        with torch.no_grad():
+            held = store[tag] = (key, make())
+    return held[1]
+
+
+def trained(params: Iterable[torch.Tensor]) -> bool:
+    """Whether autograd trains any of ``params`` in this call. Held operands
+    are cut off from autograd, so such a call takes the raw parameters."""
+    return torch.is_grad_enabled() and any(p.requires_grad for p in params)
 
 
 def reflect_pad_time(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -98,13 +119,16 @@ def attentive_stats_pool(
     att_global: nn.Linear,
     att_bn: InferenceBatchNorm,
     att_scores: nn.Linear,
+    scores: Optional[AttnOperands] = None,
 ) -> Tuple[torch.Tensor, bool]:
     """External-weight-aware channel-attentive statistics pooling (the ECAPA
     head): attention over ``[x; global mean; global std]`` once per chunk,
     then per-speaker pooling where the frame weights re-normalize the shared
     attention. The softmax and the three moments run in
     :func:`fused_attentive_stats` (the hand-written kernel on a CUDA tensor),
-    so the (B, T, C) logits never reach memory.
+    so the (B, T, C) logits never reach memory. ``scores`` is
+    ``att_scores`` prepared for the kernel (:func:`prepare_attn_operands`),
+    where the caller holds it; otherwise the raw weights go in.
 
     frames (B, T, C); weights (B, S, Tw) or None -> (pooled (B, S, 2C) f32,
     squeeze), ``squeeze`` telling the caller the speaker axis was made up."""
@@ -118,9 +142,12 @@ def attentive_stats_pool(
     gstd = torch.sqrt(torch.clamp(gvar, min=1e-12))
     hidden = att_local(f32) + att_global(torch.cat([gmean, gstd], dim=-1))
     hidden = torch.tanh(att_bn(torch.relu(hidden)))  # (B, T, bottleneck)
-    den, s1, s2 = fused_attentive_stats(
-        frames, hidden, att_scores.weight.t(), att_scores.bias, weights
-    )
+    if scores is None:
+        den, s1, s2 = fused_attentive_stats(
+            frames, hidden, att_scores.weight.t(), att_scores.bias, weights
+        )
+    else:
+        den, s1, s2 = fused_attentive_stats(frames, hidden, scores, weights=weights)
     den = torch.clamp(den, min=1e-12)
     mu = s1 / den
     var = s2 / den - mu**2

@@ -24,8 +24,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.attn_stats import AttnOperands, prepare_attn_operands
 from ..ops.se_res2 import Res2Operands, fused_se_res2_block, kernel_operands
-from .common import InferenceBatchNorm, QuantizableConv, attentive_stats_pool, reflect_pad_time
+from .common import (
+    InferenceBatchNorm,
+    QuantizableConv,
+    attentive_stats_pool,
+    held_operands,
+    reflect_pad_time,
+    trained,
+)
 from .fbank import speechbrain_log_mel
 
 __all__ = ["EcapaTDNN"]
@@ -101,7 +109,7 @@ class _SERes2Block(nn.Module):
         self.res2net = _Res2Block(features, kernel, dilation, res2_scale, compute_dtype)
         self.tdnn2 = _TDNNBlock(features, features, 1, 1, compute_dtype)
         self.se = _SEBlock(features, se_bottleneck)
-        self._operands = None  # (key, Res2Operands) of the last kernel_operands call
+        self._operands = {}  # dtype -> (key, Res2Operands)
 
     def folded_params(self) -> Tuple[torch.Tensor, ...]:
         """The kernel's 16-tuple: 1x1 weights as (in, out), group
@@ -125,11 +133,8 @@ class _SERes2Block(nn.Module):
         """The folded parameters laid out for the kernel, made once per
         dtype and made again only when a parameter changes (a load or a
         move to another device)."""
-        key = (dtype, tuple((p.data_ptr(), p._version) for p in self.parameters()))
-        if self._operands is None or self._operands[0] != key:
-            with torch.no_grad():
-                self._operands = (key, kernel_operands(self.folded_params(), dtype))
-        return self._operands[1]
+        return held_operands(self._operands, dtype, list(self.parameters()),
+                             lambda: kernel_operands(self.folded_params(), dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.features % self.res2_scale == 0:
@@ -173,6 +178,13 @@ class EcapaTDNN(nn.Module):
         self.att2 = nn.Linear(attention_bottleneck, 3 * c)
         self.asp_bn = InferenceBatchNorm(6 * c, channel_dim=-1)
         self.embedding = nn.Linear(6 * c, embedding_dim)
+        self._scores_ops = {}  # () -> (key, AttnOperands)
+
+    def scores_operands(self) -> AttnOperands:
+        """The attention scores' weights laid out for the kernel, once and
+        again only when they change."""
+        return held_operands(self._scores_ops, (), list(self.att2.parameters()),
+                             lambda: prepare_attn_operands(self.att2.weight.t(), self.att2.bias))
 
     def forward(self, waveform, weights=None):
         return self.head(self.trunk(waveform), weights)
@@ -209,7 +221,8 @@ class EcapaTDNN(nn.Module):
         """frames (B, T, C); weights (B, S, Tw) or None -> (B, S, dim) (or
         (B, dim))."""
         pooled, squeeze = attentive_stats_pool(
-            frames, weights, self.att_local, self.att_global, self.att_bn, self.att2
+            frames, weights, self.att_local, self.att_global, self.att_bn, self.att2,
+            None if trained(self.att2.parameters()) else self.scores_operands(),
         )
         emb = self.embedding(self.asp_bn(pooled))
         return emb[:, 0] if squeeze else emb

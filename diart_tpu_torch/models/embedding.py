@@ -8,7 +8,8 @@ stops before that TDNN and the head computes its projection, leaky ReLU,
 batch norm and weighted moments in
 :func:`diart_tpu_torch.ops.linear_stats.fused_linear_stats` — on a CUDA
 tensor the hand-written kernel, so the (B, T, 1500) projection never
-reaches memory.
+reaches memory. Its operands (the weight in the frames' dtype, the folded
+batch norm) are laid out once and again only when a parameter changes.
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.linear_stats import fused_linear_stats
-from .common import InferenceBatchNorm, QuantizableConv, resample_weights
+from ..ops.linear_stats import StatsOperands, fused_linear_stats, prepare_stats_operands
+from .common import InferenceBatchNorm, QuantizableConv, held_operands, resample_weights, trained
 from .sincnet import SincNet
 
 __all__ = ["XVectorSincNet", "stats_from_moments", "weighted_stats_pool"]
@@ -74,6 +75,25 @@ class XVectorSincNet(nn.Module):
             setattr(self, f"tdnn{i}_norm", InferenceBatchNorm(channels))
             in_dim = channels
         self.embedding = nn.Linear(2 * in_dim, embedding_dim)
+        self._head_ops = {}  # frames dtype -> (key, StatsOperands)
+
+    def _head_layers(self):
+        """The last TDNN's conv and batch norm, which the fused head computes."""
+        last = len(self.tdnn_specs) - 1
+        conv, norm = getattr(self, f"tdnn{last}"), getattr(self, f"tdnn{last}_norm")
+        return conv, norm, [*conv.parameters(), *norm.parameters()]
+
+    def head_operands(self, dtype: torch.dtype) -> StatsOperands:
+        """The fused head's operands for frames of ``dtype``: the last TDNN's
+        1x1 weight, bias and folded batch norm, laid out once and again only
+        when one of them changes."""
+        conv, norm, params = self._head_layers()
+
+        def make():
+            a, c = norm.folded()
+            return prepare_stats_operands(conv.weight[:, :, 0].t(), conv.bias, a, c, dtype)
+
+        return held_operands(self._head_ops, dtype, params, make)
 
     @property
     def fused_head(self) -> bool:
@@ -119,13 +139,13 @@ class XVectorSincNet(nn.Module):
             weights = torch.ones(frames.shape[0], 1, frames.shape[1], device=frames.device)
         weights = resample_weights(weights, frames.shape[1])
         if fused:
-            last = len(self.tdnn_specs) - 1
-            conv = getattr(self, f"tdnn{last}")
-            a, c = getattr(self, f"tdnn{last}_norm").folded()
+            conv, norm, params = self._head_layers()
             wf = weights.float()
-            s1, s2 = fused_linear_stats(
-                frames, conv.weight[:, :, 0].t(), conv.bias, a, c, wf
-            )
+            if trained(params):
+                a, c = norm.folded()
+                s1, s2 = fused_linear_stats(frames, conv.weight[:, :, 0].t(), conv.bias, a, c, wf)
+            else:
+                s1, s2 = fused_linear_stats(frames, self.head_operands(frames.dtype), weights=wf)
             stats = stats_from_moments(s1, s2, wf.sum(-1), (wf * wf).sum(-1))
         else:
             stats = weighted_stats_pool(frames, weights)

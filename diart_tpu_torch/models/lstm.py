@@ -19,6 +19,7 @@ from torch import nn
 
 from .. import precision
 from ..ops.lstm_sweep import SweepWeights, lstm_sweep_tm, pack_w_hh
+from .common import held_operands, trained
 
 __all__ = ["BiLSTM"]
 
@@ -47,11 +48,7 @@ class BiLSTM(nn.Module):
         once and made again only when the parameter changes (an in-place
         update, a load, a move to another device)."""
         w_hh = getattr(self, f"l{layer}_w_hh")
-        key = (w_hh.data_ptr(), w_hh._version, w_hh.device)
-        held = self._packed.get((layer, dtype))
-        if held is None or held[0] != key:
-            held = self._packed[(layer, dtype)] = (key, pack_w_hh(w_hh, dtype))
-        return held[1]
+        return held_operands(self._packed, (layer, dtype), [w_hh], lambda: pack_w_hh(w_hh, dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (T, B, F) -> (T, B, 2H), in the stream dtype."""
@@ -65,8 +62,6 @@ class BiLSTM(nn.Module):
             y = torch.matmul(x.to(stream), w_ih.to(stream).reshape(2 * g4, -1).t())
             proj = (y.view(time, batch, 2, g4).float() + b).to(stream)
             proj_t = proj.transpose(1, 2).contiguous()  # (T, 2, B, 4H)
-            # the pack is cut off from autograd: a trained w_hh goes in as it is
-            trained = torch.is_grad_enabled() and w_hh.requires_grad
-            out_t = lstm_sweep_tm(proj_t, w_hh if trained else self.packed_w_hh(layer, stream))
+            out_t = lstm_sweep_tm(proj_t, w_hh if trained([w_hh]) else self.packed_w_hh(layer, stream))
             x = torch.cat([out_t[:, 0], out_t[:, 1]], dim=-1)
         return x

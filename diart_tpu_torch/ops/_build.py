@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 by ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>.so`` beside the
-package (rebuilt when the source is newer) and loaded with ctypes; pointers
-and the stream pass as ``c_void_p``. :func:`build` compiles several sources
-at once, one ``nvcc`` each, all started together.
+package (rebuilt when the source or a header of ``csrc/`` is newer) and
+loaded with ctypes; pointers and the stream pass as ``c_void_p``.
+:func:`build` compiles several sources at once, one ``nvcc`` each, all
+started together.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 KERNELS = ("lstm_sweep", "linear_stats", "attn_stats", "se_res2")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
 ]
 
 _LOCK = threading.Lock()
@@ -50,8 +51,9 @@ def _target(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
-    so, src = _target(name), CSRC / f"{name}.cu"
-    return not so.exists() or so.stat().st_mtime < src.stat().st_mtime
+    so = _target(name)
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return not so.exists() or so.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def build(names: Iterable[str] = KERNELS, force: bool = False) -> Dict[str, str]:
