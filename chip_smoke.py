@@ -34,7 +34,29 @@ Phases (any failure exits non-zero):
    counters set to 0 just before and read just after). Compare each with
    the same engine on the CPU for 2 streams (``probe_frame_scores`` and
    12 f32 hops with clustering), and time and profile the step.
-4. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+4. The serving path of each engine at B=64 (``tau_active`` 0.45): the
+   step with numpy int16 blocks and numpy masks under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync allowed) and
+   its dispatch time, wall and idle share; five sessions on one engine over
+   24 hops with warm-up, a paused stream and a slot reset, every
+   ``push_begin`` under the sync check: the card's packed bits equal the
+   host's ``np.packbits`` of the same hop's scores byte for byte, and the
+   native bits route, the scores route, the numpy routes called by name
+   and the annotation route give identical RTTM text at every hop; two
+   hops in flight with a reset between a dispatch and its harvest give the
+   synchronous text; a checkpoint saved halfway and restored into a fresh
+   session gives the uninterrupted text; each kernel of the path ran on
+   every step (counts set to 0 before the hops). Print the per-hop
+   dispatch / harvest split, the host ms of native and numpy RTTM assembly
+   and the device-to-host bytes of both fetch routes. Then
+   ``CohortScheduler`` with 4 cohorts of 64 streams, pipelined, 8 periods
+   of real time: every hop harvested with text for every stream; dispatch
+   lateness, reply latency and late hops are printed as a record.
+5. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+
+``--step-timing [--root TREE]`` runs only the step timing of phase 4 (its
+sync check recorded, not fatal), importing ``diart_tpu_torch`` from
+``TREE``: run it on two trees in the order A B B A to compare commits.
 
 The script imports only the port (never jax or diart_tpu) and exits
 non-zero without a GPU.
@@ -806,6 +828,409 @@ def compare_cpu(emb, audio):
 
 
 # --------------------------------------------------------------------- #
+SESSION_TAU = 0.45  # the random models' ~0.5 activations then make turns
+SESSION_HOPS, SESSION_PAUSED, SESSION_RESET = 24, 3, 5
+COHORTS, COHORT_PERIODS = 4, 8
+
+
+def counting_steps(engine):
+    """Wrap ``engine.step`` to count its calls; returns the counter."""
+    calls = [0]
+    step = engine.step
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return step(*args, **kwargs)
+
+    engine.step = counted
+    return calls
+
+
+class no_host_sync:
+    """``torch.cuda.set_sync_debug_mode("error")`` inside the block: any
+    call that waits for the card raises there."""
+
+    def __enter__(self):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode(0)
+        return False
+
+
+def copy_timing(engine, state, blocks, reps=25):
+    """Host ms of one hop's numpy int16 blocks copied to the card (median
+    and largest of ``reps``), with the card idle and right after a step was
+    queued (a pageable copy then waits for that step's tail on the card):
+    ``pageable`` ``.to(device)``; ``pin_memory`` ``Tensor.pin_memory()``
+    then ``.to(device, non_blocking=True)``; ``staged`` the engine's route
+    (a host copy into ``torch.empty(pin_memory=True)``, then the same)."""
+    import torch
+
+    dev = engine.device
+
+    def staged():
+        t = torch.empty(blocks.shape, dtype=torch.int16, pin_memory=True)
+        np.copyto(t.numpy(), blocks)
+        return t.to(dev, non_blocking=True)
+
+    ways = {"pageable": lambda: torch.from_numpy(blocks).to(dev),
+            "pin_memory": lambda: torch.from_numpy(blocks).pin_memory().to(dev, non_blocking=True),
+            "staged": staged}
+    res = {}
+    for name, copy in ways.items():
+        for queue in ("idle", "after_step"):
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                if queue == "after_step":
+                    state, _ = engine.step(state, blocks)
+                t0 = time.perf_counter()
+                copy()
+                times.append((time.perf_counter() - t0) * 1e3)
+            res[f"{name}_{queue}_ms"] = float(np.median(times))
+            res[f"{name}_{queue}_max_ms"] = max(times)
+    torch.cuda.synchronize()
+    return res
+
+
+def input_variants(engine, state, audio, rounds=3, steps=30):
+    """The step's dispatch (host ms of the call) and wall per step, back to
+    back, by how its inputs arrive, the variants taking turns in each round:
+    ``host`` numpy blocks and masks (the engine's own copies); ``drained``
+    the same after ``torch.cuda.synchronize()`` (outside the dispatch time;
+    the card is idle when the step is queued); ``pageable`` tensors copied
+    by ``.to(device)`` in the call (they wait for the card, as the engine's
+    copies once did); ``device`` blocks and masks already on the card (no
+    copies at all)."""
+    import torch
+
+    b, hops, dev = audio.shape[1], audio.shape[0], engine.device
+    ones = np.ones(b, bool)
+    staged = torch.from_numpy(audio).to(dev)
+    dones = torch.ones(b, dtype=torch.bool, device=dev)
+    inputs = {
+        "host": lambda i: (audio[i % hops], ones, ones),
+        "drained": lambda i: (audio[i % hops], ones, ones),
+        "pageable": lambda i: tuple(torch.from_numpy(a).to(dev) for a in (audio[i % hops], ones, ones)),
+        "device": lambda i: (staged[i % hops], dones, dones),
+    }
+    dispatch = {k: [] for k in inputs}
+    wall = {k: [] for k in inputs}
+    for r in range(rounds):
+        for name, make in inputs.items():
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            for i in range(steps):
+                if name == "drained":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = engine.step(state, *make(r + i))
+                dispatch[name].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            wall[name].append((time.perf_counter() - t_start) * 1e3 / steps)
+    return {k: dict(dispatch_ms=float(np.median(dispatch[k])), wall_ms=float(np.median(wall[k])),
+                    wall_rounds_ms=wall[k]) for k in inputs}
+
+
+def step_timing(engine, audio, tag=""):
+    """The step with host inputs, as a server feeds it (numpy int16 blocks
+    and numpy masks): first one step under the sync check (it raises on a
+    tree whose step waits for the card; recorded, not fatal here); then 3
+    rounds of 30 steps back to back: the host time of each call (dispatch,
+    median of the calls) and the wall per step to each round's last step's
+    end (median of the rounds); 20 steps each waited for; the device busy
+    time of 5 back-to-back steps from a profile; and the copy of one hop's
+    blocks, pageable against pinned (:func:`copy_timing`)."""
+    import torch
+
+    b = audio.shape[1]
+    ones = np.ones(b, bool)
+    state = engine.init_state()
+    for i in range(WARMUP_HOPS + 1):
+        state, _ = engine.step(state, audio[i], ones, np.full(b, i + 1 >= WARMUP_HOPS))
+    torch.cuda.synchronize()
+    sync_check = "no host sync"
+    try:
+        with no_host_sync():
+            state, _ = engine.step(state, audio[WARMUP_HOPS + 1], ones, ones)
+            state = engine.reset_streams(state, np.zeros(b, bool))
+        torch.cuda.synchronize()
+    except RuntimeError as exc:
+        import traceback
+
+        frames = [f for f in traceback.extract_tb(exc.__traceback__) if "diart_tpu_torch" in f.filename]
+        where = f"{frames[-1].filename.split('diart_tpu_torch/')[-1]}:{frames[-1].lineno}" if frames else "?"
+        sync_check = f"raised {type(exc).__name__}: {exc} (at diart_tpu_torch/{where})"
+        torch.cuda.synchronize()
+    hops = audio.shape[0]
+    dispatch, rounds = [], []
+    for r in range(3):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        for i in range(30):
+            t0 = time.perf_counter()
+            state, out = engine.step(state, audio[(r + i) % hops], ones, ones)
+            dispatch.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        rounds.append((time.perf_counter() - t_start) * 1e3 / 30)
+    back_to_back_ms = float(np.median(rounds))
+    waited = []
+    for i in range(20):
+        t0 = time.perf_counter()
+        state, out = engine.step(state, audio[i % hops], ones, ones)
+        torch.cuda.synchronize()
+        waited.append((time.perf_counter() - t0) * 1e3)
+    res = dict(sync_check=sync_check, dispatch_ms=float(np.median(dispatch)),
+               back_to_back_wall_ms=back_to_back_ms, back_to_back_rounds_ms=rounds,
+               waited_wall_ms=float(np.median(waited[5:])), dispatch_ms_all=dispatch,
+               waited_ms_all=waited)
+    try:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(5):
+                state, out = engine.step(state, audio[i % hops], ones, ones)
+            torch.cuda.synchronize()
+        res.update(device_summary(prof, 5))
+        res["idle_share"] = 1.0 - res["device_busy_ms"] / back_to_back_ms
+    except Exception as exc:  # diagnostic only
+        log(f"profiler unavailable: {type(exc).__name__}: {exc}")
+    res["copy"] = copy_timing(engine, state, audio[0])
+    res["inputs"] = input_variants(engine, state, audio)
+    log(f"step timing[{tag}] B={b}, numpy int16 blocks and numpy masks: sync check: {sync_check}; "
+        f"dispatch {res['dispatch_ms']:.3f} ms/step (host time of the call, median of 90), "
+        f"back-to-back wall {back_to_back_ms:.3f} ms/step (median of 3 rounds of 30: "
+        + ", ".join(f"{x:.3f}" for x in rounds) + f"), waited-for wall "
+        f"{res['waited_wall_ms']:.3f} ms/step (median of 15); device busy "
+        f"{res.get('device_busy_ms', float('nan')):.3f} ms/step, "
+        f"{res.get('kernels_per_step', float('nan')):.0f} device launches/step, idle share of the "
+        f"back-to-back wall {res.get('idle_share', float('nan')):.3f}; host ms of one hop's blocks "
+        f"to the card (median, max of 25): " + ", ".join(
+            f"{k[:-3]} {v:.3f}, {res['copy'][k[:-3] + '_max_ms']:.3f}"
+            for k, v in res["copy"].items() if not k.endswith("_max_ms")))
+    log(f"step timing[{tag}] by input route, dispatch / wall ms a step (3 rounds of 30, taking turns): "
+        + "; ".join(f"{k} {v['dispatch_ms']:.3f} / {v['wall_ms']:.3f}" for k, v in res["inputs"].items()))
+    return res
+
+
+def drive_session(emb, audio, out_dir):
+    """The serving path at B streams on the full-width engine: five
+    sessions on one engine over SESSION_HOPS hops of numpy int16 blocks, with
+    warm-up, a paused stream and a slot reset. Every push_begin (and the
+    steps it queues) runs under the sync check. At every hop the card's
+    packed bits equal the host's packbits of the same hop's scores, and the
+    native bits route, the scores route, the numpy routes called by name and
+    the annotation route give identical text; two hops in flight with a
+    reset between a dispatch and its harvest give the synchronous text; a
+    checkpoint saved halfway and restored into a fresh session continues
+    with the uninterrupted text."""
+    import tempfile
+
+    import torch
+    from diart_tpu_torch import MultiStreamSession, native
+    from diart_tpu_torch.ops.binarize import batch_binarize_rttm, batch_bits_rttm
+
+    engine = build_engine("cuda", B, emb)
+    engine.set_hyperparameters(tau_active=SESSION_TAU, rho_update=0.05)
+    steps = counting_steps(engine)
+    kw = dict(tau_active=SESSION_TAU, collect_audio=False)
+    bits_s = MultiStreamSession(engine, **kw)
+    scores_s = MultiStreamSession(engine, binarize_on_device=False, **kw)
+    ann_s = MultiStreamSession(engine, **kw)
+    pipe_s = MultiStreamSession(engine, **kw)
+    ckpt_s = MultiStreamSession(engine, **kw)
+    bits_s.warm()
+    torch.cuda.synchronize()
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    steps[0] = 0
+    geo, half = engine.geometry, SESSION_HOPS // 2
+    res, speakers = geo.out_resolution, 20
+    timings = {k: [] for k in ("dispatch", "harvest", "scores_dispatch", "scores_harvest",
+                               "native_bits", "numpy_bits", "native_scores", "numpy_scores")}
+    fetch_bytes = {}
+    sync_texts, pipe_texts, ckpt_texts, inflight, lines, first_rows_seen = [], [], [], [], 0, 0
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(scratch, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=scratch)  # inside the checkout
+    for i in range(SESSION_HOPS):
+        present = np.ones(B, bool)
+        if i == half + 3:
+            present[SESSION_PAUSED] = False
+        blk = audio[i]
+        # the bits route, synchronous: dispatch and harvest timed apart
+        with no_host_sync():
+            t0 = time.perf_counter()
+            pending = bits_s.push_begin(blk, present)
+            t1 = time.perf_counter()
+            s_pending = scores_s.push_begin(blk, present)
+            t2 = time.perf_counter()
+            a_pending = ann_s.push_begin(blk, present, rttm=False)
+            p_pending = pipe_s.push_begin(blk, present)
+            c_pending = ckpt_s.push_begin(blk, present)
+        if pending is None:
+            assert s_pending is None and a_pending is None and p_pending is None and c_pending is None
+            texts = [None] * B
+        else:
+            t3 = time.perf_counter()
+            texts = bits_s.push_finish_rttm(pending)
+            t4 = time.perf_counter()
+            s_texts = scores_s.push_finish_rttm(s_pending)
+            t5 = time.perf_counter()
+            a_texts = [None if o is None else o[0].to_rttm() for o in ann_s.push_finish(a_pending)]
+            run, chunk = pending.run_mask, pending.chunk_index
+            steady = np.flatnonzero(run & (chunk > 0))
+            first_rows_seen += int((run & (chunk == 0)).sum())
+            bits = pending.fetch[0].numpy()
+            scores = pending.device_aggregated.cpu().numpy()
+            host = np.packbits((scores > np.float32(SESSION_TAU)).reshape(B, -1), axis=1)
+            if not np.array_equal(bits, host):
+                raise AssertionError(f"session[{emb}] hop {i}: the card's packed bits differ from "
+                                     f"the host's packbits of the same scores")
+            if s_texts != texts or a_texts != texts:
+                raise AssertionError(f"session[{emb}] hop {i}: the scores route or the annotation "
+                                     "route differs from the native bits route")
+            if any(texts[k] is None for k in np.flatnonzero(run)) or any(
+                    texts[k] is not None for k in np.flatnonzero(~run)):
+                raise AssertionError(f"session[{emb}] hop {i}: text missing for a running stream")
+            if steady.size:
+                starts = (chunk * engine.step_duration + engine.duration - engine.latency
+                          + np.asarray(pending.shifts))
+                uris = [pending.uris[k] for k in steady]
+                t6 = time.perf_counter()
+                native_bits = native.rttm_from_bits(bits, geo.num_out, speakers, starts, res,
+                                                    pending.uris, emit=run & (chunk > 0))
+                t7 = time.perf_counter()
+                numpy_bits = batch_bits_rttm(bits[steady], geo.num_out, speakers, starts[steady], res, uris)
+                t8 = time.perf_counter()
+                native_scores = native.rttm_from_scores(scores, starts, res, SESSION_TAU, pending.uris,
+                                                        emit=run & (chunk > 0))
+                t9 = time.perf_counter()
+                numpy_scores = batch_binarize_rttm(scores[steady], starts[steady], res, SESSION_TAU, uris)
+                t10 = time.perf_counter()
+                want = [texts[k] for k in steady]
+                for name, got in (("native bits", [native_bits[k] for k in steady]), ("numpy bits", numpy_bits),
+                                  ("native scores", [native_scores[k] for k in steady]),
+                                  ("numpy scores", numpy_scores)):
+                    if got != want:
+                        raise AssertionError(f"session[{emb}] hop {i}: the {name} route differs")
+                if not (run & (chunk == 0)).any():
+                    for key, dt in (("dispatch", t1 - t0), ("harvest", t4 - t3),
+                                    ("scores_dispatch", t2 - t1), ("scores_harvest", t5 - t4),
+                                    ("native_bits", t7 - t6), ("numpy_bits", t8 - t7),
+                                    ("native_scores", t9 - t8), ("numpy_scores", t10 - t9)):
+                        timings[key].append(dt * 1e3)
+                    fetch_bytes = dict(
+                        bits=sum(t.numel() * t.element_size() for t in pending.fetch),
+                        scores=sum(t.numel() * t.element_size() for t in s_pending.fetch))
+            lines += sum(t.count("\n") for t in texts if t)
+        sync_texts.append(texts)
+        # two hops in flight; the reset lands between a dispatch and its harvest
+        if p_pending is not None:
+            inflight.append(p_pending)
+        if i == half - 1:
+            for s in (bits_s, scores_s, ann_s, pipe_s, ckpt_s):
+                s.reset_slot(SESSION_RESET, uri="fresh", shift=1.5)
+        while len(inflight) > 2:
+            pipe_texts.append(pipe_s.push_finish_rttm(inflight.pop(0)))
+        if c_pending is not None:
+            ckpt_texts.append(ckpt_s.push_finish_rttm(c_pending))
+        if i == half - 1:
+            path = os.path.join(tmp.name, "session.pt")
+            ckpt_s.save(path)
+            ckpt_s = MultiStreamSession(engine, **kw)
+            ckpt_s.restore(path)
+    while inflight:
+        pipe_texts.append(pipe_s.push_finish_rttm(inflight.pop(0)))
+    torch.cuda.synchronize()
+    tmp.cleanup()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    emitted = [t for t in sync_texts if any(x is not None for x in t)]
+    if pipe_texts != emitted:
+        raise AssertionError(f"session[{emb}]: the pipelined run differs from the synchronous one")
+    if ckpt_texts != emitted:
+        raise AssertionError(f"session[{emb}]: the restored checkpoint's text differs")
+    if not lines or not first_rows_seen or not any("fresh" in (t[SESSION_RESET] or "") for t in emitted):
+        raise AssertionError(f"session[{emb}]: no turns, no first-chunk rows or no text after the reset")
+    layers = engine._seg.module.lstm.num_layers
+    per_step = {"lstm_sweep": layers, "linear_stats": int(emb == "xvector"),
+                "attn_stats": int(emb == "ecapa"), "se_res2": 3 * int(emb == "ecapa"), "se_res2_staged": 0}
+    if launches != {k: v * steps[0] for k, v in per_step.items()}:
+        raise AssertionError(f"session[{emb}]: {steps[0]} steps, expected {per_step} launches a step; "
+                             f"got {launches}")
+    med = {k: float(np.median(v)) for k, v in timings.items()}
+    log(f"session[{emb}] B={B}, {SESSION_HOPS} hops x 5 sessions ({steps[0]} steps): no host sync in "
+        f"push_begin; bits equal the host's packbits at every hop; native bits / scores / numpy / "
+        f"annotation routes identical; pipelined (2 in flight, reset between) == synchronous; checkpoint "
+        f"round trip == uninterrupted; {lines} RTTM lines, {first_rows_seen} first-chunk rows; "
+        f"launches {launches}")
+    log(f"session[{emb}] per steady hop (median of {len(timings['dispatch'])}): push_rttm bits route "
+        f"{med['dispatch'] + med['harvest']:.3f} ms = dispatch {med['dispatch']:.3f} + harvest "
+        f"{med['harvest']:.3f}; scores route dispatch {med['scores_dispatch']:.3f} + harvest "
+        f"{med['scores_harvest']:.3f}; RTTM assembly host ms: native bits {med['native_bits']:.3f} vs "
+        f"numpy {med['numpy_bits']:.3f}, native scores {med['native_scores']:.3f} vs numpy "
+        f"{med['numpy_scores']:.3f}; device-to-host bytes per hop: bits {fetch_bytes['bits']} vs "
+        f"scores {fetch_bytes['scores']}")
+    return dict(steps=steps[0], launches=launches, rttm_lines=lines, first_chunk_rows=first_rows_seen,
+                median_ms=med, all_ms=timings, fetch_bytes_per_hop=fetch_bytes)
+
+
+def drive_cohorts(emb, audio):
+    """CohortScheduler: K cohorts of B streams on one engine, pipelined, for
+    COHORT_PERIODS periods of real time after ``prime``. Every (cohort,
+    period) hop must be harvested with text for every stream; lateness,
+    reply latency and late hops are a record, not a gate."""
+    from diart_tpu_torch import CohortScheduler
+
+    engine = build_engine("cuda", B, emb)
+    engine.set_hyperparameters(tau_active=SESSION_TAU, rho_update=0.05)
+    present = np.ones(B, bool)
+    hops = audio.shape[0]
+
+    def get_blocks(j, k):
+        return audio[(k + 3 * j) % hops], present
+
+    scheduler = CohortScheduler(engine, cohorts=COHORTS, tau_active=SESSION_TAU)
+    scheduler.warm()
+    scheduler.prime(get_blocks)
+    warm = scheduler.sessions[0].warmup_blocks
+    seen = {}
+
+    def on_outputs(j, p, outs):
+        seen[(j, p)] = all(isinstance(o, str) for o in outs)
+
+    t0 = time.perf_counter()
+    timings = scheduler.run(lambda j, p: get_blocks(j, p + warm), periods=COHORT_PERIODS,
+                            pipelined=True, on_outputs=on_outputs)
+    wall = time.perf_counter() - t0
+    want = {(j, p) for j in range(COHORTS) for p in range(COHORT_PERIODS)}
+    if set(seen) != want or not all(seen.values()) or len(timings) != len(want):
+        raise AssertionError(f"cohorts[{emb}]: {len(seen)} of {len(want)} hops harvested with text "
+                             f"for every stream")
+    step = engine.step_duration
+    late = [(t.dispatched - t.due) * 1e3 for t in timings]
+    reply = [(t.done - t.due) * 1e3 for t in timings]
+    pct = lambda v, q: float(np.percentile(v, q))
+    rec = dict(cohorts=COHORTS, batch=B, periods=COHORT_PERIODS, wall_s=wall,
+               dispatch_lateness_ms=dict(p50=pct(late, 50), p99=pct(late, 99), max=max(late)),
+               reply_latency_ms=dict(p50=pct(reply, 50), p99=pct(reply, 99), max=max(reply)),
+               late_hops=sum(r > step * 1e3 for r in reply), hops=len(timings))
+    log(f"cohorts[{emb}] K={COHORTS} x B={B} = {scheduler.capacity} streams, pipelined, "
+        f"{COHORT_PERIODS} periods ({wall:.2f} s): all {len(timings)} hops harvested with text for every "
+        f"stream; dispatch lateness p50 {rec['dispatch_lateness_ms']['p50']:.3f} ms p99 "
+        f"{rec['dispatch_lateness_ms']['p99']:.3f} ms; reply latency (done - due) p50 "
+        f"{rec['reply_latency_ms']['p50']:.3f} ms p99 {rec['reply_latency_ms']['p99']:.3f} ms; "
+        f"late hops (reply after a step) {rec['late_hops']}")
+    return rec
+
+
+# --------------------------------------------------------------------- #
 KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # the statistics kernels' extra readings: prepared and raw operands, the
 # product alone (a yardstick, not the same function)
@@ -815,7 +1240,13 @@ STATS_KEYS = ("device_ms", "raw_operands_ms", "product_library_ms", "plan")
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="directory for detailed results")
+    parser.add_argument("--step-timing", action="store_true",
+                        help="only time the step with host inputs (and its sync check), both engines")
+    parser.add_argument("--root", default=None,
+                        help="with --step-timing: import diart_tpu_torch from this tree (to compare two trees)")
     args = parser.parse_args()
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
 
     import torch
 
@@ -834,9 +1265,30 @@ def main() -> int:
     if args.out:
         os.makedirs(args.out, exist_ok=True)
 
+    if args.step_timing:
+        import diart_tpu_torch
+
+        log(f"step timing of {os.path.dirname(diart_tpu_torch.__file__)}")
+        _build.build()
+        timing = {}
+        for emb in ("xvector", "ecapa"):
+            engine = build_engine("cuda", B, emb)
+            timing[emb] = step_timing(engine, make_audio(np.random.default_rng(1), 32, B, 8000), emb)
+            del engine
+        if args.out:
+            with open(os.path.join(args.out, "step_timing.json"), "w") as f:
+                json.dump(dict(gpu=smi, root=args.root, step_timing=timing), f, indent=1)
+        log(f"gpu: {smi}")
+        log(json.dumps({"step_timing": {k: {m: v[m] for m in v if not m.endswith("_all")
+                                            and m != "top_device_items"} for k, v in timing.items()}}))
+        return 0
+
+    from diart_tpu_torch import native
+
     t_start = t0 = time.perf_counter()
     logs = _build.build(force=True)
-    log(f"built {', '.join(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    native.build(force=True)
+    log(f"built {', '.join(_build.KERNELS)} and the native RTTM assembler in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
@@ -861,22 +1313,41 @@ def main() -> int:
         probes[emb] = compare_cpu(emb, audio)
         log(f"engine[{emb}] phase in {time.perf_counter() - t0:.1f} s")
 
+    # the serving path: session and cohorts over each engine
+    sessions = {}
+    for emb in ("xvector", "ecapa"):
+        t0 = time.perf_counter()
+        audio = make_audio(np.random.default_rng(1), SESSION_HOPS + 8, B, 8000)
+        engine = build_engine("cuda", B, emb)
+        timing = step_timing(engine, audio, emb)
+        del engine
+        if timing["sync_check"] != "no host sync":
+            raise AssertionError(f"step[{emb}] waits for the card: {timing['sync_check']}")
+        sessions[emb] = dict(step=timing, session=drive_session(emb, audio, args.out),
+                             cohorts=drive_cohorts(emb, audio))
+        log(f"session[{emb}] phase in {time.perf_counter() - t0:.1f} s")
+
     # the main paths run the bf16 LSTM stream and bf16 embedding trunks
     xv, ec = runs["xvector"]["launches"], runs["ecapa"]["launches"]
+    on_session = lambda name: {e: sessions[e]["session"]["launches"][name] for e in sessions}
     kernels = [
         dict(name="lstm_sweep", route="cuda", source="diart_tpu_torch/csrc/lstm_sweep.cu",
              replaces="diart_tpu/ops/pallas_lstm.py:494", launches=ec["lstm_sweep"],
-             launches_xvector_path=xv["lstm_sweep"], **{k: lstm["bf16"][k] for k in KEYS},
+             launches_xvector_path=xv["lstm_sweep"], launches_session_paths=on_session("lstm_sweep"),
+             **{k: lstm["bf16"][k] for k in KEYS},
              ms_b256=lstm["bf16"]["ms_b256"], ms_b528=lstm["bf16"]["ms_b528"],
              ms_f32=lstm["f32"]["ms"], plan=lstm["bf16"]["plan"]),
         dict(name="linear_stats", route="cuda", source="diart_tpu_torch/csrc/linear_stats.cu",
              replaces="diart_tpu/ops/pallas_stats.py:163", launches=xv["linear_stats"],
+             launches_session_paths=on_session("linear_stats"),
              **{k: stats["bf16"][k] for k in KEYS + STATS_KEYS}, ms_f32=stats["f32"]["ms"]),
         dict(name="attn_stats", route="cuda", source="diart_tpu_torch/csrc/attn_stats.cu",
              replaces="diart_tpu/ops/pallas_attn_stats.py:170", launches=ec["attn_stats"],
+             launches_session_paths=on_session("attn_stats"),
              **{k: attn["bf16"][k] for k in KEYS + STATS_KEYS}, ms_f32=attn["f32"]["ms"]),
         dict(name="se_res2", route="cuda", source="diart_tpu_torch/csrc/se_res2.cu",
              replaces="diart_tpu/ops/pallas_res2.py:294", launches=ec["se_res2"],
+             launches_session_paths=on_session("se_res2"),
              **{k: res2["bf16"][k] for k in KEYS}, ms_b8=res2["bf16"]["ms_b8"],
              device_ms=res2["bf16"]["device_ms"],
              ms_f32=res2["f32"]["ms"], by_launch=res2["bf16"]["by_launch"],
@@ -891,7 +1362,8 @@ def main() -> int:
     ]
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump(dict(result, engines=runs, probes=probes, kernels=kernels), f, indent=1)
+            json.dump(dict(result, engines=runs, probes=probes, sessions=sessions, kernels=kernels),
+                      f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s after start-up")
     log(f"gpu: {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -1,21 +1,37 @@
-"""diart_tpu_torch: the PyTorch/CUDA port of diart_tpu's streaming engine.
+"""diart_tpu_torch: the PyTorch/CUDA port of diart_tpu's streaming engine
+and its serving path.
 
-The multi-stream diarization step (PyanNet segmentation, XVectorSincNet
-embedding, masked online clustering, Hamming overlap-add) runs on an NVIDIA
-GPU, with the two kernels of that path written by hand for Hopper
-(``csrc/lstm_sweep.cu``, ``csrc/linear_stats.cu``). The package imports
-torch, numpy and scipy only — never jax or ``diart_tpu``.
+The multi-stream diarization step (PyanNet segmentation, an x-vector or
+ECAPA-TDNN embedding, masked online clustering, Hamming overlap-add) runs
+on an NVIDIA GPU, with the four kernels of its paths written by hand for
+Hopper (``csrc/lstm_sweep.cu``, ``csrc/linear_stats.cu``,
+``csrc/attn_stats.cu``, ``csrc/se_res2.cu``). :class:`MultiStreamSession`
+turns each hop's output into annotations or RTTM text per stream (scores
+thresholded and bit-packed on the device, turns assembled by the native
+``native/rttm.cpp``), and :class:`CohortScheduler` serves K sessions from
+one engine at staggered phases. The package imports torch, numpy and scipy
+only — never jax or ``diart_tpu``.
 
 Entry points default to ``device="cuda"`` and raise without a GPU; pass
 ``device="cpu"`` to run every kernel's plain PyTorch version instead.
 """
 
 from .models import EmbeddingModel, SegmentationModel
-from .parallel import MultiStreamEngine, StepOutput, StreamState
+from .parallel import (
+    CohortScheduler,
+    HopTiming,
+    MultiStreamEngine,
+    MultiStreamSession,
+    StepOutput,
+    StreamState,
+)
 
 __all__ = [
+    "CohortScheduler",
     "EmbeddingModel",
+    "HopTiming",
     "MultiStreamEngine",
+    "MultiStreamSession",
     "SegmentationModel",
     "StepOutput",
     "StreamState",

@@ -1,3 +1,12 @@
-from .segment import Segment, SlidingWindow
+from .annotation import Annotation, Timeline, load_rttm, write_rttm
+from .segment import Segment, SlidingWindow, SlidingWindowFeature
 
-__all__ = ["Segment", "SlidingWindow"]
+__all__ = [
+    "Annotation",
+    "Segment",
+    "SlidingWindow",
+    "SlidingWindowFeature",
+    "Timeline",
+    "load_rttm",
+    "write_rttm",
+]

@@ -34,6 +34,13 @@ def _rank_combinations(num_rows: int) -> np.ndarray:
     return np.asarray(list(itertools.product(range(num_rows), repeat=num_rows)), np.int64)
 
 
+@lru_cache(maxsize=None)
+def _combinations_on(num_rows: int, device: torch.device) -> torch.Tensor:
+    """:func:`_rank_combinations` on ``device``, copied there once: a copy
+    from host memory each call would make the step wait for the card."""
+    return torch.as_tensor(_rank_combinations(num_rows), device=device)
+
+
 def assign_rows(cost: torch.Tensor) -> torch.Tensor:
     """cost: (..., R, C) with R <= C -> (..., R) int64 column per row;
     equal to ``scipy.optimize.linear_sum_assignment(cost)[1]`` per matrix."""
@@ -57,7 +64,7 @@ def assign_rows(cost: torch.Tensor) -> torch.Tensor:
         work = torch.where(oh > 0, torch.inf, work)
     cand_oh = torch.stack(cand, dim=-2)  # (..., R, K, C)
 
-    combos = torch.as_tensor(_rank_combinations(num_rows), device=cost.device)  # (N, R)
+    combos = _combinations_on(num_rows, cost.device)  # (N, R)
     rows = torch.arange(num_rows, device=cost.device)
     sel = cand_oh[..., rows[None, :], combos, :]  # (..., N, R, C) 0/1
 

@@ -1,3 +1,12 @@
+from .cohort import CohortScheduler, HopTiming
 from .engine import MultiStreamEngine, StepOutput, StreamState
+from .session import MultiStreamSession
 
-__all__ = ["MultiStreamEngine", "StepOutput", "StreamState"]
+__all__ = [
+    "CohortScheduler",
+    "HopTiming",
+    "MultiStreamEngine",
+    "MultiStreamSession",
+    "StepOutput",
+    "StreamState",
+]

@@ -54,7 +54,33 @@ from ..ops.functional import (
     overlapped_speech_penalty,
 )
 
-__all__ = ["MultiStreamEngine", "StepOutput", "StreamState"]
+__all__ = ["MultiStreamEngine", "StepOutput", "StreamState", "to_device"]
+
+
+def to_device(value, device: torch.device, dtype=None) -> torch.Tensor:
+    """A host input (numpy array, CPU tensor) on ``device`` without a host
+    wait: bound for the card, it is copied into pinned memory from the
+    caching host allocator and from there with ``non_blocking=True`` (a copy
+    from pageable memory waits for all the work queued so far). The
+    allocator keeps the pinned block until its copy has run, so the caller
+    may reuse its array at once. Non-integer numpy input becomes float32."""
+    if isinstance(value, torch.Tensor):
+        t = value
+    else:
+        arr = np.asarray(value)
+        if dtype is None and not np.issubdtype(arr.dtype, np.integer):
+            arr = arr.astype(np.float32, copy=False)
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+    if dtype is not None:
+        t = t.to(dtype)
+    if device.type == "cuda" and t.device.type == "cpu":
+        # a plain host copy into a pinned block, not Tensor.pin_memory(): that
+        # first asks the driver whether the source is pinned, and took
+        # milliseconds now and then while the card was busy
+        staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        np.copyto(staged.numpy(), t.numpy())
+        return staged.to(device, non_blocking=True)
+    return t.to(device)
 
 
 class StreamState(NamedTuple):
@@ -207,7 +233,7 @@ class MultiStreamEngine:
         if self._fring is None:
             return window
         s = self._fring
-        fill = torch.from_numpy(fbank_ring_fill(s)).to(self.device)
+        fill = to_device(fbank_ring_fill(s), self.device)
         return {
             "window": window,
             "ring": fill.expand(b, s.nb * s.fpb, s.num_mels).clone(),
@@ -241,7 +267,7 @@ class MultiStreamEngine:
         """Reset every stream slot where ``mask`` (B,) is True to its initial
         value. The audio state takes :meth:`_audio_init`'s row, not zero: an
         empty slot of the mel frame ring holds the zero-signal constant."""
-        mask = self._to_device(mask, torch.bool)
+        mask = to_device(mask, self.device, torch.bool)
         if self._audio_row is None:
             init = self._audio_init(1)
             self._audio_row = (
@@ -262,26 +288,14 @@ class MultiStreamEngine:
         return StreamState(audio, *(reset(t) for t in state[1:]))
 
     # ------------------------------------------------------------------ #
-    def _to_device(self, value, dtype=None) -> torch.Tensor:
-        if isinstance(value, torch.Tensor):
-            t = value
-        else:
-            arr = np.asarray(value)
-            if dtype is None and not np.issubdtype(arr.dtype, np.integer):
-                arr = arr.astype(np.float32, copy=False)
-            t = torch.from_numpy(np.ascontiguousarray(arr))
-        if dtype is not None:
-            t = t.to(dtype)
-        return t.to(self.device)
-
     def _masks(self, b: int, audio_mask, run_mask):
         if audio_mask is None or run_mask is None:
             true_mask = self._true_masks.get(b)
             if true_mask is None:
                 true_mask = torch.ones(b, dtype=torch.bool, device=self.device)
                 self._true_masks[b] = true_mask
-        audio_mask = true_mask if audio_mask is None else self._to_device(audio_mask, torch.bool)
-        run_mask = true_mask if run_mask is None else self._to_device(run_mask, torch.bool)
+        audio_mask = true_mask if audio_mask is None else to_device(audio_mask, self.device, torch.bool)
+        run_mask = true_mask if run_mask is None else to_device(run_mask, self.device, torch.bool)
         return audio_mask, run_mask
 
     def _fring_advance(self, st: dict, blocks: torch.Tensor, audio_mask):
@@ -406,10 +420,22 @@ class MultiStreamEngine:
         run_mask: (B,) bool — streams whose window is full and should be
             processed (False while warming up or idle).
         """
-        blocks = self._to_device(blocks)
+        blocks = to_device(blocks, self.device)
         audio_mask, run_mask = self._masks(blocks.shape[0], audio_mask, run_mask)
         with precision_policy.use(self.precision):
             return self._step_impl(state, blocks, audio_mask, run_mask)
+
+    # ------------------------------------------------------------------ #
+    # Output timestamps (host side)
+    # ------------------------------------------------------------------ #
+    @property
+    def output_resolution(self) -> float:
+        return self.geometry.out_resolution
+
+    def output_start(self, chunk_index: int) -> float:
+        """Start time of the aggregated region of chunk ``chunk_index``
+        (the end of the chunk less the latency)."""
+        return chunk_index * self.step_duration + self.duration - self.latency
 
     @torch.no_grad()
     def probe_frame_scores(
@@ -418,7 +444,7 @@ class MultiStreamEngine:
         """The (segmentation (B, F, K), embeddings (B, K, E)) the next step
         WOULD compute after ingesting ``blocks``, without changing
         ``state``; embeddings are L2-normalized, as the step uses them."""
-        blocks = self._to_device(blocks)
+        blocks = to_device(blocks, self.device)
         audio_mask, _ = self._masks(blocks.shape[0], audio_mask, None)
         with precision_policy.use(self.precision):
             _, _, _, gamma, beta = self._hparams

@@ -24,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 from contextlib import contextmanager
+from typing import Dict
 
 import torch
 
@@ -40,6 +41,17 @@ class Precision:
     def portable() -> "Precision":
         """Everything off: the f32 direct formulation on every device."""
         return Precision(bf16_lstm=False, bf16_frontend=False, fbank_ring=False)
+
+    def as_dict(self) -> Dict[str, bool]:
+        """The declared switches (a checkpoint records them)."""
+        return dataclasses.asdict(self)
+
+    def resolved(self, device) -> Dict[str, bool]:
+        """The switches as they apply to tensors on ``device`` (the CUDA-only
+        ones off elsewhere); a checkpoint records these beside the declared
+        ones, so its numerics can be reproduced."""
+        with use(self):
+            return {f.name: enabled(f.name, device) for f in dataclasses.fields(self)}
 
 
 _CUDA_ONLY = frozenset(("bf16_lstm", "bf16_frontend"))
