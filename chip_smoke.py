@@ -52,7 +52,22 @@ Phases (any failure exits non-zero):
    ``CohortScheduler`` with 4 cohorts of 64 streams, pipelined, 8 periods
    of real time: every hop harvested with text for every stream; dispatch
    lateness, reply latency and late hops are printed as a record.
-5. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+5. The pipelines (``diart_tpu_torch.blocks``) at full width on one stream
+   of 51 chunks (~30 s): ``SpeakerDiarization`` with ``tpu/xvector`` and
+   with ``tpu/ecapa`` (its direct fbank path), and
+   ``VoiceActivityDetection``, at the JAX package's defaults but the
+   session phase's thresholds (tau 0.45, rho 0.05), in calls of 1
+   chunk and then, after ``reset()``, in calls of 8: every dispatch under
+   the sync check, each kernel of the path launched the expected number of
+   times in every call, finite outputs, the same RTTM text from both call
+   sizes; ms per chunk, device busy, idle share and launches per call.
+   Each pipeline in f32 on the card against the same pipeline on the CPU
+   over 6 chunks (scores, embeddings, active centres; the text a record).
+   Then sessions
+   fed CUDA tensor blocks with ``collect_audio`` and ``quantize_transfer``
+   against the same sessions fed the numpy blocks.
+6. Print ``{"kernels": [...]}`` (with each kernel's launches on the
+   pipelines' runs) and, last, ``{"ok": true, "device": ...}``.
 
 ``--step-timing [--root TREE]`` runs only the step timing of phase 4 (its
 sync check recorded, not fatal), importing ``diart_tpu_torch`` from
@@ -203,11 +218,14 @@ def check_lstm(dtype, gen):
     )
     if not err <= tol:
         raise AssertionError(f"lstm_sweep[{kind}] disagrees with its plain version: {err} > {tol}")
-    # the other plans: batch tiles and the one-wave edge on short sequences,
-    # and other hidden sizes (64 takes the tensor-core route in bf16; 16, 40
-    # and 136 the FMA route)
-    cases = [(37, batch, H) for batch in (3, 8, 100, 200, 528, 529, 600)]
+    # the other plans: the pipelines' calls (1 and 8 chunks at the full
+    # length), batch tiles and the one-wave edge on short sequences, and other
+    # hidden sizes (64 takes the tensor-core route in bf16; 16, 40 and 136 the
+    # FMA route)
+    cases = [(T_LSTM, 1, H), (T_LSTM, 8, H)]
+    cases += [(37, batch, H) for batch in (3, 8, 100, 200, 528, 529, 600)]
     cases += [(37, 5, 64), (37, 9, 16), (21, 3, 40), (21, 3, 136)]
+    case_errs = []
     for time_, batch, hidden in cases:
         p, w = inputs(time_, batch, hidden)
         e = (lstm_sweep.lstm_sweep_tm(p, w).float()
@@ -216,9 +234,11 @@ def check_lstm(dtype, gen):
             f"plan={lstm_sweep.launch_plan(batch, hidden, dtype, dev)}: max_abs_err={e:.3e} (tol {tol:.1e})")
         if not e <= tol:
             raise AssertionError(f"lstm_sweep[{kind}] B={batch} H={hidden} disagrees with its plain version")
+        case_errs.append(dict(T=time_, B=batch, H=hidden, max_abs_err=e))
     return dict(max_abs_err=err, tol=tol, ms=ms, raw_w_hh_ms=raw_ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms, cudnn_lstm_ms=cudnn_ms, input_projection_ms=proj_ms,
-                argued_latency_floor_ms=floor_ms, ms_b256=ms_256, ms_b528=ms_528, plan=plan)
+                argued_latency_floor_ms=floor_ms, ms_b256=ms_256, ms_b528=ms_528, plan=plan,
+                cases=case_errs)
 
 
 def bitwise_equal(a, b) -> bool:
@@ -237,13 +257,14 @@ def held_to(got, want, rel, floor=0.0):
 # f32; only the order of the f32 sums differs — relative to the outputs' scale
 STATS_TOL = 1e-5
 # (B, T, C_in, C, S) held on the card beside the main shape: every batch in
-# {1, 2, 3, 64, 256}, length in {1, 37, 279, 600}, width in {100, 1500,
+# {1, 2, 3, 8, 64, 256}, length in {1, 37, 279, 600}, width in {100, 1500,
 # 1536} and speaker count in {1, 4, 8}; C_in = 200 has a partial k slice,
-# C_in = 60 takes the FMA route
+# C_in = 60 takes the FMA route; B = 1 and 8 at 279 frames are the x-vector
+# pipeline's calls
 STATS_SWEEP = [
     (1, 279, 512, 1500, 4), (2, 37, 512, 1500, 1), (3, 1, 512, 1500, 8), (64, 600, 512, 1500, 4),
     (256, 279, 512, 1500, 4), (3, 279, 512, 100, 4), (2, 600, 512, 1536, 8), (1, 37, 512, 100, 1),
-    (256, 1, 512, 1536, 8), (3, 279, 200, 1500, 4), (2, 37, 60, 100, 4),
+    (256, 1, 512, 1536, 8), (3, 279, 200, 1500, 4), (2, 37, 60, 100, 4), (8, 279, 512, 1500, 4),
 ]
 
 
@@ -310,6 +331,7 @@ def check_stats(dtype, gen):
     if not err <= tol:
         raise AssertionError(f"linear_stats[{kind}] disagrees with its plain version: {err} > {tol}")
     sweep_worst = 0.0
+    sweep = []
     for case in STATS_SWEEP if dtype == torch.bfloat16 else STATS_SWEEP[::3]:
         args = stats_inputs(*case, dtype, gen)
         batch, time_, c_in, channels, speakers = case
@@ -324,21 +346,23 @@ def check_stats(dtype, gen):
         if not (e <= t and same):
             raise AssertionError(f"linear_stats[{kind}] fails at {case}")
         sweep_worst = max(sweep_worst, e / t)
+        sweep.append(dict(case=case, max_abs_err=e, tol=t))
     return dict(max_abs_err=err, tol=tol, ms=ms, device_ms=device_ms, raw_operands_ms=raw_ms,
                 plain_ms=plain_ms, product_library_ms=product_ms, bound_ms=bms, bound_by=by,
                 library_ms=None, plan=plan, product_tflops=gemm / ms / 1e9,
-                sweep_cases=len(STATS_SWEEP), sweep_worst_err_over_tol=sweep_worst)
+                sweep_cases=len(STATS_SWEEP), sweep_worst_err_over_tol=sweep_worst, sweep=sweep)
 
 
 # attn_stats: the logits are f32-accurate (3xTF32), the rest is the same f32
 # arithmetic (bf16 x is read exactly); the order of the f32 sums and the
 # online softmax's rescaling differ — relative to max(1, the outputs' scale)
 ATTN_TOL = 1e-5
-# (B, T, C, H, S) held on the card beside the main shape (see STATS_SWEEP)
+# (B, T, C, H, S) held on the card beside the main shape (see STATS_SWEEP;
+# B = 1 and 8 at 501 frames are the ECAPA pipeline's calls)
 ATTN_SWEEP = [
     (1, 501, 1536, 128, 4), (2, 37, 100, 64, 1), (3, 1, 1536, 128, 8), (64, 600, 1536, 64, 4),
     (256, 501, 1536, 128, 4), (3, 501, 1500, 128, 8), (2, 600, 100, 128, 4), (256, 37, 1500, 64, 1),
-    (1, 279, 1500, 64, 8),
+    (1, 279, 1500, 64, 8), (8, 501, 1536, 128, 4),
 ]
 
 
@@ -400,6 +424,7 @@ def check_attn(dtype, gen):
     if not err <= tol:
         raise AssertionError(f"attn_stats[{kind}] disagrees with its plain version: {err} > {tol}")
     sweep_worst = 0.0
+    sweep = []
     for case in ATTN_SWEEP if dtype == torch.bfloat16 else ATTN_SWEEP[::2]:
         x_, h_, w_, b_, wt_ = attn_inputs(*case, dtype, gen)
         batch, time_, channels, hdim, speakers = case
@@ -414,12 +439,13 @@ def check_attn(dtype, gen):
         if not (e <= t and same):
             raise AssertionError(f"attn_stats[{kind}] fails at {case}")
         sweep_worst = max(sweep_worst, e / t)
+        sweep.append(dict(case=case, max_abs_err=e, tol=t))
         del x_, h_, w_, b_, wt_, got
     return dict(max_abs_err=err, tol=tol, ms=ms, device_ms=device_ms, raw_operands_ms=raw_ms,
                 plain_ms=plain_ms, product_library_ms=product_ms, bound_ms=bms, bound_by=by,
                 bound_ms_f32_fma=fma_bms, library_ms=None, plan=plan,
                 logits_tflops=3 * logits / ms / 1e9, sweep_cases=len(ATTN_SWEEP),
-                sweep_worst_err_over_tol=sweep_worst)
+                sweep_worst_err_over_tol=sweep_worst, sweep=sweep)
 
 
 def res2_params(gen, dev):
@@ -660,6 +686,14 @@ def launch_counters() -> dict:
     }
 
 
+def path_launches(kind, lstm_layers: int) -> dict:
+    """Each counted kernel's launches in one step or pipeline call of the
+    path ``kind`` (``xvector``, ``ecapa`` or ``vad``)."""
+    return {"lstm_sweep": lstm_layers, "linear_stats": int(kind == "xvector"),
+            "attn_stats": int(kind == "ecapa"), "se_res2": 3 * int(kind == "ecapa"),
+            "se_res2_staged": 0}
+
+
 def device_summary(prof, steps: int, top: int = 12) -> dict:
     """Device busy ms, device launches (kernels, copies, fills) per step and
     the ``top`` device items by time per step, from a profile."""
@@ -705,10 +739,7 @@ def drive_engine(emb, audio, out_dir):
             state = engine.reset_stream(state, reset_slot)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
-    layers = engine._seg.module.lstm.num_layers
-    per_hop = {"lstm_sweep": layers, "linear_stats": int(emb == "xvector"),
-               "attn_stats": int(emb == "ecapa"), "se_res2": 3 * int(emb == "ecapa"),
-               "se_res2_staged": 0}
+    per_hop = path_launches(emb, engine._seg.module.lstm.num_layers)
     log(f"engine[{emb}]: {HOPS} hops x {B} streams, launches {launches}"
         f"{', frame ring' if engine._fring is not None else ''}")
     if launches != {k: v * HOPS for k, v in per_hop.items()}:
@@ -1158,9 +1189,7 @@ def drive_session(emb, audio, out_dir):
         raise AssertionError(f"session[{emb}]: the restored checkpoint's text differs")
     if not lines or not first_rows_seen or not any("fresh" in (t[SESSION_RESET] or "") for t in emitted):
         raise AssertionError(f"session[{emb}]: no turns, no first-chunk rows or no text after the reset")
-    layers = engine._seg.module.lstm.num_layers
-    per_step = {"lstm_sweep": layers, "linear_stats": int(emb == "xvector"),
-                "attn_stats": int(emb == "ecapa"), "se_res2": 3 * int(emb == "ecapa"), "se_res2_staged": 0}
+    per_step = path_launches(emb, engine._seg.module.lstm.num_layers)
     if launches != {k: v * steps[0] for k, v in per_step.items()}:
         raise AssertionError(f"session[{emb}]: {steps[0]} steps, expected {per_step} launches a step; "
                              f"got {launches}")
@@ -1228,6 +1257,235 @@ def drive_cohorts(emb, audio):
         f"{rec['reply_latency_ms']['p50']:.3f} ms p99 {rec['reply_latency_ms']['p99']:.3f} ms; "
         f"late hops (reply after a step) {rec['late_hops']}")
     return rec
+
+
+# --------------------------------------------------------------------- #
+PIPELINES = ("xvector", "ecapa", "vad")
+PIPE_CHUNKS, PIPE_BATCH, PIPE_CPU_CHUNKS = 51, 8, 6  # ~30 s of one stream
+
+
+def pipeline_chunks(pcm: np.ndarray, sample_rate: int = 16000, duration: float = 5.0,
+                    step: float = 0.5):
+    """One stream's int16 PCM -> the chunks diart's runtime feeds a
+    pipeline: (samples, 1) float32 on a 1 / sample_rate sliding window."""
+    from diart_tpu_torch.core.segment import SlidingWindow, SlidingWindowFeature
+
+    wave = pcm.astype(np.float32) / 32768.0
+    win, hop = int(duration * sample_rate), int(step * sample_rate)
+    res = 1.0 / sample_rate
+    return [SlidingWindowFeature(wave[k * hop : k * hop + win, None].copy(),
+                                 SlidingWindow(start=k * hop / sample_rate, duration=res, step=res))
+            for k in range((len(wave) - win) // hop + 1)]
+
+
+def build_pipeline(kind, device, seg_dtype="f32", emb_dtype="bf16", **kw):
+    """The full-width pipeline ``kind`` (x-vector or ECAPA diarization, or
+    VAD) at the JAX package's defaults (5 s / 0.5 s, latency 0.5 s, delta 1,
+    20 speakers) but the session phase's thresholds (tau 0.45, and rho 0.05
+    for diarization), low enough that the random models' ~0.5 activations
+    make turns (``drive_pipeline`` logs the largest score of its run).
+    ``kw`` adds to or overrides the configuration."""
+    from diart_tpu_torch import EmbeddingModel, SegmentationModel
+    from diart_tpu_torch.blocks import (SpeakerDiarization, SpeakerDiarizationConfig,
+                                        VoiceActivityDetection, VoiceActivityDetectionConfig)
+
+    seg = SegmentationModel.from_registry("tpu/pyannet", device=device, seed=0, dtype=seg_dtype)
+    kw = {"tau_active": SESSION_TAU, **({} if kind == "vad" else {"rho_update": 0.05}), **kw}
+    if kind == "vad":
+        return VoiceActivityDetection(VoiceActivityDetectionConfig(segmentation=seg, **kw))
+    emb = EmbeddingModel.from_registry(EMBEDDINGS[kind], device=device, seed=1, dtype=emb_dtype)
+    return SpeakerDiarization(SpeakerDiarizationConfig(segmentation=seg, embedding=emb, **kw))
+
+
+def drive_pipeline(kind, chunks, out_dir):
+    """One stream's chunks through the full-width pipeline on the card, in
+    calls of 1 chunk and then, after ``reset()``, in calls of PIPE_BATCH:
+    each call's dispatch under the sync check, each kernel of the path
+    launched the expected number of times in every call (counts set to 0
+    before the call and read after it), finite outputs, the same RTTM text
+    from both runs. Then the ms per chunk of both call sizes and, from a
+    profile, device busy and launches per call."""
+    import torch
+
+    pipe = build_pipeline(kind, "cuda")
+    pipe(chunks[:1])  # builds the kernels and the device constants
+    torch.cuda.synchronize()
+    counters = launch_counters()
+    per_call = path_launches(kind, pipe.config.segmentation.module.lstm.num_layers)
+    totals = {k: 0 for k in counters}
+    runs, walls, dispatches, top_score = {}, {}, {}, 0.0
+    for batch in (1, PIPE_BATCH):
+        pipe.reset()
+        texts, wall, disp = [], [], []
+        for i in range(0, len(chunks), batch):
+            call = chunks[i : i + batch]
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            with no_host_sync():
+                scores = pipe.dispatch(call)
+            t1 = time.perf_counter()
+            outs = pipe.fetch(call, scores)
+            t2 = time.perf_counter()
+            launches = {k: fn.launches for k, fn in counters.items()}
+            if launches != per_call:
+                raise AssertionError(f"pipeline[{kind}] call at chunk {i} ({len(call)} chunks): expected "
+                                     f"{per_call} launches; got {launches}")
+            for k, n in launches.items():
+                totals[k] += n
+            if not bool(torch.isfinite(scores).all()):
+                raise AssertionError(f"pipeline[{kind}] call at chunk {i}: non-finite scores")
+            top_score = max(top_score, float(scores.max()))
+            for ann, audio in outs:
+                if not np.isfinite(audio.data).all():
+                    raise AssertionError(f"pipeline[{kind}] call at chunk {i}: non-finite audio")
+                texts.append(ann.to_rttm())
+            if len(call) == batch:
+                wall.append((t2 - t0) * 1e3)
+                disp.append((t1 - t0) * 1e3)
+        runs[batch], walls[batch], dispatches[batch] = texts, wall, disp
+    if runs[1] != runs[PIPE_BATCH]:
+        bad = next(k for k, (a, b) in enumerate(zip(runs[1], runs[PIPE_BATCH])) if a != b)
+        raise AssertionError(f"pipeline[{kind}]: calls of {PIPE_BATCH} differ from calls of 1 at chunk {bad}")
+    lines = sum(t.count("\n") for t in runs[1])
+    if not lines:
+        raise AssertionError(f"pipeline[{kind}]: no turns in {len(chunks)} chunks")
+    rec = dict(chunks=len(chunks), rttm_lines=lines, launches_per_call=per_call, launches=totals,
+               max_score=top_score)
+    for batch in (1, PIPE_BATCH):
+        steady = walls[batch][2:] if len(walls[batch]) > 4 else walls[batch]
+        rec[f"b{batch}"] = dict(call_ms=float(np.median(steady)), ms_per_chunk=float(np.median(steady)) / batch,
+                               dispatch_ms=float(np.median(dispatches[batch][-len(steady):])),
+                               steady_calls=len(steady), call_ms_all=walls[batch])
+    # device busy and launches per call from a profile of steady calls (after
+    # a reset and two calls), and the idle share from the wall of those same
+    # calls (the profiler's host work included, so the share is an upper one)
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    for batch, calls in ((1, 5), (PIPE_BATCH, 2)):
+        pipe.reset()
+        for i in range(2):
+            pipe(chunks[i * batch : (i + 1) * batch])
+        prof_walls = []
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(2, 2 + calls):
+                t0 = time.perf_counter()
+                pipe(chunks[i * batch : (i + 1) * batch])  # fetch waits for the call's work
+                prof_walls.append((time.perf_counter() - t0) * 1e3)
+        summary = device_summary(prof, calls)
+        profiled_ms = float(np.mean(prof_walls))
+        rec[f"b{batch}"].update(
+            device_busy_ms=summary["device_busy_ms"], device_launches=summary["kernels_per_step"],
+            profiled_call_ms=profiled_ms, profiled_calls=calls,
+            idle_share=1.0 - summary["device_busy_ms"] / profiled_ms,
+            top_device_items=summary["top_device_items"][:6])
+        if out_dir and batch == 1:  # the traces of 8-chunk calls run to ~17 MB each
+            prof.export_chrome_trace(os.path.join(out_dir, f"pipeline_trace_{kind}_b{batch}.json"))
+    log(f"pipeline[{kind}] {len(chunks)} chunks of one stream in calls of 1 and of {PIPE_BATCH}: identical "
+        f"RTTM text ({lines} lines, largest score {top_score:.4f}), finite outputs, no host sync in any "
+        f"dispatch, launches per call "
+        f"{per_call} in every call (totals {totals})")
+    for batch in (1, PIPE_BATCH):
+        r = rec[f"b{batch}"]
+        log(f"pipeline[{kind}] {batch} chunk(s) a call: {r['ms_per_chunk']:.3f} ms per chunk (call "
+            f"{r['call_ms']:.3f} ms, dispatch {r['dispatch_ms']:.3f} ms, median of {r['steady_calls']}); "
+            f"device busy {r['device_busy_ms']:.3f} ms a call and idle share {r['idle_share']:.3f} over "
+            f"{r['profiled_calls']} profiled calls of {r['profiled_call_ms']:.3f} ms, "
+            f"{r['device_launches']:.0f} device launches a call")
+    return rec
+
+
+def compare_pipeline_cpu(kind, chunks):
+    """The pipeline on the card with f32 models and the bf16 switches off
+    against the same pipeline on the CPU (the kernels' plain versions), over
+    PIPE_CPU_CHUNKS chunks in one call, at thresholds that make the random
+    models' ~0.5 activations map speakers: the permuted scores and the
+    embeddings that the dispatch computed within compare_cpu's f32 limits,
+    the same active centres.
+    Whether the RTTM text is equal is a record: a score within the scores'
+    limit of tau may flip a frame."""
+    import torch
+    from diart_tpu_torch import precision as precision_policy
+
+    seg_tol, emb_tol = 1e-4, 1e-3
+    call = chunks[:PIPE_CPU_CHUNKS]
+    got = {}
+    for device in ("cuda", "cpu"):
+        pipe = build_pipeline(kind, device, emb_dtype="f32")
+        seen = []  # the forward's (segmentation, embeddings) inside the dispatch
+        if kind != "vad":
+            forward = pipe._forward
+            pipe._forward = lambda batch, forward=forward: seen.append(forward(batch)) or seen[-1]
+        with precision_policy.use(precision_policy.Precision(bf16_lstm=False, bf16_frontend=False)):
+            scores = pipe.dispatch(call)
+            texts = [ann.to_rttm() for ann, _ in pipe.fetch(call, scores)]
+        emb, active = None, None
+        if kind != "vad":
+            emb = seen[0][1].float().cpu()
+            active = int(pipe.clustering_state.active.sum())
+        got[device] = (scores.float().cpu(), emb, active, texts)
+    (sg, eg, ag, tg), (sc, ec, ac, tc) = got["cuda"], got["cpu"]
+    score_err = (sg - sc).abs().max().item()
+    rec = dict(score_err=score_err, score_tol=seg_tol)
+    msg = f"pipeline vs CPU [{kind}, f32, {PIPE_CPU_CHUNKS} chunks]: scores {tuple(sg.shape)} " \
+          f"max_abs_err={score_err:.3e} (tol {seg_tol:.0e})"
+    ok = score_err <= seg_tol
+    if kind != "vad":
+        emb_err = (eg - ec).abs().max().item()
+        msg += f", embeddings {tuple(eg.shape)} max_abs_err={emb_err:.3e} (tol {emb_tol:.0e}), " \
+               f"active centres card/CPU {ag}/{ac}"
+        rec.update(emb_err=emb_err, emb_tol=emb_tol, active_centres=ag)
+        ok = ok and emb_err <= emb_tol and ag == ac and ag > 0
+    rec["rttm_equal"] = tg == tc
+    log(msg + f", RTTM text {'equal' if tg == tc else 'different'} (a record)")
+    if not (torch.isfinite(sg).all() and ok):
+        raise AssertionError(f"pipeline[{kind}] on the card disagrees with the CPU pipeline")
+    return rec
+
+
+def check_session_tensor_blocks(audio):
+    """The session repairs on the card: sessions fed CUDA tensor blocks, with
+    ``collect_audio`` and ``quantize_transfer`` on, against the same
+    sessions fed the numpy blocks: the same aggregated scores bit for bit
+    (the float blocks are quantized on the card as numpy quantizes them on
+    the host), RTTM text and audio regions at every hop."""
+    import torch
+    from diart_tpu_torch import MultiStreamSession
+
+    batch = 4
+    engine = build_engine("cuda", batch, "xvector")
+    engine.set_hyperparameters(tau_active=SESSION_TAU, rho_update=0.05)
+    kw = dict(tau_active=SESSION_TAU, collect_audio=True, quantize_transfer=True)
+    host_s, card_s = MultiStreamSession(engine, **kw), MultiStreamSession(engine, **kw)
+    float_blocks = audio[:, :batch].astype(np.float32) / 32768.0
+    emitted = lines = 0
+    for i, blk in enumerate(float_blocks):
+        present = np.ones(batch, bool)
+        if i == 12:
+            present[1] = False
+        got = card_s.push_begin(torch.from_numpy(blk).cuda(), present, rttm=False)
+        want = host_s.push_begin(blk, present, rttm=False)
+        if want is None:
+            assert got is None
+            continue
+        if not torch.equal(got.device_aggregated, want.device_aggregated):
+            raise AssertionError(f"session tensor blocks, hop {i}: the card-quantized blocks give other scores")
+        for g, w in zip(card_s.push_finish(got), host_s.push_finish(want)):
+            if (g is None) != (w is None):
+                raise AssertionError(f"session tensor blocks, hop {i}: outputs differ in presence")
+            if g is None:
+                continue
+            emitted += 1
+            lines += g[0].to_rttm().count("\n")
+            if g[0].to_rttm() != w[0].to_rttm() or not np.array_equal(g[1].data, w[1].data) or \
+                    g[1].sliding_window.start != w[1].sliding_window.start:
+                raise AssertionError(f"session tensor blocks, hop {i}: text or audio region differs")
+    if not emitted or not lines:
+        raise AssertionError("session tensor blocks: no outputs or no turns")
+    log(f"session with CUDA tensor blocks (collect_audio, quantize_transfer), B={batch}, "
+        f"{len(float_blocks)} hops: scores bitwise equal to the numpy-fed session, same RTTM text "
+        f"({lines} lines) and audio regions in all {emitted} outputs")
+    return dict(outputs=emitted, rttm_lines=lines)
 
 
 # --------------------------------------------------------------------- #
@@ -1327,27 +1585,43 @@ def main() -> int:
                              cohorts=drive_cohorts(emb, audio))
         log(f"session[{emb}] phase in {time.perf_counter() - t0:.1f} s")
 
+    # the pipelines: one stream's chunks through the full-width pipelines
+    pipelines, pipe_cpu = {}, {}
+    t0 = time.perf_counter()
+    chunks = pipeline_chunks(make_audio(np.random.default_rng(2), 60, 1, 8000).reshape(-1))
+    assert len(chunks) == PIPE_CHUNKS, len(chunks)
+    for kind in PIPELINES:
+        pipelines[kind] = drive_pipeline(kind, chunks, args.out)
+        pipe_cpu[kind] = compare_pipeline_cpu(kind, chunks)
+    session_tensors = check_session_tensor_blocks(make_audio(np.random.default_rng(3), 16, 4, 8000))
+    log(f"pipelines phase in {time.perf_counter() - t0:.1f} s")
+
     # the main paths run the bf16 LSTM stream and bf16 embedding trunks
     xv, ec = runs["xvector"]["launches"], runs["ecapa"]["launches"]
     on_session = lambda name: {e: sessions[e]["session"]["launches"][name] for e in sessions}
+    on_pipeline = lambda name: {k: pipelines[k]["launches"][name] for k in pipelines}
     kernels = [
         dict(name="lstm_sweep", route="cuda", source="diart_tpu_torch/csrc/lstm_sweep.cu",
              replaces="diart_tpu/ops/pallas_lstm.py:494", launches=ec["lstm_sweep"],
              launches_xvector_path=xv["lstm_sweep"], launches_session_paths=on_session("lstm_sweep"),
+             launches_pipeline_paths=on_pipeline("lstm_sweep"),
              **{k: lstm["bf16"][k] for k in KEYS},
              ms_b256=lstm["bf16"]["ms_b256"], ms_b528=lstm["bf16"]["ms_b528"],
              ms_f32=lstm["f32"]["ms"], plan=lstm["bf16"]["plan"]),
         dict(name="linear_stats", route="cuda", source="diart_tpu_torch/csrc/linear_stats.cu",
              replaces="diart_tpu/ops/pallas_stats.py:163", launches=xv["linear_stats"],
              launches_session_paths=on_session("linear_stats"),
+             launches_pipeline_paths=on_pipeline("linear_stats"),
              **{k: stats["bf16"][k] for k in KEYS + STATS_KEYS}, ms_f32=stats["f32"]["ms"]),
         dict(name="attn_stats", route="cuda", source="diart_tpu_torch/csrc/attn_stats.cu",
              replaces="diart_tpu/ops/pallas_attn_stats.py:170", launches=ec["attn_stats"],
              launches_session_paths=on_session("attn_stats"),
+             launches_pipeline_paths=on_pipeline("attn_stats"),
              **{k: attn["bf16"][k] for k in KEYS + STATS_KEYS}, ms_f32=attn["f32"]["ms"]),
         dict(name="se_res2", route="cuda", source="diart_tpu_torch/csrc/se_res2.cu",
              replaces="diart_tpu/ops/pallas_res2.py:294", launches=ec["se_res2"],
              launches_session_paths=on_session("se_res2"),
+             launches_pipeline_paths=on_pipeline("se_res2"),
              **{k: res2["bf16"][k] for k in KEYS}, ms_b8=res2["bf16"]["ms_b8"],
              device_ms=res2["bf16"]["device_ms"],
              ms_f32=res2["f32"]["ms"], by_launch=res2["bf16"]["by_launch"],
@@ -1362,8 +1636,9 @@ def main() -> int:
     ]
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump(dict(result, engines=runs, probes=probes, sessions=sessions, kernels=kernels),
-                      f, indent=1)
+            json.dump(dict(result, engines=runs, probes=probes, sessions=sessions, pipelines=pipelines,
+                           pipelines_vs_cpu=pipe_cpu, session_tensor_blocks=session_tensors,
+                           kernels=kernels), f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s after start-up")
     log(f"gpu: {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -9,13 +9,22 @@ Hopper (``csrc/lstm_sweep.cu``, ``csrc/linear_stats.cu``,
 turns each hop's output into annotations or RTTM text per stream (scores
 thresholded and bit-packed on the device, turns assembled by the native
 ``native/rttm.cpp``), and :class:`CohortScheduler` serves K sessions from
-one engine at staggered phases. The package imports torch, numpy and scipy
-only — never jax or ``diart_tpu``.
+one engine at staggered phases. diart's pipeline API (``blocks``:
+:class:`SpeakerDiarization`, :class:`VoiceActivityDetection` and their
+blocks) runs one stream's chunks in batches through the same models and
+kernels. The package imports torch, numpy and scipy only — never jax or
+``diart_tpu`` (pandas only for a metric's ``report()``).
 
 Entry points default to ``device="cuda"`` and raise without a GPU; pass
 ``device="cpu"`` to run every kernel's plain PyTorch version instead.
 """
 
+from .blocks import (
+    SpeakerDiarization,
+    SpeakerDiarizationConfig,
+    VoiceActivityDetection,
+    VoiceActivityDetectionConfig,
+)
 from .models import EmbeddingModel, SegmentationModel
 from .parallel import (
     CohortScheduler,
@@ -33,6 +42,10 @@ __all__ = [
     "MultiStreamEngine",
     "MultiStreamSession",
     "SegmentationModel",
+    "SpeakerDiarization",
+    "SpeakerDiarizationConfig",
     "StepOutput",
     "StreamState",
+    "VoiceActivityDetection",
+    "VoiceActivityDetectionConfig",
 ]

@@ -1,6 +1,7 @@
 """Model wrappers and the registry (reduced port of
 ``diart_tpu/models/base.py``: the ``tpu/pyannet``, ``tpu/xvector`` and
-``tpu/ecapa`` registry entries, under the JAX package's names).
+``tpu/ecapa`` registry entries, under the JAX package's names, and
+``from_apply`` for plain torch callables).
 
 Weights come from a seeded ``torch.Generator`` (the seed defaults to a
 CRC of the registry name) or, with ``flax_params=``, from the JAX
@@ -11,7 +12,7 @@ The wrappers default to ``device="cuda"`` and raise without a GPU.
 from __future__ import annotations
 
 import zlib
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -69,6 +70,51 @@ def init_weights(module: nn.Module, gen: torch.Generator) -> nn.Module:
     return module
 
 
+def _not_ported(kind: str, name: str):
+    raise NotImplementedError(
+        f"{kind} {name!r}: only the registry names (tpu/...) and from_apply are ported; "
+        "loading files and pyannote models is ROADMAP.md Queue 1 item 4"
+    )
+
+
+class _SegFn:
+    """The module of ``SegmentationModel.from_apply``: a torch callable
+    ``waveform (B, C, S) -> (B, frames, K)``."""
+
+    def __init__(self, fn: Callable, num_speakers: int, sample_rate: int):
+        self._fn = fn
+        self.num_speakers = num_speakers
+        self.sample_rate = sample_rate
+
+    def __call__(self, waveform: torch.Tensor) -> torch.Tensor:
+        return self._fn(waveform)
+
+
+class _EmbFn:
+    """The module of ``EmbeddingModel.from_apply``: torch callables
+    ``trunk(waveform (B, C, S)) -> frames`` and ``head(frames, weights
+    (B, K, T)) -> (B, K, E)``; a head without weights pools with ones, as
+    the JAX package's shim does."""
+
+    fbank_ring_kind = None
+
+    def __init__(self, trunk: Callable, head: Callable, embedding_dim: int, sample_rate: int):
+        self._trunk = trunk
+        self._head = head
+        self.embedding_dim = embedding_dim
+        self.sample_rate = sample_rate
+
+    def trunk(self, waveform: torch.Tensor) -> torch.Tensor:
+        return self._trunk(waveform)
+
+    def head(self, frames: torch.Tensor, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if weights is None:
+            ones = torch.ones(frames.shape[0], 1, frames.shape[1], dtype=frames.dtype,
+                              device=frames.device)
+            return self._head(frames, ones)[:, 0]
+        return self._head(frames, weights)
+
+
 def _build(module: nn.Module, name: str, device, seed: Optional[int], flax_params) -> nn.Module:
     if flax_params is not None:
         from ..weights import load_flax_params
@@ -85,10 +131,31 @@ class SegmentationModel:
 
     KNOWN = ("tpu/pyannet",)
 
-    def __init__(self, module: PyanNet, name: str, device):
+    def __init__(self, module, name: str, device):
         self.module = module
         self.name = name
         self.device = torch.device(device)
+
+    @staticmethod
+    def from_pretrained(
+        model, use_hf_token=True, device="cuda", **kwargs
+    ) -> "SegmentationModel":
+        """A registry name (``tpu/...``, with :meth:`from_registry`'s
+        arguments). Files and pyannote models are not ported yet."""
+        name = str(model)
+        if not name.startswith("tpu/"):
+            _not_ported("segmentation model", name)
+        return SegmentationModel.from_registry(name, device=device, **kwargs)
+
+    @staticmethod
+    def from_apply(
+        apply_fn: Callable, sample_rate: int = 16000, num_speakers: int = 4, device="cuda"
+    ) -> "SegmentationModel":
+        """Wrap a torch callable ``waveform (B, C, S) -> (B, frames, K)`` that
+        runs on ``device`` (it holds its own weights, so it takes no
+        ``params``)."""
+        return SegmentationModel(_SegFn(apply_fn, num_speakers, sample_rate), "apply",
+                                 require_cuda(device))
 
     @staticmethod
     def from_registry(
@@ -134,10 +201,31 @@ class EmbeddingModel:
 
     KNOWN = ("tpu/ecapa", "tpu/xvector")
 
-    def __init__(self, module: nn.Module, name: str, device):
+    def __init__(self, module, name: str, device):
         self.module = module
         self.name = name
         self.device = torch.device(device)
+
+    @staticmethod
+    def from_pretrained(model, use_hf_token=True, device="cuda", **kwargs) -> "EmbeddingModel":
+        """A registry name (``tpu/...``, with :meth:`from_registry`'s
+        arguments). Files and pyannote models are not ported yet."""
+        name = str(model)
+        if not name.startswith("tpu/"):
+            _not_ported("embedding model", name)
+        return EmbeddingModel.from_registry(name, device=device, **kwargs)
+
+    @staticmethod
+    def from_apply(
+        trunk_fn: Callable, head_fn: Callable, sample_rate: int = 16000,
+        embedding_dim: int = 512, device="cuda",
+    ) -> "EmbeddingModel":
+        """Wrap torch callables ``trunk(waveform (B, C, S)) -> frames`` and
+        ``head(frames, weights (B, K, T)) -> (B, K, E)`` that run on
+        ``device`` (they hold their own weights, so they take no
+        ``params``)."""
+        return EmbeddingModel(_EmbFn(trunk_fn, head_fn, embedding_dim, sample_rate), "apply",
+                              require_cuda(device))
 
     @staticmethod
     def from_registry(
@@ -181,6 +269,15 @@ class EmbeddingModel:
     @property
     def num_mels(self) -> int:
         return self.module.num_mels
+
+    @torch.no_grad()
+    def __call__(self, waveform: torch.Tensor, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """diart's call: waveform (B, C, S), weights (B, frames) or None ->
+        (B, dim)."""
+        frames = self.trunk(waveform)
+        if weights is None:
+            return self.head(frames)
+        return self.head(frames, weights[:, None, :])[:, 0]
 
     @torch.no_grad()
     def trunk(self, waveform: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,14 @@
-"""The native RTTM assembler (``rttm.cpp``), loaded with ctypes.
+"""Native host components, loaded with ctypes: the RTTM assembler
+(``rttm.cpp``) and the WAV decoder (``wavio.cpp``, copies of the JAX
+package's).
 
-The serving path's post-fetch half: packed bits or f32 scores of a hop ->
-one RTTM text per stream, string-identical to the numpy routes of
-``ops/binarize.py`` (its plain versions). The shared library is compiled at
-first use with the system C++ compiler into ``build/native/`` beside the
-package, and rebuilt when the source is newer. There is no quiet fallback:
-where no compiler can build it, the loader raises.
+The RTTM assembler is the serving path's post-fetch half: packed bits or f32
+scores of a hop -> one RTTM text per stream, string-identical to the numpy
+routes of ``ops/binarize.py`` (its plain versions). The WAV decoder is
+:class:`diart_tpu_torch.audio.AudioLoader`'s mono route. Each shared library
+is compiled at first use with the system C++ compiler into ``build/native/``
+beside the package, and rebuilt when its source is newer. There is no quiet
+fallback: where no compiler can build a library, its loader raises.
 """
 
 from __future__ import annotations
@@ -15,44 +18,66 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["build", "rttm_available", "rttm_from_bits", "rttm_from_scores"]
+__all__ = [
+    "build",
+    "build_wavio",
+    "rttm_available",
+    "rttm_from_bits",
+    "rttm_from_scores",
+    "wav_decode_mono",
+    "wav_probe",
+]
 
 _SRC = Path(__file__).resolve().parent / "rttm.cpp"
+_WAV_SRC = _SRC.parent / "wavio.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 _LIB_PATH = BUILD_DIR / "librttm.so"
+_WAV_LIB_PATH = BUILD_DIR / "libwavio.so"
 COMPILERS = ("c++", "g++", "clang++")
 _lock = threading.Lock()
 _lib = None
+_wav_lib = None
 
 
-def build(force: bool = False) -> Path:
-    """Compile ``rttm.cpp`` into ``build/native/librttm.so`` (when stale, or
-    always with ``force``). Raises if no compiler builds it."""
-    fresh = _LIB_PATH.exists() and _LIB_PATH.stat().st_mtime >= _SRC.stat().st_mtime
+def _compile(src: Path, lib_path: Path, what: str, force: bool) -> Path:
+    """Compile ``src`` into ``lib_path`` (when stale, or always with
+    ``force``). Raises if no compiler builds it."""
+    fresh = lib_path.exists() and lib_path.stat().st_mtime >= src.stat().st_mtime
     if fresh and not force:
-        return _LIB_PATH
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".librttm.{os.getpid()}.so"
+        return lib_path
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.parent / f".{lib_path.stem}.{os.getpid()}.so"
     errors = []
     for compiler in COMPILERS:
         try:
             subprocess.run(
-                [compiler, "-O3", "-shared", "-fPIC", str(_SRC), "-o", str(tmp)],
+                [compiler, "-O3", "-shared", "-fPIC", str(src), "-o", str(tmp)],
                 check=True, capture_output=True, text=True, timeout=120,
             )
         except (OSError, subprocess.CalledProcessError, subprocess.TimeoutExpired) as exc:
             errors.append(f"{compiler}: {getattr(exc, 'stderr', None) or exc}")
             continue
-        os.replace(tmp, _LIB_PATH)
-        return _LIB_PATH
+        os.replace(tmp, lib_path)
+        return lib_path
     raise RuntimeError(
-        "cannot build the native RTTM assembler (diart_tpu_torch/native/rttm.cpp): "
-        + "; ".join(errors)
+        f"cannot build the native {what} (diart_tpu_torch/native/{src.name}): " + "; ".join(errors)
     )
+
+
+def build(force: bool = False) -> Path:
+    """Compile ``rttm.cpp`` into ``build/native/librttm.so`` (when stale, or
+    always with ``force``). Raises if no compiler builds it."""
+    return _compile(_SRC, _LIB_PATH, "RTTM assembler", force)
+
+
+def build_wavio(force: bool = False) -> Path:
+    """Compile ``wavio.cpp`` into ``build/native/libwavio.so`` (when stale,
+    or always with ``force``). Raises if no compiler builds it."""
+    return _compile(_WAV_SRC, _WAV_LIB_PATH, "WAV decoder", force)
 
 
 def _load() -> ctypes.CDLL:
@@ -168,3 +193,58 @@ def rttm_from_scores(
         out, out_len,
     )
     return _rttm_collect(lib, rc, b, emit_arr, out, out_len)
+
+
+# --------------------------------------------------------------------- #
+# WAV decoder (wavio.cpp)
+# --------------------------------------------------------------------- #
+def _load_wavio() -> ctypes.CDLL:
+    global _wav_lib
+    with _lock:
+        if _wav_lib is not None:
+            return _wav_lib
+        lib = ctypes.CDLL(str(build_wavio()))
+        lib.wav_probe.argtypes = [
+            ctypes.c_char_p,
+            ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_long),
+            ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.wav_probe.restype = ctypes.c_int
+        lib.wav_decode_mono_f32.argtypes = [
+            ctypes.c_char_p,
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.c_long,
+        ]
+        lib.wav_decode_mono_f32.restype = ctypes.c_long
+        _wav_lib = lib
+        return _wav_lib
+
+
+def wav_probe(path) -> Optional[Tuple[int, int, int]]:
+    """(sample_rate, num_frames, channels), or None where the decoder
+    declines the file (not a WAV it decodes). Raises if the library cannot
+    be built."""
+    lib = _load_wavio()
+    rate, frames, channels = ctypes.c_int(), ctypes.c_long(), ctypes.c_int()
+    if lib.wav_probe(str(path).encode(), ctypes.byref(rate), ctypes.byref(frames),
+                     ctypes.byref(channels)) != 0:
+        return None
+    return rate.value, frames.value, channels.value
+
+
+def wav_decode_mono(path) -> Optional[Tuple[np.ndarray, int]]:
+    """((1, samples) float32 mono mix, sample_rate), or None where the
+    decoder declines the file; :class:`diart_tpu_torch.audio.AudioLoader`
+    then decodes it with numpy. Raises if the library cannot be built."""
+    probe = wav_probe(path)
+    if probe is None:
+        return None
+    rate, frames, _ = probe
+    out = np.empty(frames, dtype=np.float32)
+    written = _load_wavio().wav_decode_mono_f32(
+        str(path).encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), frames
+    )
+    if written < 0:
+        return None
+    return out[:written][None, :], rate

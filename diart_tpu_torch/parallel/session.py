@@ -70,9 +70,14 @@ class MultiStreamSession:
     uris: stream identifiers (len == engine.batch_size).
     tau_active: binarization threshold.
     timestamp_shifts: per-stream shift applied to output timestamps.
-    collect_audio: also return the aggregated audio region per output.
+    collect_audio: also return the aggregated audio region per output
+        (blocks on the card are copied back to the host for it, after the
+        hop's step is queued; a session without it never waits for the
+        card in ``push_begin``).
     quantize_transfer: ship int16 PCM blocks to the device (half the
         host-to-device bytes; dequantized on the device, exact to 1/32768).
+        Every float block is quantized: a numpy array on the host, a tensor
+        on its own device.
     binarize_on_device: RTTM-route hops fetch a device-binarized packed
         bitmap (one bit per (frame, speaker) cell, 32x fewer device-to-host
         bytes) instead of f32 scores, with the same f32 comparison the host
@@ -277,18 +282,16 @@ class MultiStreamSession:
 
         self.blocks_seen[present] += 1
         run_mask = present & (self.blocks_seen >= self.warmup_blocks)
-        if self.collect_audio:
-            upd = np.concatenate([self._audio[:, self.engine.step_samples :], blocks], axis=1)
-            self._audio = np.where(present[:, None], upd, self._audio)
 
-        device_blocks = blocks
-        # host blocks only: a tensor already on the card has made its copy
-        if (self.quantize_transfer and not isinstance(blocks, torch.Tensor)
-                and not np.issubdtype(np.asarray(blocks).dtype, np.integer)):
-            device_blocks = np.clip(np.asarray(blocks) * 32768.0, -32768, 32767).astype(np.int16)
-
+        device_blocks = self._quantize(blocks) if self.quantize_transfer else blocks
         t0 = time.monotonic()
         self.state, out = self.engine.step(self.state, device_blocks, present, run_mask)
+        if self.collect_audio:
+            # after the step is queued: a copy of blocks on the card waits
+            # for the work before it, and the step needs nothing from it
+            host = blocks.detach().cpu().numpy() if isinstance(blocks, torch.Tensor) else blocks
+            upd = np.concatenate([self._audio[:, self.engine.step_samples :], host], axis=1)
+            self._audio = np.where(present[:, None], upd, self._audio)
         if not run_mask.any():
             return None
 
@@ -321,6 +324,20 @@ class MultiStreamSession:
             device_aggregated=out.aggregated,
             t0=t0,
         )
+
+    @staticmethod
+    def _quantize(blocks):
+        """Float blocks as int16 PCM (clamp, then truncate toward zero, as
+        numpy's ``astype`` does): a numpy array on the host, a tensor on its
+        own device; integer blocks as they are."""
+        if isinstance(blocks, torch.Tensor):
+            if not blocks.dtype.is_floating_point:
+                return blocks
+            return torch.clamp(blocks * 32768.0, -32768, 32767).to(torch.int16)
+        blocks = np.asarray(blocks)
+        if np.issubdtype(blocks.dtype, np.integer):
+            return blocks
+        return np.clip(blocks * 32768.0, -32768, 32767).astype(np.int16)
 
     @staticmethod
     def _fetch(tensors) -> Tuple[list, Optional[torch.cuda.Event]]:
