@@ -66,8 +66,30 @@ Phases (any failure exits non-zero):
    Then sessions
    fed CUDA tensor blocks with ``collect_audio`` and ``quantize_transfer``
    against the same sessions fed the numpy blocks.
-6. Print ``{"kernels": [...]}`` (with each kernel's launches on the
-   pipelines' runs) and, last, ``{"ok": true, "device": ...}``.
+6. The runtime and the console entry points (``diart_tpu_torch.runtime``,
+   ``.console``) with the stream CLI's models (``from_pretrained``: f32,
+   seeds from the names) at tau 0.45 / rho 0.05: ``python -m
+   diart_tpu_torch.console.stream`` on a 30 s WAV in a subprocess (exit 0,
+   a well-formed RTTM, the text of step 2's run at calls of 1);
+   ``StreamingInference`` over ``FileAudioSource`` for x-vector, ECAPA and
+   VAD in calls of 1 and 8 (every dispatch under the sync check, each
+   call's launches, the same text from both call sizes and from the
+   pipelines phase's direct loop over the same chunks and shift; ms a
+   chunk from the ``Chronometer``, the bare wall and the direct loop);
+   ``Benchmark(multi_stream=True)`` over 8 files of 10–30 s without a
+   reference (no pandas): every file's RTTM, each kernel on every hop, the
+   cached engine reused with ``set_hyperparameters`` under the sync check,
+   audio seconds a wall second, each file's DER against the sequential
+   ``Benchmark`` (a record); ``Parallelize`` with 2 spawn workers over 2
+   files (the sequential text); ``StreamingServer`` at B=64 over 24 hops of
+   stub clients in every slot, driven by ``_tick``: one cohort on the
+   float32 wire, then two pipelined cohorts with ``quantize_transfer`` on
+   the int16 and float32 wires, every dispatch on the server's thread under
+   the sync check, each client's text equal to a session pushed the same
+   blocks from the main thread; dispatch and harvest ms a hop.
+7. Print ``{"kernels": [...]}`` (with each kernel's launches on the
+   pipelines' and the runtime's runs) and, last, ``{"ok": true, "device":
+   ...}``.
 
 ``--step-timing [--root TREE]`` runs only the step timing of phase 4 (its
 sync check recorded, not fatal), importing ``diart_tpu_torch`` from
@@ -1489,6 +1511,474 @@ def check_session_tensor_blocks(audio):
 
 
 # --------------------------------------------------------------------- #
+# The runtime and the console entry points (diart_tpu_torch.runtime,
+# diart_tpu_torch.console)
+RUNTIME_KINDS = ("xvector", "ecapa", "vad")
+RUNTIME_BATCHES = (1, 8)
+RUNTIME_SECONDS = 30  # the stream CLI's file: 51 chunks of 5 s
+BENCH_SECONDS = (10, 13, 16, 19, 22, 25, 28, 30)  # the Benchmark corpus, one file each
+SERVER_HOPS = 24
+# the stream CLI's thresholds here: the pipelines phase's, so the random
+# weights make turns; everything else at the CLI's defaults
+RUNTIME_CLI_ARGS = ("--tau-active", str(SESSION_TAU), "--rho-update", "0.05")
+
+
+def write_seconds(path, rng, seconds):
+    """``seconds`` of seeded audio (make_audio's noise bursts) as a WAV,
+    written with the port's ``audio.write_wav``."""
+    from diart_tpu_torch.audio import write_wav
+
+    pcm = make_audio(rng, 2 * seconds, 1, 8000).reshape(-1)
+    write_wav(path, (pcm.astype(np.float32) / 32768.0)[None], 16000)
+
+
+def runtime_pipeline(kind):
+    """The pipeline the stream CLI builds for path ``kind`` on the card: its
+    registry models as ``from_pretrained`` gives them (f32 weights, seeds
+    from the names), its defaults (5 s / 0.5 s, latency 0.5 s, delta 1, 20
+    speakers) and RUNTIME_CLI_ARGS' thresholds."""
+    from diart_tpu_torch import EmbeddingModel, SegmentationModel
+    from diart_tpu_torch.blocks import (SpeakerDiarization, SpeakerDiarizationConfig,
+                                        VoiceActivityDetection, VoiceActivityDetectionConfig)
+
+    seg = SegmentationModel.from_pretrained("tpu/pyannet", device="cuda")
+    if kind == "vad":
+        return VoiceActivityDetection(VoiceActivityDetectionConfig(segmentation=seg, latency=0.5,
+                                                                   tau_active=SESSION_TAU))
+    emb = EmbeddingModel.from_pretrained(EMBEDDINGS[kind], device="cuda")
+    return SpeakerDiarization(SpeakerDiarizationConfig(segmentation=seg, embedding=emb, latency=0.5,
+                                                       tau_active=SESSION_TAU, rho_update=0.05))
+
+
+class CheckedPipeline:
+    """What the runtime calls in place of a pipeline, with the same results:
+    each call runs the pipeline's dispatch under the sync check, holds the
+    launches of each kernel of the path to ``path_launches`` (counts set to
+    0 before the dispatch, read after it), then fetches."""
+
+    def __init__(self, pipe, kind):
+        self.pipe, self.config = pipe, pipe.config
+        self.per_call = path_launches(kind, pipe.config.segmentation.module.lstm.num_layers)
+        self.counters = launch_counters()
+        self.totals = {k: 0 for k in self.counters}
+        self.calls = 0
+
+    def reset(self):
+        self.pipe.reset()
+
+    def set_timestamp_shift(self, shift):
+        self.pipe.set_timestamp_shift(shift)
+
+    def __call__(self, chunks):
+        for fn in self.counters.values():
+            fn.launches = 0
+        with no_host_sync():
+            scores = self.pipe.dispatch(chunks)
+        launches = {k: fn.launches for k, fn in self.counters.items()}
+        if launches != self.per_call:
+            raise AssertionError(f"runtime call {self.calls} ({len(chunks)} chunks): expected "
+                                 f"{self.per_call} launches; got {launches}")
+        for k, n in launches.items():
+            self.totals[k] += n
+        self.calls += 1
+        return self.pipe.fetch(chunks, scores)
+
+
+def stream_inference(pipe, wav, batch):
+    """diart's file route through ``StreamingInference`` (FileAudioSource
+    with the config's padding, the timestamp shift, calls of ``batch``
+    chunks, profiled): the text, the Chronometer's seconds a call, the
+    bare wall and the number of chunks."""
+    from diart_tpu_torch.runtime import FileAudioSource, StreamingInference
+
+    cfg = pipe.config
+    pipe.reset()
+    padding = cfg.get_file_padding(wav)
+    source = FileAudioSource(wav, cfg.sample_rate, padding, cfg.step)
+    pipe.set_timestamp_shift(-padding[0])
+    inference = StreamingInference(pipe, source, batch_size=batch, do_profile=True, show_progress=False)
+    t0 = time.perf_counter()
+    prediction = inference()
+    wall = time.perf_counter() - t0
+    return prediction.to_rttm(), list(inference._chrono.history), wall, inference.num_chunks
+
+
+def direct_loop(pipe, wav, batch):
+    """The pipelines phase's loop on the runtime's chunks: the file loaded,
+    padded as FileAudioSource pads it, cut into the windows the runtime's
+    chunker gives, the same timestamp shift, calls of ``batch`` chunks
+    folded into one annotation as the runtime's accumulator folds them:
+    the text and each call's wall."""
+    from diart_tpu_torch.audio import AudioLoader
+    from diart_tpu_torch.core.segment import SlidingWindow, SlidingWindowFeature
+    from diart_tpu_torch.runtime import PredictionAccumulator
+
+    cfg = pipe.config
+    sr = cfg.sample_rate
+    pipe.reset()
+    left, right = cfg.get_file_padding(wav)
+    wave = AudioLoader(sr, mono=True).load(wav)[0]
+    wave = np.concatenate([np.zeros(int(np.rint(left * sr)), np.float32), wave,
+                           np.zeros(int(np.rint(right * sr)), np.float32)])
+    block = int(np.rint(cfg.step * sr))
+    wave = np.concatenate([wave, np.zeros(-len(wave) % block, np.float32)])
+    win, hop, res = int(round(cfg.duration * sr)), int(round(cfg.step * sr)), 1.0 / sr
+    chunks = [SlidingWindowFeature(wave[k * hop : k * hop + win, None].copy(),
+                                   SlidingWindow(start=k * hop / sr, duration=res, step=res))
+              for k in range((len(wave) - win) // hop + 1)]
+    pipe.set_timestamp_shift(-left)
+    acc = PredictionAccumulator(os.path.splitext(os.path.basename(wav))[0])
+    walls = []
+    for i in range(0, len(chunks), batch):
+        t0 = time.perf_counter()
+        outs = pipe(chunks[i : i + batch])
+        walls.append(time.perf_counter() - t0)
+        for out in outs:
+            acc.on_next(out)
+    return acc.get_prediction().to_rttm(), walls, len(chunks)
+
+
+def check_rttm(text, uri, what):
+    """Every line a well-formed RTTM SPEAKER line of ``uri``; the number of
+    lines (at least one)."""
+    lines = text.splitlines()
+    for line in lines:
+        f = line.split()
+        if len(f) != 10 or f[:3] != ["SPEAKER", uri, "1"] or f[5:7] != ["<NA>", "<NA>"] \
+                or f[8:] != ["<NA>", "<NA>"] or not float(f[3]) >= 0.0 or not float(f[4]) > 0.0:
+            raise AssertionError(f"{what}: malformed RTTM line {line!r}")
+    if not lines:
+        raise AssertionError(f"{what}: no turns")
+    return len(lines)
+
+
+def stream_cli(wav, out_dir):
+    """``python -m diart_tpu_torch.console.stream <wav> --no-plot --output
+    <dir>`` in a subprocess on the card, with the default models and
+    RUNTIME_CLI_ARGS. ``NVIDIA_TF32_OVERRIDE=0`` keeps TF32 out of its
+    cuDNN convolutions, as this script's ``allow_tf32 = False`` does here,
+    so both processes round alike. The RTTM text, the wall and the CLI's
+    own profile line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
+    cmd = [sys.executable, "-m", "diart_tpu_torch.console.stream", wav, "--no-plot", "--output",
+           out_dir, *RUNTIME_CLI_ARGS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=root, env=env)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"stream CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+    uri = os.path.splitext(os.path.basename(wav))[0]
+    text = open(os.path.join(out_dir, f"{uri}.rttm")).read()
+    profile = [l for l in (proc.stdout + proc.stderr).splitlines() if "seconds/chunk" in l]
+    return text, wall, profile[-1].strip() if profile else None
+
+
+def drive_runtime_inference(wav, cli_text):
+    """StreamingInference over FileAudioSource on the CLI's file for each
+    path, in calls of 1 and 8: every dispatch under the sync check, each
+    kernel launched per call as its path says, the same text from both call
+    sizes and from the direct loop over the same chunks and shift; the
+    x-vector text at calls of 1 equal to the stream CLI's. ms per chunk from
+    the Chronometer and the bare wall, against the direct loop's."""
+    import torch
+
+    recs = {}
+    for kind in RUNTIME_KINDS:
+        pipe = CheckedPipeline(runtime_pipeline(kind), kind)
+        # first use, outside the sync check: the models' device constants
+        # (the packed LSTM weights, ...) are copied from the host once
+        direct_loop(pipe.pipe, wav, 1)
+        torch.cuda.synchronize()
+        texts, rec = {}, dict(launches_per_call=pipe.per_call)
+        launches, calls = {k: 0 for k in pipe.totals}, 0
+        for batch in RUNTIME_BATCHES:
+            before, calls_before = dict(pipe.totals), pipe.calls
+            text, chrono, wall, expected = stream_inference(pipe, wav, batch)
+            calls_runtime = pipe.calls - calls_before
+            calls += calls_runtime
+            for k in launches:
+                launches[k] += pipe.totals[k] - before[k]
+            direct, walls, chunks = direct_loop(pipe, wav, batch)
+            if expected != chunks or calls_runtime != -(-chunks // batch):
+                raise AssertionError(f"runtime[{kind}] b{batch}: {calls_runtime} calls for {chunks} chunks "
+                                     f"(the runtime expected {expected})")
+            texts[batch] = text
+            if direct != text:
+                raise AssertionError(f"runtime[{kind}] b{batch}: StreamingInference text differs from the "
+                                     f"direct pipeline loop over the same chunks")
+            rec[f"b{batch}"] = dict(
+                chunks=chunks, chrono_ms_per_chunk=1e3 * sum(chrono) / chunks,
+                wall_ms_per_chunk=1e3 * wall / chunks, direct_ms_per_chunk=1e3 * sum(walls) / chunks,
+                overhead_ms_per_chunk=1e3 * (wall - sum(walls)) / chunks)
+        if texts[1] != texts[RUNTIME_BATCHES[-1]]:
+            raise AssertionError(f"runtime[{kind}]: calls of {RUNTIME_BATCHES[-1]} give other text than calls of 1")
+        uri = os.path.splitext(os.path.basename(wav))[0]
+        rec["rttm_lines"] = check_rttm(texts[1], uri, f"runtime[{kind}]")
+        rec["launches"], rec["calls"] = launches, calls
+        if kind == "xvector":
+            rec["equals_stream_cli"] = texts[1] == cli_text
+            if cli_text != texts[1]:
+                raise AssertionError("stream CLI: its RTTM text differs from the in-process "
+                                     "StreamingInference run of the same config")
+        recs[kind] = rec
+        log(f"runtime[{kind}] StreamingInference over {rec['b1']['chunks']} chunks in calls of "
+            f"{' and '.join(map(str, RUNTIME_BATCHES))}: identical text ({rec['rttm_lines']} lines) from both "
+            f"and from the direct loop{', equal to the stream CLI' if kind == 'xvector' else ''}; no host "
+            f"sync in any dispatch; launches per call {pipe.per_call} in every call ({calls} calls of "
+            f"the runtime: {launches})")
+        for batch in RUNTIME_BATCHES:
+            r = rec[f"b{batch}"]
+            log(f"runtime[{kind}] {batch} chunk(s) a call: Chronometer {r['chrono_ms_per_chunk']:.3f} ms a chunk, "
+                f"bare wall {r['wall_ms_per_chunk']:.3f}, direct loop {r['direct_ms_per_chunk']:.3f}, "
+                f"runtime overhead {r['overhead_ms_per_chunk']:.3f} ms a chunk")
+        del pipe
+    return recs
+
+
+def drive_benchmark(corpus, out_root):
+    """Benchmark(multi_stream=True) over the corpus at full width with
+    x-vector, no reference (pandas is not needed): every file has its RTTM,
+    each kernel of the engine's path ran on every hop; a second run with
+    other thresholds reuses the cached engine (set_hyperparameters under
+    the sync check); the sequential Benchmark on the card as the reference
+    of each file's DER (a record). Then Parallelize with 2 spawn workers
+    over 2 files: the sequential text."""
+    import shutil
+
+    import torch
+    from diart_tpu_torch.metrics import DiarizationErrorRate
+    from diart_tpu_torch.runtime import Benchmark, Parallelize
+
+    pipe = runtime_pipeline("xvector")
+    config = pipe.config
+    stems = sorted(os.path.splitext(f)[0] for f in os.listdir(corpus))
+    seconds = sum(BENCH_SECONDS)
+    counters = launch_counters()
+    per_step = path_launches("xvector", config.segmentation.module.lstm.num_layers)
+    ms_dir, seq_dir = os.path.join(out_root, "multi"), os.path.join(out_root, "seq")
+    bench = Benchmark(corpus, None, ms_dir, show_progress=False, multi_stream=True)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    ms_preds = bench(type(pipe), config)
+    ms_wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    engine = bench._engine_cache[1]
+    hops = int(np.ceil(max(BENCH_SECONDS) / config.step))
+    want = {k: n * hops for k, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"benchmark multi-stream: expected {want} launches over {hops} hops; got {launches}")
+    lines = {}
+    for stem, pred in zip(stems, ms_preds):
+        path = os.path.join(ms_dir, f"{stem}.rttm")
+        if pred.uri != stem or not os.path.exists(path):
+            raise AssertionError(f"benchmark multi-stream: no RTTM for {stem}")
+        lines[stem] = check_rttm(open(path).read(), stem, f"benchmark multi-stream {stem}")
+    with no_host_sync():
+        engine.set_hyperparameters(tau_active=0.5, rho_update=0.05)
+    config.tau_active = 0.5
+    t0 = time.perf_counter()
+    bench(type(pipe), config)
+    rerun_wall = time.perf_counter() - t0
+    if bench._engine_cache[1] is not engine:
+        raise AssertionError("benchmark multi-stream: a run with other thresholds rebuilt the engine")
+    config.tau_active = SESSION_TAU
+    t0 = time.perf_counter()
+    seq_preds = Benchmark(corpus, None, seq_dir, show_progress=False, batch_size=32)(type(pipe), config)
+    seq_wall = time.perf_counter() - t0
+    ders = {stem: float(DiarizationErrorRate()(s, m)) for stem, s, m in zip(stems, seq_preds, ms_preds)}
+    # Parallelize: 2 spawn workers over 2 files, the models crossing as CUDA IPC handles
+    par_in, par_out = os.path.join(out_root, "par_in"), os.path.join(out_root, "par")
+    os.makedirs(par_in, exist_ok=True)
+    picked = [stems[0], stems[-1]]
+    for stem in picked:
+        shutil.copy(os.path.join(corpus, f"{stem}.wav"), par_in)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Parallelize(Benchmark(par_in, None, par_out, show_progress=False, batch_size=32), num_workers=2)(
+        type(pipe), config)
+    par_wall = time.perf_counter() - t0
+    for stem in picked:
+        got = open(os.path.join(par_out, f"{stem}.rttm")).read()
+        if got != open(os.path.join(seq_dir, f"{stem}.rttm")).read():
+            raise AssertionError(f"Parallelize: {stem}'s text differs from the sequential Benchmark's")
+    rec = dict(files=len(stems), audio_s=seconds, hops=hops, multi_wall_s=ms_wall,
+               multi_x_realtime=seconds / ms_wall, multi_rerun_wall_s=rerun_wall, seq_wall_s=seq_wall,
+               seq_x_realtime=seconds / seq_wall, der_vs_sequential=ders, rttm_lines=lines,
+               launches=launches, parallelize=dict(files=picked, workers=2, wall_s=par_wall))
+    log(f"benchmark multi-stream over {len(stems)} files ({seconds} s of audio, {hops} hops at B={len(stems)}): "
+        f"every file has its RTTM ({sum(lines.values())} lines), launches {launches} "
+        f"({hops} x {per_step}); {seconds / ms_wall:.2f} s of audio a second ({ms_wall:.2f} s wall; "
+        f"rerun with the cached engine {rerun_wall:.2f} s); sequential Benchmark {seconds / seq_wall:.2f} s "
+        f"a second ({seq_wall:.2f} s)")
+    log("benchmark DER of each file, multi-stream against the sequential run (a record): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ders.items()))
+    log(f"Parallelize, 2 spawn workers over {picked}: the sequential text ({par_wall:.2f} s)")
+    return rec
+
+
+class StubSocket:
+    """An in-process client's websocket: records what the server sends."""
+
+    def __init__(self):
+        self.sent = []
+
+    async def send(self, message):
+        self.sent.append(message)
+
+    async def close(self, code=1000, reason=""):
+        raise AssertionError(f"server closed a stub client: {code} {reason}")
+
+
+def drive_server(audio):
+    """StreamingServer over the full-width x-vector engine at B streams,
+    SERVER_HOPS hops of stub clients in every slot, each tick driven by
+    ``_tick``: one cohort on the float32 wire, then two cohorts pipelined
+    with quantize_transfer, cohort 0 on the int16 wire and cohort 1 on the
+    float32 wire. Every dispatch (on the server's dispatch thread) under the
+    sync check; each client's text equal to a MultiStreamSession pushed the
+    same blocks from the main thread (quantized likewise) at the same hop;
+    each kernel of the path ran on every dispatched hop."""
+    import asyncio
+
+    import torch
+    from diart_tpu_torch import MultiStreamSession
+    from diart_tpu_torch.runtime.server import StreamingServer
+    from diart_tpu_torch.utils import encode_audio, encode_audio_int16
+
+    engine = build_engine("cuda", B, "xvector")
+    with no_host_sync():
+        engine.set_hyperparameters(tau_active=SESSION_TAU, rho_update=0.05)
+    per_step = path_launches("xvector", 4)
+    counters = launch_counters()
+    floats = audio[:SERVER_HOPS].astype(np.float32) / 32768.0  # (hops, B, step)
+    recs = {}
+    for cohorts, pipelined, quantize, wires in ((1, False, False, ("f32",)),
+                                                (2, True, True, ("int16", "f32"))):
+        tag = f"cohorts={cohorts}{' pipelined' if pipelined else ''}{' quantized' if quantize else ''}"
+        server = StreamingServer(engine, tau_active=SESSION_TAU, cohorts=cohorts, pipelined=pipelined,
+                                 quantize_transfer=quantize)
+        server.session.warm()
+        dispatch_ms, harvest_ms = [], []
+        for session in server.sessions:
+            def begin(blocks, present, _begin=session.push_begin):
+                with no_host_sync():
+                    t0 = time.perf_counter()
+                    pending = _begin(blocks, present)
+                    dispatch_ms.append((time.perf_counter() - t0) * 1e3)
+                return pending
+
+            def finish(pending, _finish=session.push_finish_rttm):
+                t0 = time.perf_counter()
+                out = _finish(pending)
+                harvest_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            session.push_begin, session.push_finish_rttm = begin, finish
+        clients = [server._claim_slot(StubSocket()) for _ in range(B * cohorts)]
+        lane_of = lambda j, lane: lane if j == 0 else B - 1 - lane  # cohort 1 streams in reverse
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+
+        async def drive():
+            for k in range(SERVER_HOPS):
+                for i, client in enumerate(clients):
+                    j, lane = divmod(i, B)
+                    block = floats[k, lane_of(j, lane)][None]
+                    wire = wires[j]
+                    message = encode_audio_int16(block) if wire == "int16" else encode_audio(block)
+                    client.buffer = np.concatenate([client.buffer, server._ingest(message, wire)])
+                for j in range(cohorts):
+                    await server._tick(j)
+                    while server._in_flight:  # the deliverer's part, in order
+                        fut, slots = await server._outbox.get()
+                        await server._send_outputs(await fut, slots)
+                        server._in_flight -= 1
+
+        t0 = time.perf_counter()
+        asyncio.run(drive())
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        want = {k: n * len(dispatch_ms) for k, n in per_step.items()}
+        if len(dispatch_ms) != SERVER_HOPS * cohorts or launches != want:
+            raise AssertionError(f"server[{tag}]: {len(dispatch_ms)} dispatches, launches {launches}; "
+                                 f"expected {SERVER_HOPS * cohorts} and {want}")
+        lines, main_dispatch_ms = 0, []
+        for j in range(cohorts):
+            ref = MultiStreamSession(engine, uris=[f"client{j * B + lane}" for lane in range(B)],
+                                     tau_active=SESSION_TAU, collect_audio=False, quantize_transfer=quantize)
+            want_text = [""] * B
+            order = [lane_of(j, lane) for lane in range(B)]
+            for k in range(SERVER_HOPS):
+                # the same dispatch on this (the main) thread, timed alike
+                t0 = time.perf_counter()
+                pending = ref.push_begin(floats[k, order], np.ones(B, bool))
+                main_dispatch_ms.append((time.perf_counter() - t0) * 1e3)
+                texts = [None] * B if pending is None else ref.push_finish_rttm(pending)
+                for lane, text in enumerate(texts):
+                    want_text[lane] += text or ""
+            for lane in range(B):
+                got = "".join(clients[j * B + lane].websocket.sent)
+                if got != want_text[lane]:
+                    raise AssertionError(f"server[{tag}] cohort {j} ({wires[j]} wire) client {lane}: text "
+                                         f"differs from the session pushed from the main thread")
+                lines += got.count("\n")
+        if not lines:
+            raise AssertionError(f"server[{tag}]: no turns")
+        steady = slice(server.sessions[0].warmup_blocks * cohorts, None)
+        rec = dict(cohorts=cohorts, pipelined=pipelined, quantize_transfer=quantize, wires=list(wires),
+                   clients=len(clients), hops=SERVER_HOPS, wall_s=wall, rttm_lines=lines, launches=launches,
+                   dispatch_ms=float(np.median(dispatch_ms[steady])), harvest_ms=float(np.median(harvest_ms)),
+                   main_thread_dispatch_ms=float(np.median(main_dispatch_ms[steady])),
+                   dispatch_ms_all=dispatch_ms, harvest_ms_all=harvest_ms)
+        recs[tag] = rec
+        server._dispatch_pool.shutdown()
+        for pool in server._harvest_pools:
+            pool.shutdown()
+        log(f"server[{tag}] {len(clients)} stub clients ({'/'.join(wires)} wire), {SERVER_HOPS} hops by _tick: "
+            f"every client's text equals the main thread's session ({lines} lines), no host sync in any "
+            f"dispatch on the server's thread, launches {launches}; per hop dispatch {rec['dispatch_ms']:.3f} ms "
+            f"(the same dispatch on the main thread {rec['main_thread_dispatch_ms']:.3f} ms), harvest "
+            f"{rec['harvest_ms']:.3f} ms (medians of the hops after warm-up; {wall:.2f} s wall)")
+    return recs
+
+
+def drive_runtime(out_dir):
+    """The runtime phase: the stream CLI in a subprocess, StreamingInference
+    on three paths, Benchmark and Parallelize, StreamingServer ticks."""
+    import shutil
+    import tempfile
+
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(scratch, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=scratch)  # inside the checkout
+    try:
+        rng = np.random.default_rng(4)
+        wav = os.path.join(tmp, "meeting.wav")
+        write_seconds(wav, rng, RUNTIME_SECONDS)
+        t0 = time.perf_counter()
+        cli_text, cli_wall, cli_profile = stream_cli(wav, os.path.join(tmp, "cli"))
+        cli_lines = check_rttm(cli_text, "meeting", "stream CLI")
+        log(f"stream CLI (subprocess, default models on the card): exit 0, {cli_lines} well-formed RTTM "
+            f"lines, {cli_wall:.2f} s wall; its profile: {cli_profile}")
+        inference = drive_runtime_inference(wav, cli_text)
+        corpus = os.path.join(tmp, "corpus")
+        os.makedirs(corpus)
+        for k, seconds in enumerate(BENCH_SECONDS):
+            write_seconds(os.path.join(corpus, f"file{k}.wav"), rng, seconds)
+        benchmark = drive_benchmark(corpus, tmp)
+        server = drive_server(make_audio(np.random.default_rng(5), SERVER_HOPS, B, 8000))
+        rec = dict(stream_cli=dict(wall_s=cli_wall, rttm_lines=cli_lines, profile=cli_profile),
+                   inference=inference, benchmark=benchmark, server=server,
+                   seconds=time.perf_counter() - t0)
+        return rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------- #
 KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # the statistics kernels' extra readings: prepared and raw operands, the
 # product alone (a yardstick, not the same function)
@@ -1596,32 +2086,41 @@ def main() -> int:
     session_tensors = check_session_tensor_blocks(make_audio(np.random.default_rng(3), 16, 4, 8000))
     log(f"pipelines phase in {time.perf_counter() - t0:.1f} s")
 
+    # the runtime and the console entry points
+    t0 = time.perf_counter()
+    runtime = drive_runtime(args.out)
+    log(f"runtime phase in {time.perf_counter() - t0:.1f} s")
+
     # the main paths run the bf16 LSTM stream and bf16 embedding trunks
     xv, ec = runs["xvector"]["launches"], runs["ecapa"]["launches"]
     on_session = lambda name: {e: sessions[e]["session"]["launches"][name] for e in sessions}
     on_pipeline = lambda name: {k: pipelines[k]["launches"][name] for k in pipelines}
+    on_runtime = lambda name: dict(
+        **{f"inference_{k}": r["launches"][name] for k, r in runtime["inference"].items()},
+        benchmark_multi_stream=runtime["benchmark"]["launches"][name],
+        **{f"server_{k}": r["launches"][name] for k, r in runtime["server"].items()})
     kernels = [
         dict(name="lstm_sweep", route="cuda", source="diart_tpu_torch/csrc/lstm_sweep.cu",
              replaces="diart_tpu/ops/pallas_lstm.py:494", launches=ec["lstm_sweep"],
              launches_xvector_path=xv["lstm_sweep"], launches_session_paths=on_session("lstm_sweep"),
-             launches_pipeline_paths=on_pipeline("lstm_sweep"),
+             launches_pipeline_paths=on_pipeline("lstm_sweep"), launches_runtime_paths=on_runtime("lstm_sweep"),
              **{k: lstm["bf16"][k] for k in KEYS},
              ms_b256=lstm["bf16"]["ms_b256"], ms_b528=lstm["bf16"]["ms_b528"],
              ms_f32=lstm["f32"]["ms"], plan=lstm["bf16"]["plan"]),
         dict(name="linear_stats", route="cuda", source="diart_tpu_torch/csrc/linear_stats.cu",
              replaces="diart_tpu/ops/pallas_stats.py:163", launches=xv["linear_stats"],
              launches_session_paths=on_session("linear_stats"),
-             launches_pipeline_paths=on_pipeline("linear_stats"),
+             launches_pipeline_paths=on_pipeline("linear_stats"), launches_runtime_paths=on_runtime("linear_stats"),
              **{k: stats["bf16"][k] for k in KEYS + STATS_KEYS}, ms_f32=stats["f32"]["ms"]),
         dict(name="attn_stats", route="cuda", source="diart_tpu_torch/csrc/attn_stats.cu",
              replaces="diart_tpu/ops/pallas_attn_stats.py:170", launches=ec["attn_stats"],
              launches_session_paths=on_session("attn_stats"),
-             launches_pipeline_paths=on_pipeline("attn_stats"),
+             launches_pipeline_paths=on_pipeline("attn_stats"), launches_runtime_paths=on_runtime("attn_stats"),
              **{k: attn["bf16"][k] for k in KEYS + STATS_KEYS}, ms_f32=attn["f32"]["ms"]),
         dict(name="se_res2", route="cuda", source="diart_tpu_torch/csrc/se_res2.cu",
              replaces="diart_tpu/ops/pallas_res2.py:294", launches=ec["se_res2"],
              launches_session_paths=on_session("se_res2"),
-             launches_pipeline_paths=on_pipeline("se_res2"),
+             launches_pipeline_paths=on_pipeline("se_res2"), launches_runtime_paths=on_runtime("se_res2"),
              **{k: res2["bf16"][k] for k in KEYS}, ms_b8=res2["bf16"]["ms_b8"],
              device_ms=res2["bf16"]["device_ms"],
              ms_f32=res2["f32"]["ms"], by_launch=res2["bf16"]["by_launch"],
@@ -1637,7 +2136,7 @@ def main() -> int:
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(result, engines=runs, probes=probes, sessions=sessions, pipelines=pipelines,
-                           pipelines_vs_cpu=pipe_cpu, session_tensor_blocks=session_tensors,
+                           pipelines_vs_cpu=pipe_cpu, session_tensor_blocks=session_tensors, runtime=runtime,
                            kernels=kernels), f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s after start-up")
     log(f"gpu: {smi}")

@@ -81,13 +81,25 @@ class _SegFn:
     """The module of ``SegmentationModel.from_apply``: a torch callable
     ``waveform (B, C, S) -> (B, frames, K)``."""
 
-    def __init__(self, fn: Callable, num_speakers: int, sample_rate: int):
+    def __init__(self, fn: Callable, num_speakers: int, sample_rate: int, device: torch.device):
         self._fn = fn
         self.num_speakers = num_speakers
         self.sample_rate = sample_rate
+        self.device = device
+        self._frames: dict = {}
 
     def __call__(self, waveform: torch.Tensor) -> torch.Tensor:
         return self._fn(waveform)
+
+    @torch.no_grad()
+    def num_frames(self, num_samples: int) -> int:
+        """The frames the callable gives for ``num_samples`` samples, probed
+        once per length on a zero waveform (the JAX engine probes its model
+        the same way)."""
+        if num_samples not in self._frames:
+            probe = torch.zeros(1, 1, num_samples, device=self.device)
+            self._frames[num_samples] = int(self._fn(probe).shape[1])
+        return self._frames[num_samples]
 
 
 class _EmbFn:
@@ -154,8 +166,8 @@ class SegmentationModel:
         """Wrap a torch callable ``waveform (B, C, S) -> (B, frames, K)`` that
         runs on ``device`` (it holds its own weights, so it takes no
         ``params``)."""
-        return SegmentationModel(_SegFn(apply_fn, num_speakers, sample_rate), "apply",
-                                 require_cuda(device))
+        device = require_cuda(device)
+        return SegmentationModel(_SegFn(apply_fn, num_speakers, sample_rate, device), "apply", device)
 
     @staticmethod
     def from_registry(

@@ -201,10 +201,12 @@ class MultiStreamEngine:
         beta: Optional[float] = None,
     ) -> None:
         """Update tunable hyper-parameters; they are device tensors read by
-        the step, so nothing is rebuilt."""
+        the step, so nothing is rebuilt, and the next step queued reads the
+        new values. The values go through a pinned copy, so an update
+        between hops does not wait for the card."""
         old = getattr(self, "_hparams", None)
         get = lambda new, i: (
-            torch.tensor(float(new), dtype=torch.float32, device=self.device)
+            to_device(np.asarray(float(new), np.float32), self.device)
             if new is not None
             else old[i]
         )

@@ -17,6 +17,10 @@ All default on, as in the JAX package. The two bf16 switches resolve to off
 for CPU tensors, the way the JAX package's TPU-only switches resolve to off
 off the TPU; ``fbank_ring`` is not TPU-only there and applies on every
 device here too.
+
+``Precision.parse`` reads the CLIs' ``--precision`` spec and
+``set_default`` installs a policy for every thread (a :func:`use` scope is
+thread-local, and the server dispatches its hops on worker threads).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from typing import Dict
 
 import torch
 
-__all__ = ["Precision", "active", "enabled", "use"]
+__all__ = ["Precision", "active", "enabled", "set_default", "use"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +40,33 @@ class Precision:
     bf16_lstm: bool = True
     bf16_frontend: bool = True
     fbank_ring: bool = True
+
+    @staticmethod
+    def from_dict(d: Dict[str, bool]) -> "Precision":
+        """A policy from a dict of switches, as the JAX package's
+        ``Precision.from_dict``: keys that are not this policy's switches
+        (a JAX checkpoint records ``pallas_*`` and others) are left out."""
+        known = {f.name for f in dataclasses.fields(Precision)}
+        return Precision(**{k: bool(v) for k, v in d.items() if k in known})
+
+    @staticmethod
+    def parse(spec: str) -> "Precision":
+        """A policy from a ``switch=0|1,...`` spec on top of the defaults
+        (the CLIs' ``--precision``). A bare name means on; ``0``,
+        ``false``, ``off`` and an empty value mean off. A switch the port
+        does not have raises ``ValueError``, the JAX-only ones
+        (``pallas_lstm``, ``int8_trunk``, ...) too."""
+        overrides: Dict[str, bool] = {}
+        known = {f.name for f in dataclasses.fields(Precision)}
+        for item in spec.split(","):
+            if not item.strip():
+                continue
+            key, sep, value = item.partition("=")
+            key = key.strip()
+            if key not in known:
+                raise ValueError(f"unknown precision switch {key!r}; known: {sorted(known)}")
+            overrides[key] = value.strip().lower() not in ("0", "false", "off", "") if sep else True
+        return dataclasses.replace(Precision(), **overrides)
 
     @staticmethod
     def portable() -> "Precision":
@@ -64,6 +95,13 @@ _STATE = threading.local()
 def active() -> Precision:
     """The innermost :func:`use` scope's policy, else the default."""
     return getattr(_STATE, "policy", None) or _DEFAULT
+
+
+def set_default(policy: Precision) -> None:
+    """Set the process-wide default policy, which every thread sees outside
+    a :func:`use` scope."""
+    global _DEFAULT
+    _DEFAULT = policy
 
 
 def enabled(field: str, device) -> bool:
