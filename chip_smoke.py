@@ -49,7 +49,7 @@ Phases (any failure exits non-zero):
    every step (counts set to 0 before the hops). Print the per-hop
    dispatch / harvest split, the host ms of native and numpy RTTM assembly
    and the device-to-host bytes of both fetch routes. Then
-   ``CohortScheduler`` with 4 cohorts of 64 streams, pipelined, 8 periods
+   ``CohortScheduler`` with 4 cohorts of 64 streams, pipelined, 4 periods
    of real time: every hop harvested with text for every stream; dispatch
    lateness, reply latency and late hops are printed as a record.
 5. The pipelines (``diart_tpu_torch.blocks``) at full width on one stream
@@ -69,7 +69,7 @@ Phases (any failure exits non-zero):
 6. The runtime and the console entry points (``diart_tpu_torch.runtime``,
    ``.console``) with the stream CLI's models (``from_pretrained``: f32,
    seeds from the names) at tau 0.45 / rho 0.05: ``python -m
-   diart_tpu_torch.console.stream`` on a 30 s WAV in a subprocess (exit 0,
+   diart_tpu_torch.console.stream`` on a 20 s WAV in a subprocess (exit 0,
    a well-formed RTTM, the text of step 2's run at calls of 1);
    ``StreamingInference`` over ``FileAudioSource`` for x-vector, ECAPA and
    VAD in calls of 1 and 8 (every dispatch under the sync check, each
@@ -87,10 +87,30 @@ Phases (any failure exits non-zero):
    the int16 and float32 wires, every dispatch on the server's thread under
    the sync check, each client's text equal to a session pushed the same
    blocks from the main thread; dispatch and harvest ms a hop.
-7. Print ``{"kernels": [...]}`` (with each kernel's launches on the
-   pipelines' and the runtime's runs) and, last, ``{"ok": true, "device":
-   ...}``.
+7. The model layer (``drive_families``): seeded replicas of NeMo
+   TitaNet-large (1024 channels), speechbrain's fbank x-vector, wespeaker's
+   ResNet34 (base 32) and a powerset PyanNet (3 speakers, at most 2 at
+   once, 4x128; its empty-set class suppressed) from
+   ``tests/torch_replicas.py``, saved as torch checkpoints, converted by
+   the port and written as native files; the attention statistics at
+   TitaNet's head (x (64, 501, 3072)) and the stats head at XVector-SB's
+   (X (64, 501, 512)) against their plain versions (bf16 and f32); each
+   family's engine from its native file (bf16 embedding trunks; a mel
+   family beside ``tpu/pyannet``, the powerset model beside
+   ``tpu/xvector``) at B=64 over 16 hops with every step under the sync
+   check and each kernel's launches a step held to the family's
+   (TitaNet: 1 attention statistics, XVector-SB and the x-vector: 1 stats
+   head, ResNet34: neither; the sweeps of the 4-layer PyanNet), its step
+   wall, device busy, idle share and device launches; the same engine for
+   2 streams against the CPU in f32 (the powerset decode where the margin
+   allows); ``python -m diart_tpu_torch.console.convert`` in a subprocess
+   (its file equal to the in-process conversion) and the stream CLI with
+   ``--powerset 3 2`` (its text equal to the in-process run).
+8. Print ``{"kernels": [...]}`` (with each kernel's launches on the
+   pipelines', the runtime's and the families' runs) and, last,
+   ``{"ok": true, "device": ...}``.
 
+``--families`` runs only the build and phase 7.
 ``--step-timing [--root TREE]`` runs only the step timing of phase 4 (its
 sync check recorded, not fatal), importing ``diart_tpu_torch`` from
 ``TREE``: run it on two trees in the order A B B A to compare commits.
@@ -307,16 +327,18 @@ def stats_inputs(batch, time_, c_in, channels, speakers, dtype, gen):
             torch.sigmoid(n(batch, speakers, time_)))
 
 
-def check_stats(dtype, gen):
-    """The stats head at X (64, 279, 512), W (512, 1500), 4 speakers, with
-    prepared (the model's call) and raw operands; streams run alone (one a
-    block) give the bits of their rows in the whole batch (six a block);
-    then the shape sweep, each case held to the same tolerance and bitwise
-    equal over repeated calls."""
+def check_stats(dtype, gen, shape=(B, T_EMB, C_IN, C_OUT, S), sweep=True, tag=""):
+    """The stats head at X (64, 279, 512), W (512, 1500), 4 speakers (or
+    ``shape`` = (B, T, C_in, C, S)), with prepared (the model's call) and
+    raw operands; streams run alone (one a block) give the bits of their
+    rows in the whole batch (six a block); then, with ``sweep``, the shape
+    sweep, each case held to the same tolerance and bitwise equal over
+    repeated calls."""
     import torch
     from diart_tpu_torch.ops import linear_stats as ls
 
     kind = "f32" if dtype == torch.float32 else "bf16"
+    B, T_EMB, C_IN, C_OUT, S = shape
     x, w, b, scale, shift, wt = stats_inputs(B, T_EMB, C_IN, C_OUT, S, dtype, gen)
     ops = ls.prepare_stats_operands(w, b, scale, shift, dtype)  # once, as the model does
     want = ls.linear_stats_reference(x, w, b, scale, shift, wt)
@@ -343,7 +365,7 @@ def check_stats(dtype, gen):
     flops = gemm + 6.0 * B * T_EMB * C_OUT + 4.0 * B * S * T_EMB * C_OUT
     bms, by = bound_ms(nbytes, flops, kind)
     log(
-        f"linear_stats[{kind}] X=({B},{T_EMB},{C_IN}) W=({C_IN},{C_OUT}) S={S}: "
+        f"linear_stats[{kind}{tag}] X=({B},{T_EMB},{C_IN}) W=({C_IN},{C_OUT}) S={S}: "
         f"max_abs_err={err:.3e} (tol {tol:.3e} = {STATS_TOL:g} x max|ref|) "
         f"kernel_ms={ms:.4f} (device {device_ms:.4f}; product {gemm / ms / 1e9:.1f} TFLOP/s; "
         f"raw operands, prepared per call: {raw_ms:.4f}; streams alone bitwise equal) "
@@ -351,7 +373,12 @@ def check_stats(dtype, gen):
         f"bound_ms={bms:.5f} ({by}) plan={plan}"
     )
     if not err <= tol:
-        raise AssertionError(f"linear_stats[{kind}] disagrees with its plain version: {err} > {tol}")
+        raise AssertionError(f"linear_stats[{kind}{tag}] disagrees with its plain version: {err} > {tol}")
+    main = dict(max_abs_err=err, tol=tol, ms=ms, device_ms=device_ms, raw_operands_ms=raw_ms,
+                plain_ms=plain_ms, product_library_ms=product_ms, bound_ms=bms, bound_by=by,
+                library_ms=None, plan=plan, product_tflops=gemm / ms / 1e9, shape=shape)
+    if not sweep:
+        return main
     sweep_worst = 0.0
     sweep = []
     for case in STATS_SWEEP if dtype == torch.bfloat16 else STATS_SWEEP[::3]:
@@ -369,10 +396,7 @@ def check_stats(dtype, gen):
             raise AssertionError(f"linear_stats[{kind}] fails at {case}")
         sweep_worst = max(sweep_worst, e / t)
         sweep.append(dict(case=case, max_abs_err=e, tol=t))
-    return dict(max_abs_err=err, tol=tol, ms=ms, device_ms=device_ms, raw_operands_ms=raw_ms,
-                plain_ms=plain_ms, product_library_ms=product_ms, bound_ms=bms, bound_by=by,
-                library_ms=None, plan=plan, product_tflops=gemm / ms / 1e9,
-                sweep_cases=len(STATS_SWEEP), sweep_worst_err_over_tol=sweep_worst, sweep=sweep)
+    return dict(main, sweep_cases=len(STATS_SWEEP), sweep_worst_err_over_tol=sweep_worst, sweep=sweep)
 
 
 # attn_stats: the logits are f32-accurate (3xTF32), the rest is the same f32
@@ -397,14 +421,16 @@ def attn_inputs(batch, time_, channels, hdim, speakers, dtype, gen):
             n(hdim, channels) * hdim**-0.5, n(channels) * 0.1, torch.sigmoid(n(batch, speakers, time_)))
 
 
-def check_attn(dtype, gen):
+def check_attn(dtype, gen, shape=(B, T_ECAPA, C_MFA, H_ATT, S), sweep=True, tag=""):
     """Attention statistics at the ECAPA head: x (B, 501, 1536), hidden
-    (B, 501, 128), 4 speakers, with prepared and raw operands and streams
-    run alone; then the shape sweep (see check_stats)."""
+    (B, 501, 128), 4 speakers (or ``shape`` = (B, T, C, H, S)), with
+    prepared and raw operands and streams run alone; then, with ``sweep``,
+    the shape sweep (see check_stats)."""
     import torch
     from diart_tpu_torch.ops import attn_stats as at
 
     kind = "f32" if dtype == torch.float32 else "bf16"
+    B, T_ECAPA, C_MFA, H_ATT, S = shape
     x, hidden, w2, b2, wt = attn_inputs(B, T_ECAPA, C_MFA, H_ATT, S, dtype, gen)
     ops = at.prepare_attn_operands(w2, b2)  # once, as the model does
     want = at.attentive_stats_reference(x, hidden, w2, b2, wt)
@@ -435,7 +461,7 @@ def check_attn(dtype, gen):
     bms, by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
     fma_bms, fma_by = bound_ms(nbytes, logits + rest, "f32")  # the logits as f32 FMAs
     log(
-        f"attn_stats[{kind}] x=({B},{T_ECAPA},{C_MFA}) hidden=({B},{T_ECAPA},{H_ATT}) S={S}: "
+        f"attn_stats[{kind}{tag}] x=({B},{T_ECAPA},{C_MFA}) hidden=({B},{T_ECAPA},{H_ATT}) S={S}: "
         f"max_abs_err={err:.3e} (tol {tol:.3e} = {ATTN_TOL:g} x max(1, max|ref|)) "
         f"kernel_ms={ms:.4f} (device {device_ms:.4f}; 3xTF32 logits {3 * logits / ms / 1e9:.1f} TFLOP/s; "
         f"raw operands, prepared per call: {raw_ms:.4f}; streams alone bitwise equal) "
@@ -444,7 +470,13 @@ def check_attn(dtype, gen):
         f"f32_fma_bound_ms={fma_bms:.5f} ({fma_by}; the logits as f32 FMAs) plan={plan}"
     )
     if not err <= tol:
-        raise AssertionError(f"attn_stats[{kind}] disagrees with its plain version: {err} > {tol}")
+        raise AssertionError(f"attn_stats[{kind}{tag}] disagrees with its plain version: {err} > {tol}")
+    main = dict(max_abs_err=err, tol=tol, ms=ms, device_ms=device_ms, raw_operands_ms=raw_ms,
+                plain_ms=plain_ms, product_library_ms=product_ms, bound_ms=bms, bound_by=by,
+                bound_ms_f32_fma=fma_bms, library_ms=None, plan=plan,
+                logits_tflops=3 * logits / ms / 1e9, shape=shape)
+    if not sweep:
+        return main
     sweep_worst = 0.0
     sweep = []
     for case in ATTN_SWEEP if dtype == torch.bfloat16 else ATTN_SWEEP[::2]:
@@ -463,11 +495,7 @@ def check_attn(dtype, gen):
         sweep_worst = max(sweep_worst, e / t)
         sweep.append(dict(case=case, max_abs_err=e, tol=t))
         del x_, h_, w_, b_, wt_, got
-    return dict(max_abs_err=err, tol=tol, ms=ms, device_ms=device_ms, raw_operands_ms=raw_ms,
-                plain_ms=plain_ms, product_library_ms=product_ms, bound_ms=bms, bound_by=by,
-                bound_ms_f32_fma=fma_bms, library_ms=None, plan=plan,
-                logits_tflops=3 * logits / ms / 1e9, sweep_cases=len(ATTN_SWEEP),
-                sweep_worst_err_over_tol=sweep_worst, sweep=sweep)
+    return dict(main, sweep_cases=len(ATTN_SWEEP), sweep_worst_err_over_tol=sweep_worst, sweep=sweep)
 
 
 def res2_params(gen, dev):
@@ -883,7 +911,7 @@ def compare_cpu(emb, audio):
 # --------------------------------------------------------------------- #
 SESSION_TAU = 0.45  # the random models' ~0.5 activations then make turns
 SESSION_HOPS, SESSION_PAUSED, SESSION_RESET = 24, 3, 5
-COHORTS, COHORT_PERIODS = 4, 8
+COHORTS, COHORT_PERIODS = 4, 4
 
 
 def counting_steps(engine):
@@ -951,7 +979,7 @@ def copy_timing(engine, state, blocks, reps=25):
     return res
 
 
-def input_variants(engine, state, audio, rounds=3, steps=30):
+def input_variants(engine, state, audio, rounds=2, steps=30):
     """The step's dispatch (host ms of the call) and wall per step, back to
     back, by how its inputs arrive, the variants taking turns in each round:
     ``host`` numpy blocks and masks (the engine's own copies); ``drained``
@@ -990,7 +1018,7 @@ def input_variants(engine, state, audio, rounds=3, steps=30):
                     wall_rounds_ms=wall[k]) for k in inputs}
 
 
-def step_timing(engine, audio, tag=""):
+def step_timing(engine, audio, tag="", light=False):
     """The step with host inputs, as a server feeds it (numpy int16 blocks
     and numpy masks): first one step under the sync check (it raises on a
     tree whose step waits for the card; recorded, not fatal here); then 3
@@ -998,7 +1026,8 @@ def step_timing(engine, audio, tag=""):
     median of the calls) and the wall per step to each round's last step's
     end (median of the rounds); 20 steps each waited for; the device busy
     time of 5 back-to-back steps from a profile; and the copy of one hop's
-    blocks, pageable against pinned (:func:`copy_timing`)."""
+    blocks, pageable against pinned (:func:`copy_timing`). ``light`` leaves
+    out the copies and the input routes."""
     import torch
 
     b = audio.shape[1]
@@ -1053,6 +1082,8 @@ def step_timing(engine, audio, tag=""):
         res["idle_share"] = 1.0 - res["device_busy_ms"] / back_to_back_ms
     except Exception as exc:  # diagnostic only
         log(f"profiler unavailable: {type(exc).__name__}: {exc}")
+    if light:
+        return res
     res["copy"] = copy_timing(engine, state, audio[0])
     res["inputs"] = input_variants(engine, state, audio)
     log(f"step timing[{tag}] B={b}, numpy int16 blocks and numpy masks: sync check: {sync_check}; "
@@ -1066,7 +1097,7 @@ def step_timing(engine, audio, tag=""):
         f"to the card (median, max of 25): " + ", ".join(
             f"{k[:-3]} {v:.3f}, {res['copy'][k[:-3] + '_max_ms']:.3f}"
             for k, v in res["copy"].items() if not k.endswith("_max_ms")))
-    log(f"step timing[{tag}] by input route, dispatch / wall ms a step (3 rounds of 30, taking turns): "
+    log(f"step timing[{tag}] by input route, dispatch / wall ms a step (2 rounds of 30, taking turns): "
         + "; ".join(f"{k} {v['dispatch_ms']:.3f} / {v['wall_ms']:.3f}" for k, v in res["inputs"].items()))
     return res
 
@@ -1515,7 +1546,7 @@ def check_session_tensor_blocks(audio):
 # diart_tpu_torch.console)
 RUNTIME_KINDS = ("xvector", "ecapa", "vad")
 RUNTIME_BATCHES = (1, 8)
-RUNTIME_SECONDS = 30  # the stream CLI's file: 51 chunks of 5 s
+RUNTIME_SECONDS = 20  # the stream CLI's file: 31 chunks of 5 s
 BENCH_SECONDS = (10, 13, 16, 19, 22, 25, 28, 30)  # the Benchmark corpus, one file each
 SERVER_HOPS = 24
 # the stream CLI's thresholds here: the pipelines phase's, so the random
@@ -1652,17 +1683,17 @@ def check_rttm(text, uri, what):
     return len(lines)
 
 
-def stream_cli(wav, out_dir):
+def stream_cli(wav, out_dir, *extra):
     """``python -m diart_tpu_torch.console.stream <wav> --no-plot --output
     <dir>`` in a subprocess on the card, with the default models and
     RUNTIME_CLI_ARGS. ``NVIDIA_TF32_OVERRIDE=0`` keeps TF32 out of its
     cuDNN convolutions, as this script's ``allow_tf32 = False`` does here,
     so both processes round alike. The RTTM text, the wall and the CLI's
-    own profile line."""
+    own profile line. ``extra``: more arguments."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
     cmd = [sys.executable, "-m", "diart_tpu_torch.console.stream", wav, "--no-plot", "--output",
-           out_dir, *RUNTIME_CLI_ARGS]
+           out_dir, *RUNTIME_CLI_ARGS, *extra]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=root, env=env)
     wall = time.perf_counter() - t0
@@ -1979,6 +2010,302 @@ def drive_runtime(out_dir):
 
 
 # --------------------------------------------------------------------- #
+# The model layer: the families at full width as the engine's arms
+# --------------------------------------------------------------------- #
+# family: (role, registry name, the replica and its arguments in
+# tests/torch_replicas.py, the engine's other model)
+FAMILIES = {
+    "titanet": ("embedding", "tpu/titanet", ("NMTitaNet", dict(channels=1024, embed_dim=192))),
+    "xvect-sb": ("embedding", "tpu/xvect-sb", ("SBXVector", dict())),
+    "resnet34": ("embedding", "tpu/resnet34", ("WSResNet34", dict(embed_dim=256, m_channels=32))),
+    "powerset": ("segmentation", "tpu/pyannet-powerset",
+                 ("TorchPyanNet", dict(num_speakers=7, lstm_hidden=128, lstm_layers=4, linear_dims=(128, 128)))),
+}
+POWERSET = (3, 2)  # 3 speakers, at most 2 at once: 7 classes
+FAMILY_HOPS = 16
+FAMILY_CPU_HOPS = 3
+# the card against the CPU in f32 (TF32 off on both): the segmentation
+# (sigmoids, or the decoded powerset activations where the margin allows)
+# within 1e-4, unit-norm embeddings within 1e-3, as compare_cpu holds them
+FAMILY_SEG_TOL, FAMILY_EMB_TOL = 1e-4, 1e-3
+# the powerset decode is compared at frames whose top-1 - top-2
+# log-probability margin on the CPU exceeds this (an argmax closer than the
+# f32 error of the two forwards may pick the other class on either)
+POWERSET_MARGIN = 1e-3
+
+
+def family_replica(family, seed):
+    """The seeded torch replica of ``family`` (a powerset PyanNet with the
+    empty-set class suppressed, so its random weights make speech)."""
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    if os.path.join(root, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(root, "tests"))
+    import torch_replicas
+
+    cls, kwargs = FAMILIES[family][2]
+    torch.manual_seed(seed)
+    net = getattr(torch_replicas, cls)(**kwargs).eval()
+    if family == "powerset":
+        with torch.no_grad():
+            net.classifier.bias[0] = -5.0
+    return net
+
+
+def family_files(scratch):
+    """Each family's replica state dict as a torch checkpoint, converted by
+    the port (``from_pretrained`` on the checkpoint) and written as a native
+    file (``save``); {family: (checkpoint, native file)}."""
+    import torch
+    from diart_tpu_torch import EmbeddingModel, SegmentationModel
+
+    files = {}
+    for i, family in enumerate(FAMILIES):
+        ckpt = os.path.join(scratch, f"{family}.pt")
+        torch.save(family_replica(family, 10 + i).state_dict(), ckpt)
+        native = os.path.join(scratch, f"{family}.native.pt")
+        if family == "powerset":
+            SegmentationModel.from_pretrained(ckpt, device="cpu", powerset=POWERSET).save(native)
+        else:
+            EmbeddingModel.from_pretrained(ckpt, device="cpu").save(native)
+        files[family] = (ckpt, native)
+    return files
+
+
+def family_engine(family, native, device, batch, dtype="bf16", precision=None):
+    """The engine of ``family`` from its native file: a mel family as the
+    embedding beside ``tpu/pyannet``, the powerset PyanNet as the
+    segmentation beside ``tpu/xvector``; 5 s / 0.5 s, 20 speakers. The
+    embedding trunk computes in ``dtype``."""
+    from diart_tpu_torch import EmbeddingModel, MultiStreamEngine, SegmentationModel
+
+    if FAMILIES[family][0] == "segmentation":
+        seg = SegmentationModel.from_pretrained(native, device=device)
+        emb = EmbeddingModel.from_registry("tpu/xvector", device=device, seed=1, dtype=dtype)
+    else:
+        seg = SegmentationModel.from_registry("tpu/pyannet", device=device, seed=0)
+        emb = EmbeddingModel.from_pretrained(native, device=device, dtype=dtype)
+    return MultiStreamEngine(seg, emb, duration=5.0, step=0.5, latency=0.5, sample_rate=16000,
+                             max_speakers=20, batch_size=batch, precision=precision,
+                             tau_active=SESSION_TAU, rho_update=0.05)
+
+
+def family_launches(family) -> dict:
+    """Each counted kernel's launches in one step of ``family``'s engine:
+    the 4-layer PyanNet's sweeps, and the embedding's statistics kernel
+    (TitaNet: attention statistics; XVector-SB and the x-vector beside the
+    powerset model: the fused stats head; ResNet34: none)."""
+    return {"lstm_sweep": 4, "linear_stats": int(family in ("xvect-sb", "powerset")),
+            "attn_stats": int(family == "titanet"), "se_res2": 0, "se_res2_staged": 0}
+
+
+def drive_family(family, native, audio):
+    """The family's engine at B streams on the card: one step outside the
+    sync check (the models' and the clustering's constants are copied from
+    the host at first use), then
+    FAMILY_HOPS hops of int16 blocks (warm-up, then running) with every step
+    under the sync check and every kernel's launches counted (counts set to
+    0 just before, read just after); shapes, finiteness, the ring kind; then
+    the step's wall, device busy, idle share and launches a step."""
+    import torch
+
+    engine = family_engine(family, native, "cuda", B)
+    engine.step(engine.init_state(), audio[0])  # first use: constants copied from the host once
+    torch.cuda.synchronize()
+    state = engine.init_state()
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    outs = []
+    with no_host_sync():
+        for i in range(FAMILY_HOPS):
+            state, out = engine.step(state, audio[i], np.ones(B, bool), np.full(B, i + 1 >= WARMUP_HOPS))
+            outs.append(out)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    per_hop = family_launches(family)
+    if launches != {k: v * FAMILY_HOPS for k, v in per_hop.items()}:
+        raise AssertionError(f"family[{family}]: expected {per_hop} launches per hop; got {launches}")
+    for o in outs:
+        if not (torch.isfinite(o.aggregated).all() and torch.isfinite(o.newest).all()):
+            raise AssertionError(f"family[{family}]: non-finite scores")
+    last = outs[-1]
+    assert last.aggregated.shape == (B, engine.geometry.num_out, 20), last.aggregated.shape
+    assert engine.num_local == (POWERSET[0] if family == "powerset" else 4), engine.num_local
+    ring = None if engine._fring is None else engine._fring.kind
+    active = state.center_active.sum(dim=1).float().mean().item()
+    timing = step_timing(engine, audio, family, light=True)
+    if timing["sync_check"] != "no host sync":
+        raise AssertionError(f"family[{family}] step waits for the card: {timing['sync_check']}")
+    rec = dict(launches=launches, launches_per_step=per_hop, frame_ring=ring, active_centres=active,
+               embedding_dtype=str(engine._emb.module.compute_dtype), **timing)
+    log(f"family[{family}] engine B={B}, {FAMILY_HOPS} hops under the sync check: launches {launches} "
+        f"({per_hop} a step), frame ring {ring}, mean active centres {active:.2f}; step wall "
+        f"{timing['back_to_back_wall_ms']:.3f} ms back to back, dispatch {timing['dispatch_ms']:.3f} ms, "
+        f"device busy {timing.get('device_busy_ms', float('nan')):.3f} ms, idle share "
+        f"{timing.get('idle_share', float('nan')):.3f}, {timing.get('kernels_per_step', float('nan')):.0f} "
+        f"device launches a step")
+    return rec
+
+
+def compare_family_cpu(family, native, audio):
+    """The family's engine for 2 streams on the card against the same engine
+    on the CPU (the kernels' plain versions), in f32 with TF32 off:
+    FAMILY_CPU_HOPS hops (every stream running), then the frame scores
+    ``probe_frame_scores`` gives, held to FAMILY_SEG_TOL / FAMILY_EMB_TOL. A
+    powerset model's decoded activations are compared at the frames whose
+    CPU margin exceeds POWERSET_MARGIN; the smallest margin is logged. The
+    aggregated scores of the hops are a record, not a check: windows that
+    are still mostly the zero warm-up fill give ill-conditioned embeddings
+    (a mel family's normalized silence), so the clustering of those first
+    hops may decide otherwise on either device."""
+    import torch
+    from diart_tpu_torch.precision import Precision
+
+    prec = Precision(bf16_lstm=False, bf16_frontend=False)
+    probes, aggs, margin = [], [], None
+    for device in ("cuda", "cpu"):
+        engine = family_engine(family, native, device, 2, dtype="f32", precision=prec)
+        state = engine.init_state()
+        seq = []
+        for i in range(FAMILY_CPU_HOPS):
+            state, out = engine.step(state, audio[i, :2])
+            seq.append(out.aggregated.float().cpu())
+        seg, emb = engine.probe_frame_scores(state, audio[FAMILY_CPU_HOPS, :2])
+        probes.append((seg.float().cpu(), emb.float().cpu()))
+        aggs.append(torch.stack(seq))
+        if device == "cpu" and family == "powerset":
+            blocks = torch.from_numpy(audio[FAMILY_CPU_HOPS, :2])
+            _, window, _ = engine._advance_audio(state.audio, blocks, torch.ones(2, dtype=torch.bool))
+            with torch.no_grad():
+                raw = engine._seg.module(window[:, None])  # class log-probabilities
+            top2 = raw.topk(2, dim=-1).values
+            margin = top2[..., 0] - top2[..., 1]
+    (sg, eg), (sc, ec) = probes
+    for t in (sg, eg):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"family[{family}] card probe: non-finite values")
+    rec = {}
+    if margin is not None:
+        clear = margin > POWERSET_MARGIN
+        seg_err = (sg - sc).abs()[clear].max().item()
+        rec.update(min_margin=margin.min().item(), frames_compared=int(clear.sum()), frames=clear.numel())
+        if clear.sum() < 0.9 * clear.numel():
+            raise AssertionError(f"family[{family}]: only {int(clear.sum())} of {clear.numel()} frames clear "
+                                 f"the margin {POWERSET_MARGIN}")
+    else:
+        seg_err = (sg - sc).abs().max().item()
+    rec["agg_err"] = (aggs[0] - aggs[1]).abs().max().item()
+    emb_err = (eg - ec).abs().max().item()
+    rec.update(seg_err=seg_err, seg_tol=FAMILY_SEG_TOL, emb_err=emb_err, emb_tol=FAMILY_EMB_TOL)
+    log(f"family[{family}] card vs CPU (f32, 2 streams, {FAMILY_CPU_HOPS} hops): seg max_abs_err={seg_err:.3e} "
+        f"(tol {FAMILY_SEG_TOL:.0e}"
+        + (f"; decoded frames with margin > {POWERSET_MARGIN:g}: {rec['frames_compared']} of {rec['frames']}, "
+           f"min margin {rec['min_margin']:.3e}" if margin is not None else "")
+        + f"), emb max_abs_err={emb_err:.3e} (tol {FAMILY_EMB_TOL:.0e}); aggregated scores of the "
+        f"{FAMILY_CPU_HOPS} hops, a record: max_abs_err={rec['agg_err']:.3e}")
+    if not (seg_err <= FAMILY_SEG_TOL and emb_err <= FAMILY_EMB_TOL):
+        raise AssertionError(f"family[{family}]: the card disagrees with the CPU engine")
+    return rec
+
+
+def convert_cli(ckpt, out):
+    """``python -m diart_tpu_torch.console.convert embedding <ckpt> <out>
+    --check`` in a subprocess on the card; its output file must equal the
+    in-process conversion (config text and every tensor)."""
+    import torch
+    from diart_tpu_torch import EmbeddingModel
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "diart_tpu_torch.console.convert", "embedding", ckpt, out, "--check"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=root)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or "check ok" not in proc.stdout:
+        raise AssertionError(f"convert CLI exited {proc.returncode}: {proc.stdout[-1000:]} {proc.stderr[-3000:]}")
+    want = out + ".inprocess.pt"
+    EmbeddingModel.from_pretrained(ckpt, device="cuda").save(want)
+    if open(out + ".json").read() != open(want + ".json").read():
+        raise AssertionError("convert CLI: its config differs from the in-process conversion's")
+    got_sd, want_sd = (torch.load(p, weights_only=True) for p in (out, want))
+    if set(got_sd) != set(want_sd) or not all(torch.equal(got_sd[k], want_sd[k]) for k in want_sd):
+        raise AssertionError("convert CLI: its state dict differs from the in-process conversion's")
+    return dict(wall_s=wall, tensors=len(got_sd), stdout=proc.stdout.strip().splitlines())
+
+
+def stream_cli_powerset(wav, ckpt, out_dir):
+    """The stream CLI in a subprocess with a powerset checkpoint and
+    ``--powerset 3 2`` (``stream_cli``); its text must equal the same
+    StreamingInference run in process."""
+    from diart_tpu_torch import EmbeddingModel, SegmentationModel
+    from diart_tpu_torch.blocks import SpeakerDiarization, SpeakerDiarizationConfig
+    from diart_tpu_torch.runtime import FileAudioSource, StreamingInference
+
+    text, wall, _ = stream_cli(wav, out_dir, "--segmentation", ckpt, "--powerset", *map(str, POWERSET))
+    seg = SegmentationModel.from_pretrained(ckpt, device="cuda", powerset=POWERSET)
+    emb = EmbeddingModel.from_pretrained("tpu/xvector", device="cuda")
+    config = SpeakerDiarizationConfig(segmentation=seg, embedding=emb, latency=0.5, tau_active=SESSION_TAU,
+                                      rho_update=0.05)
+    pipeline = SpeakerDiarization(config)
+    padding = config.get_file_padding(wav)
+    pipeline.set_timestamp_shift(-padding[0])
+    source = FileAudioSource(wav, config.sample_rate, padding, config.step)
+    want = StreamingInference(pipeline, source, batch_size=1, do_profile=False, show_progress=False)()
+    uri = os.path.splitext(os.path.basename(wav))[0]
+    lines = check_rttm(text, uri, "stream CLI --powerset")
+    if text != want.to_rttm():
+        raise AssertionError("stream CLI --powerset: its RTTM text differs from the in-process run")
+    return dict(wall_s=wall, rttm_lines=lines)
+
+
+def drive_families(out_dir):
+    """The model layer: each family's checkpoint converted and saved as a
+    native file, its engine at B=64 on the card and for 2 streams against
+    the CPU; the statistics kernels at the new callers' shapes against their
+    plain versions; the convert CLI and the stream CLI with --powerset."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(scratch, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=scratch)  # inside the checkout
+    try:
+        t0 = time.perf_counter()
+        files = family_files(tmp)
+        log(f"families: replicas saved, converted and written as native files in {time.perf_counter() - t0:.1f} s")
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        kernels = {
+            "attn_stats_titanet": {k: check_attn(dt, gen, (B, T_ECAPA, 3 * 1024, H_ATT, S), False, ", titanet")
+                                   for k, dt in (("bf16", torch.bfloat16), ("f32", torch.float32))},
+            "linear_stats_xvect_sb": {k: check_stats(dt, gen, (B, T_ECAPA, C_IN, C_OUT, S), False, ", xvect-sb")
+                                      for k, dt in (("bf16", torch.bfloat16), ("f32", torch.float32))},
+        }
+        runs = {}
+        for family, (_, native) in files.items():
+            t1 = time.perf_counter()
+            audio = make_audio(np.random.default_rng(6), FAMILY_HOPS + 16, B, 8000)
+            runs[family] = dict(engine=drive_family(family, native, audio),
+                                vs_cpu=compare_family_cpu(family, native, audio))
+            runs[family]["seconds"] = time.perf_counter() - t1
+            log(f"family[{family}] phase in {runs[family]['seconds']:.1f} s")
+        cli = dict(convert=convert_cli(files["titanet"][0], os.path.join(tmp, "titanet.cli.pt")))
+        log(f"convert CLI (subprocess, titanet checkpoint, --check): exit 0, {cli['convert']['tensors']} tensors "
+            f"and the config equal to the in-process conversion, {cli['convert']['wall_s']:.2f} s wall")
+        wav = os.path.join(tmp, "powerset.wav")
+        write_seconds(wav, np.random.default_rng(7), 10)
+        cli["stream_powerset"] = stream_cli_powerset(wav, files["powerset"][0], os.path.join(tmp, "cli"))
+        log(f"stream CLI --powerset {POWERSET[0]} {POWERSET[1]} (subprocess): "
+            f"{cli['stream_powerset']['rttm_lines']} RTTM lines equal to the in-process run, "
+            f"{cli['stream_powerset']['wall_s']:.2f} s wall")
+        return dict(kernels=kernels, runs=runs, cli=cli)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------- #
 KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # the statistics kernels' extra readings: prepared and raw operands, the
 # product alone (a yardstick, not the same function)
@@ -1992,6 +2319,8 @@ def main() -> int:
                         help="only time the step with host inputs (and its sync check), both engines")
     parser.add_argument("--root", default=None,
                         help="with --step-timing: import diart_tpu_torch from this tree (to compare two trees)")
+    parser.add_argument("--families", action="store_true",
+                        help="only build the kernels and run the families phase (7)")
     args = parser.parse_args()
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -2042,6 +2371,15 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  [{name}] {line.strip()}")
 
+    if args.families:
+        families = drive_families(args.out)
+        if args.out:
+            with open(os.path.join(args.out, "chip_smoke_families.json"), "w") as f:
+                json.dump(dict(gpu=smi, families=families), f, indent=1)
+        log(f"total {time.perf_counter() - t_start:.1f} s after start-up")
+        log(f"gpu: {smi}")
+        return 0
+
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(0)
     bf16_f32 = (("bf16", torch.bfloat16), ("f32", torch.float32))
@@ -2091,10 +2429,19 @@ def main() -> int:
     runtime = drive_runtime(args.out)
     log(f"runtime phase in {time.perf_counter() - t0:.1f} s")
 
+    # the model layer: the families as the engine's arms
+    t0 = time.perf_counter()
+    families = drive_families(args.out)
+    log(f"families phase in {time.perf_counter() - t0:.1f} s")
+
     # the main paths run the bf16 LSTM stream and bf16 embedding trunks
     xv, ec = runs["xvector"]["launches"], runs["ecapa"]["launches"]
     on_session = lambda name: {e: sessions[e]["session"]["launches"][name] for e in sessions}
     on_pipeline = lambda name: {k: pipelines[k]["launches"][name] for k in pipelines}
+    on_family = lambda name: {f: r["engine"]["launches"][name] for f, r in families["runs"].items()}
+    # (the profiler's per-call device time reads a tenth of the CUDA-event
+    # time this late in the run, so the new callers' entries give the latter)
+    at_shape = lambda rec: {k: rec["bf16"][k] for k in KEYS + ("product_library_ms", "shape")}
     on_runtime = lambda name: dict(
         **{f"inference_{k}": r["launches"][name] for k, r in runtime["inference"].items()},
         benchmark_multi_stream=runtime["benchmark"]["launches"][name],
@@ -2104,6 +2451,7 @@ def main() -> int:
              replaces="diart_tpu/ops/pallas_lstm.py:494", launches=ec["lstm_sweep"],
              launches_xvector_path=xv["lstm_sweep"], launches_session_paths=on_session("lstm_sweep"),
              launches_pipeline_paths=on_pipeline("lstm_sweep"), launches_runtime_paths=on_runtime("lstm_sweep"),
+             launches_family_paths=on_family("lstm_sweep"),
              **{k: lstm["bf16"][k] for k in KEYS},
              ms_b256=lstm["bf16"]["ms_b256"], ms_b528=lstm["bf16"]["ms_b528"],
              ms_f32=lstm["f32"]["ms"], plan=lstm["bf16"]["plan"]),
@@ -2111,16 +2459,23 @@ def main() -> int:
              replaces="diart_tpu/ops/pallas_stats.py:163", launches=xv["linear_stats"],
              launches_session_paths=on_session("linear_stats"),
              launches_pipeline_paths=on_pipeline("linear_stats"), launches_runtime_paths=on_runtime("linear_stats"),
+             launches_family_paths=on_family("linear_stats"),
+             at_xvect_sb=dict(at_shape(families["kernels"]["linear_stats_xvect_sb"]),
+                              ms_f32=families["kernels"]["linear_stats_xvect_sb"]["f32"]["ms"]),
              **{k: stats["bf16"][k] for k in KEYS + STATS_KEYS}, ms_f32=stats["f32"]["ms"]),
         dict(name="attn_stats", route="cuda", source="diart_tpu_torch/csrc/attn_stats.cu",
              replaces="diart_tpu/ops/pallas_attn_stats.py:170", launches=ec["attn_stats"],
              launches_session_paths=on_session("attn_stats"),
              launches_pipeline_paths=on_pipeline("attn_stats"), launches_runtime_paths=on_runtime("attn_stats"),
+             launches_family_paths=on_family("attn_stats"),
+             at_titanet=dict(at_shape(families["kernels"]["attn_stats_titanet"]),
+                             ms_f32=families["kernels"]["attn_stats_titanet"]["f32"]["ms"]),
              **{k: attn["bf16"][k] for k in KEYS + STATS_KEYS}, ms_f32=attn["f32"]["ms"]),
         dict(name="se_res2", route="cuda", source="diart_tpu_torch/csrc/se_res2.cu",
              replaces="diart_tpu/ops/pallas_res2.py:294", launches=ec["se_res2"],
              launches_session_paths=on_session("se_res2"),
              launches_pipeline_paths=on_pipeline("se_res2"), launches_runtime_paths=on_runtime("se_res2"),
+             launches_family_paths=on_family("se_res2"),
              **{k: res2["bf16"][k] for k in KEYS}, ms_b8=res2["bf16"]["ms_b8"],
              device_ms=res2["bf16"]["device_ms"],
              ms_f32=res2["f32"]["ms"], by_launch=res2["bf16"]["by_launch"],
@@ -2137,6 +2492,7 @@ def main() -> int:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(result, engines=runs, probes=probes, sessions=sessions, pipelines=pipelines,
                            pipelines_vs_cpu=pipe_cpu, session_tensor_blocks=session_tensors, runtime=runtime,
+                           families=families,
                            kernels=kernels), f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s after start-up")
     log(f"gpu: {smi}")

@@ -1,8 +1,9 @@
 """diart_tpu_torch: the PyTorch/CUDA port of diart_tpu's streaming engine
 and its serving path.
 
-The multi-stream diarization step (PyanNet segmentation, an x-vector or
-ECAPA-TDNN embedding, masked online clustering, Hamming overlap-add) runs
+The multi-stream diarization step (PyanNet segmentation, multilabel or
+powerset; an x-vector, ECAPA-TDNN, TitaNet, speechbrain fbank x-vector or
+ResNet34 embedding; masked online clustering; Hamming overlap-add) runs
 on an NVIDIA GPU, with the four kernels of its paths written by hand for
 Hopper (``csrc/lstm_sweep.cu``, ``csrc/linear_stats.cu``,
 ``csrc/attn_stats.cu``, ``csrc/se_res2.cu``). :class:`MultiStreamSession`

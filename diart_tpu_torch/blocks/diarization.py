@@ -147,15 +147,28 @@ class SpeakerDiarization(base.Pipeline):
 
     # ------------------------------------------------------------------ #
     def _forward(self, batch: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(N, samples, channels) -> seg (N, F, K), emb (N, K, E)."""
+        """(N, samples, channels) -> seg (N, F, K), emb (N, K, E). A host-only
+        (ONNX) model takes numpy on the host; a host embedding model gets the
+        waveform once per speaker with that speaker's weights, as diart
+        batches its embeddings (blocks/embedding.py:54-65)."""
         cfg = self._config
         wave = batch.transpose(1, 2)  # (N, ch, samples)
-        seg = cfg.segmentation(wave)
+        if cfg.segmentation.host_only:
+            seg = torch.as_tensor(np.asarray(cfg.segmentation(wave.cpu().numpy())), device=batch.device)
+        else:
+            seg = cfg.segmentation(wave)
         weights = overlapped_speech_penalty(seg, cfg.gamma, cfg.beta)
         if cfg.normalize_embedding_weights:
             weights = min_max_normalize(weights, dim=-2)
-        frames = cfg.embedding.trunk(wave)
-        emb = cfg.embedding.head(frames, weights.transpose(1, 2))
+        if cfg.embedding.host_only:
+            n, k = seg.shape[0], seg.shape[2]
+            wave_rep = np.repeat(wave.cpu().numpy(), k, axis=0)  # (N*K, ch, samples)
+            w_flat = weights.transpose(1, 2).reshape(n * k, -1).cpu().numpy()
+            emb = np.asarray(cfg.embedding(wave_rep, w_flat))
+            emb = torch.as_tensor(emb, device=batch.device).reshape(n, k, -1)
+        else:
+            frames = cfg.embedding.trunk(wave)
+            emb = cfg.embedding.head(frames, weights.transpose(1, 2))
         return seg, normalize_embeddings(emb, 1.0)
 
     @torch.no_grad()
@@ -166,6 +179,15 @@ class SpeakerDiarization(base.Pipeline):
         cfg = self._config
         batch = to_device(stack_chunks(waveforms, cfg.duration, cfg.sample_rate), self.device)
         segmentations, embeddings = self._forward(batch)
+        dim = embeddings.shape[-1]
+        if dim != self.clustering_state.centers.shape[-1]:
+            # a host-only embedding model tells its dimension at its first
+            # call: the empty clustering state is rebuilt to match
+            if bool(self.clustering_state.initialized.any()):
+                raise RuntimeError(
+                    f"embedding dim changed mid-stream: {self.clustering_state.centers.shape[-1]} -> {dim}"
+                )
+            self.clustering_state = init_state(1, cfg.max_speakers, dim, device=self.device)
         permuted = []
         for n in range(segmentations.shape[0]):
             self.clustering_state, scores, _ = cluster_step(

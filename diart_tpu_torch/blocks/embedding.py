@@ -57,6 +57,19 @@ class SpeakerEmbedding:
         dims are squeezed away like diart's ``output.squeeze()``
         (embedding.py:68): single-chunk callers get (speakers, dim)."""
         wave = to_device(self.waveform_formatter.cast(waveform), self.device).transpose(1, 2)
+        if self.model.host_only:
+            # a host-only (ONNX) model: diart's waveform repeated per speaker
+            # through the model's call (models.py:248-265); there is no
+            # trunk/head to split
+            wave_np = wave.cpu().numpy()
+            if weights is None:
+                out = np.asarray(self.model(wave_np))
+            else:
+                w = self.weights_formatter.cast(weights).cpu().numpy()
+                b, _, k = w.shape
+                w_flat = np.swapaxes(w, 1, 2).reshape(b * k, -1)
+                out = np.asarray(self.model(np.repeat(wave_np, k, axis=0), w_flat)).reshape(b, k, -1)
+            return torch.as_tensor(out, device=self.device).squeeze()
         frames = self.model.trunk(wave)
         if weights is None:
             return self.model.head(frames).squeeze()

@@ -28,10 +28,11 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 
 def resolve_device(models: Sequence[Any], device=None) -> torch.device:
     """The device a block or pipeline runs on: that of its ``models`` (the
-    ones not None), which must agree, and ``device``, where given, must be
-    theirs; without models, ``device`` (the card unless ``"cpu"`` is
-    asked for)."""
-    devices = [m.device for m in models if m is not None]
+    ones not None; host-only models count only where no other model is
+    given), which must agree, and ``device``, where given, must be theirs;
+    without models, ``device`` (the card unless ``"cpu"`` is asked for)."""
+    present = [m for m in models if m is not None]
+    devices = [m.device for m in ([m for m in present if not getattr(m, "host_only", False)] or present)]
     for other in devices[1:]:
         if not _same_device(devices[0], other):
             raise ValueError(f"the models are on different devices: {devices[0]} and {other}")

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from .. import utils
@@ -90,7 +91,11 @@ class VoiceActivityDetection(base.Pipeline):
         (N, frames, 1) on the device; waits for nothing on the card."""
         cfg = self._config
         batch = to_device(stack_chunks(waveforms, cfg.duration, cfg.sample_rate), self.device)
-        seg = cfg.segmentation(batch.transpose(1, 2))
+        wave = batch.transpose(1, 2)
+        if cfg.segmentation.host_only:  # an ONNX model runs on the host
+            seg = torch.as_tensor(np.asarray(cfg.segmentation(wave.cpu().numpy())), device=batch.device)
+        else:
+            seg = cfg.segmentation(wave)
         return seg.amax(dim=-1, keepdim=True)
 
     def fetch(

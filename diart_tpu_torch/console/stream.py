@@ -13,9 +13,8 @@ from .. import models as m
 from .. import utils
 from ..runtime import FileAudioSource, MicrophoneAudioSource, RTTMWriter, StreamingInference
 
-# features of the JAX package's CLIs that the port does not have yet, by the
-# ROADMAP.md item that brings them
-POWERSET_ITEM = "ROADMAP.md Queue 1 item 4 (models/powerset.py)"
+# a feature of the JAX package's CLIs that the port does not have yet, by the
+# ROADMAP.md item that brings it
 MESH_ITEM = "ROADMAP.md Queue 1 item 6 (parallel/mesh.py)"
 
 
@@ -32,8 +31,8 @@ def add_common_model_args(parser: argparse.ArgumentParser, embedding: bool = Tru
         type=int,
         metavar=("SPEAKERS", "MAX_SIMULTANEOUS"),
         help="Declare a raw torch segmentation checkpoint as powerset-encoded "
-        "(e.g. --powerset 3 2 for segmentation-3.0-style models). Not ported "
-        f"yet: raises NotImplementedError until {POWERSET_ITEM}",
+        "(e.g. --powerset 3 2 for segmentation-3.0-style models); ignored for "
+        "registry models and native files (they know their own)",
     )
     if embedding:
         parser.add_argument(
@@ -83,11 +82,11 @@ def load_models(args):
     """The segmentation and embedding models the arguments name: on the CPU
     with ``--cpu``, else on the card (which raises without one: there is
     no fallback)."""
-    if args.powerset:
-        raise NotImplementedError(f"--powerset is not ported yet: {POWERSET_ITEM}")
     hf_token = utils.parse_hf_token_arg(args.hf_token)
     device = "cpu" if args.cpu else "cuda"
-    return (m.SegmentationModel.from_pretrained(args.segmentation, hf_token, device=device),
+    powerset = tuple(args.powerset) if args.powerset else None
+    return (m.SegmentationModel.from_pretrained(args.segmentation, hf_token, device=device,
+                                                powerset=powerset),
             m.EmbeddingModel.from_pretrained(args.embedding, hf_token, device=device))
 
 

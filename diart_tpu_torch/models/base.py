@@ -1,18 +1,38 @@
-"""Model wrappers and the registry (reduced port of
-``diart_tpu/models/base.py``: the ``tpu/pyannet``, ``tpu/xvector`` and
-``tpu/ecapa`` registry entries, under the JAX package's names, and
-``from_apply`` for plain torch callables).
+"""Model wrappers, the registry and the model files (port of
+``diart_tpu/models/base.py``).
 
-Weights come from a seeded ``torch.Generator`` (the seed defaults to a
-CRC of the registry name) or, with ``flax_params=``, from the JAX
-package's parameter tree through :func:`diart_tpu_torch.weights.load_flax_params`.
-The wrappers default to ``device="cuda"`` and raise without a GPU.
+``from_pretrained`` resolves, in order: ``.onnx`` files (host-only models,
+through ``onnxruntime``), flax ``.msgpack``/``.npz`` files (refused: see
+below), the port's native files and torch checkpoints
+(``.bin``/``.pt``/``.ckpt``/``.safetensors``: a native file has its
+``<path>.json`` config beside it, anything else is a torch checkpoint
+converted by :mod:`diart_tpu_torch.models.convert`), the ``tpu/...``
+registry under the JAX package's names and size arguments, and else
+pyannote model names (which need ``pyannote.audio``).
+
+Registry weights come from a seeded ``torch.Generator`` (the seed defaults
+to a CRC of the registry name) or, with ``flax_params=``, from the JAX
+package's parameter tree through
+:func:`diart_tpu_torch.weights.load_flax_params`. The port's native file is
+``torch.save`` of the module's state dict (read back with
+``weights_only=True``) plus the JAX package's ``.json`` config schema
+(``module_class``, ``module``, ``powerset``). A flax ``.msgpack`` file
+written by the JAX package is not read: convert the torch source with
+``python -m diart_tpu_torch.console.convert`` instead.
+
+The wrappers default to ``device="cuda"`` and raise without a GPU. A
+host-only model (its module has ``host_only = True``: the ONNX wrapper's
+contract) takes and returns numpy arrays and runs only through the
+pipelines, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import inspect
+import json
 import zlib
-from typing import Callable, Optional
+from pathlib import Path
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -22,9 +42,18 @@ from .common import QuantizableConv
 from .ecapa import EcapaTDNN
 from .embedding import XVectorSincNet
 from .lstm import BiLSTM
+from .powerset import num_powerset_classes, powerset_mapping, to_multilabel
+from .resnet import ResNet34
 from .segmentation import PyanNet
+from .titanet import TitaNet
+from .xvect import XVectorFbank
 
 __all__ = ["EmbeddingModel", "SegmentationModel", "init_weights"]
+
+TORCH_SUFFIXES = (".bin", ".pt", ".ckpt", ".safetensors")
+MODULE_CLASSES: Dict[str, type] = {
+    cls.__name__: cls for cls in (PyanNet, XVectorSincNet, EcapaTDNN, ResNet34, TitaNet, XVectorFbank)
+}
 
 
 def _dtype_kwarg(kwargs) -> torch.dtype:
@@ -70,11 +99,88 @@ def init_weights(module: nn.Module, gen: torch.Generator) -> nn.Module:
     return module
 
 
-def _not_ported(kind: str, name: str):
-    raise NotImplementedError(
-        f"{kind} {name!r}: only the registry names (tpu/...) and from_apply are ported; "
-        "loading files and pyannote models is ROADMAP.md Queue 1 item 4"
+def _refuse_flax_file(name: str) -> None:
+    raise ValueError(
+        f"{name}: flax .msgpack/.npz files written by diart_tpu are not read by the port; "
+        "convert the torch checkpoint it came from with `python -m diart_tpu_torch.console.convert` "
+        "and pass the converted file"
     )
+
+
+def _is_native(path: Path) -> bool:
+    return Path(f"{path}.json").exists()
+
+
+def module_config(module: nn.Module) -> dict:
+    """The module's constructor arguments as JSON values (dtypes as
+    ``"bf16"``/``"f32"``, tuples as lists), read from the attributes of the
+    same names: the ``module`` field of the JAX package's config schema."""
+    if type(module).__name__ not in MODULE_CLASSES:
+        raise TypeError(
+            f"save() supports the port's own modules only; {type(module).__name__} "
+            "(from_apply / host-only) cannot be serialized"
+        )
+
+    def plain(value):
+        if isinstance(value, torch.dtype):
+            return "bf16" if value == torch.bfloat16 else "f32"
+        if isinstance(value, (tuple, list)):
+            return [plain(v) for v in value]
+        return value
+
+    names = list(inspect.signature(type(module).__init__).parameters)[1:]
+    return {name: plain(getattr(module, name)) for name in names}
+
+
+def restore_module_config(config: dict) -> dict:
+    """Constructor arguments from :func:`module_config`'s JSON values."""
+    out = {}
+    for key, value in config.items():
+        if value == "bf16":
+            value = torch.bfloat16
+        elif value == "f32":
+            value = torch.float32
+        elif isinstance(value, list):
+            value = tuple(tuple(v) if isinstance(v, list) else v for v in value)
+        out[key] = value
+    return out
+
+
+def _save_native(path, module: nn.Module, powerset=None) -> None:
+    """``torch.save`` of the state dict at ``path``, its config at
+    ``<path>.json``."""
+    path = Path(path)
+    config = {"module": module_config(module), "module_class": type(module).__name__}
+    if powerset is not None:
+        config["powerset"] = list(powerset)
+    torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()}, path)
+    Path(f"{path}.json").write_text(json.dumps(config))
+
+
+def _load_native(path) -> Tuple[nn.Module, dict]:
+    """A native file -> (module on the CPU, config)."""
+    path = Path(path)
+    config = json.loads(Path(f"{path}.json").read_text())
+    cls_name = config.get("module_class")
+    if cls_name not in MODULE_CLASSES:
+        raise ValueError(f"unknown serialized module class {cls_name!r}; known: {sorted(MODULE_CLASSES)}")
+    module = MODULE_CLASSES[cls_name](**restore_module_config(config.get("module", {})))
+    module.load_state_dict(torch.load(str(path), map_location="cpu", weights_only=True), strict=True)
+    return module, config
+
+
+def _with_dtype(module: nn.Module, dtype) -> nn.Module:
+    """The module rebuilt to compute in ``dtype`` ("bf16"/"f32"), with the
+    same (f32) parameters."""
+    config = module_config(module)
+    config["compute_dtype"] = "bf16" if _dtype_kwarg({"dtype": dtype}) == torch.bfloat16 else "f32"
+    out = type(module)(**restore_module_config(config))
+    out.load_state_dict(module.state_dict())
+    return out
+
+
+def _ready(module: nn.Module, device) -> nn.Module:
+    return module.to(device).eval().requires_grad_(False)
 
 
 class _SegFn:
@@ -135,29 +241,48 @@ def _build(module: nn.Module, name: str, device, seed: Optional[int], flax_param
     else:
         gen = torch.Generator().manual_seed(_seed_from_name(name) if seed is None else int(seed))
         init_weights(module, gen)
-    return module.to(device).eval().requires_grad_(False)
+    return _ready(module, device)
 
 
 class SegmentationModel:
-    """waveform (B, 1, samples) -> activations (B, frames, speakers)."""
+    """waveform (B, 1, samples) -> activations (B, frames, speakers). A
+    powerset model's class scores are decoded to speakers inside the call
+    (one-hot of the argmax times the class -> speakers mapping), so every
+    caller, the engine included, sees speakers."""
 
-    KNOWN = ("tpu/pyannet",)
+    KNOWN = ("tpu/pyannet", "tpu/pyannet-powerset")
 
-    def __init__(self, module, name: str, device):
+    def __init__(self, module, name: str, device, powerset: Optional[Tuple[int, int]] = None):
         self.module = module
         self.name = name
         self.device = torch.device(device)
+        self._powerset = None if powerset is None else tuple(powerset)
+        self._mapping = None
+        if self._powerset is not None:
+            self._mapping = torch.from_numpy(powerset_mapping(*self._powerset)).to(self.device)
 
     @staticmethod
-    def from_pretrained(
-        model, use_hf_token=True, device="cuda", **kwargs
-    ) -> "SegmentationModel":
-        """A registry name (``tpu/...``, with :meth:`from_registry`'s
-        arguments). Files and pyannote models are not ported yet."""
+    def from_pretrained(model, use_hf_token=True, device="cuda", **kwargs) -> "SegmentationModel":
+        """A file, a registry name (``tpu/...``, with :meth:`from_registry`'s
+        arguments) or a pyannote name (see the module docstring).
+        ``powerset=(speakers, max_simultaneous)`` declares a raw torch
+        checkpoint as powerset-encoded; elsewhere it is ignored (the
+        registry and native files know their own)."""
         name = str(model)
-        if not name.startswith("tpu/"):
-            _not_ported("segmentation model", name)
-        return SegmentationModel.from_registry(name, device=device, **kwargs)
+        powerset = kwargs.pop("powerset", None)
+        if name.endswith(".onnx"):
+            return SegmentationModel.from_onnx(model)
+        if name.endswith((".msgpack", ".npz")):
+            _refuse_flax_file(name)
+        if name.endswith(TORCH_SUFFIXES):
+            if _is_native(Path(name)):
+                module, config = _load_native(name)
+                device = require_cuda(device)
+                return SegmentationModel(_ready(module, device), name, device, config.get("powerset"))
+            return SegmentationModel.from_torch(model, powerset=powerset, device=device)
+        if name.startswith("tpu/"):
+            return SegmentationModel.from_registry(name, device=device, **kwargs)
+        return SegmentationModel.from_pyannote(model, use_hf_token, device=device)
 
     @staticmethod
     def from_apply(
@@ -173,37 +298,95 @@ class SegmentationModel:
     def from_registry(
         name: str, device="cuda", seed: Optional[int] = None, flax_params=None, **kwargs
     ) -> "SegmentationModel":
-        """``tpu/pyannet`` with the JAX registry's size arguments
-        (num_speakers, lstm_hidden, lstm_layers, linear_dims, dtype)."""
+        """``tpu/pyannet`` or ``tpu/pyannet-powerset`` with the JAX registry's
+        size arguments (num_speakers, lstm_hidden, lstm_layers, linear_dims,
+        dtype; the powerset model also max_simultaneous, and defaults to 3
+        speakers, at most 2 at once)."""
         if name not in SegmentationModel.KNOWN:
             raise ValueError(
                 f"unknown segmentation registry name {name!r}; known: {list(SegmentationModel.KNOWN)}"
             )
-        _check_kwargs(name, kwargs, ("num_speakers", "lstm_hidden", "lstm_layers", "linear_dims", "dtype"))
+        powerset = name == "tpu/pyannet-powerset"
+        known = ("num_speakers", "lstm_hidden", "lstm_layers", "linear_dims", "dtype")
+        _check_kwargs(name, kwargs, known + (("max_simultaneous",) if powerset else ()))
         device = require_cuda(device)
+        num_speakers = kwargs.get("num_speakers", 3 if powerset else 4)
+        declared = (num_speakers, kwargs.get("max_simultaneous", 2)) if powerset else None
         module = PyanNet(
-            num_speakers=kwargs.get("num_speakers", 4),
+            num_speakers=num_speakers,
             lstm_hidden=kwargs.get("lstm_hidden", 128),
             lstm_layers=kwargs.get("lstm_layers", 4),
             linear_dims=tuple(kwargs.get("linear_dims", (128, 128))),
             compute_dtype=_dtype_kwarg(kwargs),
+            powerset_classes=num_powerset_classes(*declared) if powerset else 0,
         )
-        return SegmentationModel(_build(module, name, device, seed, flax_params), name, device)
+        return SegmentationModel(_build(module, name, device, seed, flax_params), name, device, declared)
+
+    @staticmethod
+    def from_torch(path, powerset: Optional[Tuple[int, int]] = None, device="cuda") -> "SegmentationModel":
+        """A torch PyanNet checkpoint, converted. ``powerset``:
+        (num_speakers, max_simultaneous) for a checkpoint whose classifier
+        emits powerset classes (pyannote/segmentation-3.0 style) — a raw
+        state dict cannot tell, so it must be declared."""
+        from .convert import load_pyannet_checkpoint
+
+        device = require_cuda(device)
+        module, meta = load_pyannet_checkpoint(path, powerset)
+        return SegmentationModel(_ready(module, device), str(path), device, meta.get("powerset"))
+
+    @staticmethod
+    def from_pyannote(model, use_hf_token=True, device="cuda") -> "SegmentationModel":
+        """A pyannote model name, through ``pyannote.audio`` (raises
+        ImportError without it)."""
+        from .convert import load_pyannote_segmentation
+
+        device = require_cuda(device)
+        module, meta = load_pyannote_segmentation(model, use_hf_token)
+        return SegmentationModel(_ready(module, device), str(model), device, meta.get("powerset"))
+
+    @staticmethod
+    def from_onnx(model_path, input_name: str = "waveform", output_name: str = "segmentation"
+                  ) -> "SegmentationModel":
+        """An ONNX model on the host (needs ``onnxruntime``)."""
+        from .onnx import ONNXModel
+
+        return SegmentationModel(ONNXModel(model_path, [input_name], output_name), str(model_path), "cpu")
+
+    @property
+    def powerset(self) -> Optional[Tuple[int, int]]:
+        """(num_speakers, max_simultaneous) when the model emits powerset
+        classes, else None."""
+        return self._powerset
+
+    @property
+    def host_only(self) -> bool:
+        """Whether the model runs on the host (numpy in and out) and only
+        through the pipelines."""
+        return getattr(self.module, "host_only", False)
 
     @property
     def num_speakers(self) -> int:
-        return self.module.num_speakers
+        if self._powerset is not None:
+            return self._powerset[0]
+        return getattr(self.module, "num_speakers", 4)
 
     @property
     def sample_rate(self) -> int:
-        return self.module.sample_rate
+        return getattr(self.module, "sample_rate", 16000)
 
     def num_frames(self, num_samples: int) -> int:
         return self.module.num_frames(num_samples)
 
     @torch.no_grad()
-    def __call__(self, waveform: torch.Tensor) -> torch.Tensor:
-        return self.module(waveform)
+    def __call__(self, waveform):
+        out = self.module(waveform)
+        if self._powerset is not None:
+            out = to_multilabel(out, self._mapping)
+        return out
+
+    def save(self, path) -> None:
+        """The port's native file at ``path`` (see the module docstring)."""
+        _save_native(path, self.module, self._powerset)
 
 
 class EmbeddingModel:
@@ -211,7 +394,7 @@ class EmbeddingModel:
     Mel models (``fbank_ring_kind`` not None) also take the engine's raw
     log-mel frames through :meth:`trunk_from_raw_fbank`."""
 
-    KNOWN = ("tpu/ecapa", "tpu/xvector")
+    KNOWN = ("tpu/ecapa", "tpu/resnet34", "tpu/titanet", "tpu/xvect-sb", "tpu/xvector")
 
     def __init__(self, module, name: str, device):
         self.module = module
@@ -220,12 +403,26 @@ class EmbeddingModel:
 
     @staticmethod
     def from_pretrained(model, use_hf_token=True, device="cuda", **kwargs) -> "EmbeddingModel":
-        """A registry name (``tpu/...``, with :meth:`from_registry`'s
-        arguments). Files and pyannote models are not ported yet."""
+        """A file, a registry name (``tpu/...``, with :meth:`from_registry`'s
+        arguments) or a pyannote name (see the module docstring); ``dtype``
+        also sets the compute dtype of a converted checkpoint or a native
+        file (the parameters stay f32)."""
         name = str(model)
-        if not name.startswith("tpu/"):
-            _not_ported("embedding model", name)
-        return EmbeddingModel.from_registry(name, device=device, **kwargs)
+        if name.endswith(".onnx"):
+            return EmbeddingModel.from_onnx(model)
+        if name.endswith((".msgpack", ".npz")):
+            _refuse_flax_file(name)
+        if name.endswith(TORCH_SUFFIXES):
+            if _is_native(Path(name)):
+                device = require_cuda(device)
+                module = _load_native(name)[0]
+                if kwargs.get("dtype") is not None:
+                    module = _with_dtype(module, kwargs["dtype"])
+                return EmbeddingModel(_ready(module, device), name, device)
+            return EmbeddingModel.from_torch(model, dtype=kwargs.get("dtype"), device=device)
+        if name.startswith("tpu/"):
+            return EmbeddingModel.from_registry(name, device=device, **kwargs)
+        return EmbeddingModel.from_pyannote(model, use_hf_token, device=device)
 
     @staticmethod
     def from_apply(
@@ -243,35 +440,78 @@ class EmbeddingModel:
     def from_registry(
         name: str, device="cuda", seed: Optional[int] = None, flax_params=None, **kwargs
     ) -> "EmbeddingModel":
-        """``tpu/xvector`` (embedding_dim, dtype) or ``tpu/ecapa``
-        (embedding_dim, channels, dtype), with the JAX registry's size
-        arguments and defaults."""
-        if name not in EmbeddingModel.KNOWN:
+        """The JAX registry's names, size arguments and defaults:
+        ``tpu/xvector`` (embedding_dim 512), ``tpu/ecapa`` (embedding_dim 192,
+        channels 512), ``tpu/resnet34`` (embedding_dim 256, base_channels
+        32), ``tpu/titanet`` (embedding_dim 192, channels 1024) and
+        ``tpu/xvect-sb`` (embedding_dim 512, num_mels 24, tdnn_specs); each
+        also takes ``dtype``."""
+        sizes = {
+            "tpu/xvector": (XVectorSincNet, dict(embedding_dim=512)),
+            "tpu/ecapa": (EcapaTDNN, dict(embedding_dim=192, channels=512)),
+            "tpu/resnet34": (ResNet34, dict(embedding_dim=256, base_channels=32)),
+            "tpu/titanet": (TitaNet, dict(embedding_dim=192, channels=1024)),
+            "tpu/xvect-sb": (XVectorFbank, dict(
+                embedding_dim=512, num_mels=24,
+                tdnn_specs=((5, 1, 512), (3, 2, 512), (3, 3, 512), (1, 1, 512), (1, 1, 1500)))),
+        }
+        if name not in sizes:
             raise ValueError(
                 f"unknown embedding registry name {name!r}; known: {list(EmbeddingModel.KNOWN)}"
             )
-        ecapa = name == "tpu/ecapa"
-        _check_kwargs(name, kwargs, ("embedding_dim", "dtype") + (("channels",) if ecapa else ()))
+        cls, defaults = sizes[name]
+        _check_kwargs(name, kwargs, tuple(defaults) + ("dtype",))
         device = require_cuda(device)
-        if ecapa:
-            module = EcapaTDNN(
-                embedding_dim=kwargs.get("embedding_dim", 192),
-                channels=kwargs.get("channels", 512),
-                compute_dtype=_dtype_kwarg(kwargs),
-            )
-        else:
-            module = XVectorSincNet(
-                embedding_dim=kwargs.get("embedding_dim", 512), compute_dtype=_dtype_kwarg(kwargs)
-            )
+        args = {k: kwargs.get(k, v) for k, v in defaults.items()}
+        if "tdnn_specs" in args:
+            args["tdnn_specs"] = tuple(tuple(spec) for spec in args["tdnn_specs"])
+        module = cls(**args, compute_dtype=_dtype_kwarg(kwargs))
         return EmbeddingModel(_build(module, name, device, seed, flax_params), name, device)
+
+    @staticmethod
+    def from_torch(path, dtype=None, device="cuda") -> "EmbeddingModel":
+        """A torch embedding checkpoint, converted (the layout is sniffed
+        from its keys); ``dtype`` ("bf16"/"f32") sets the trunk's compute
+        dtype, the parameters stay f32."""
+        from .convert import load_embedding_checkpoint
+
+        device = require_cuda(device)
+        module, _ = load_embedding_checkpoint(path)
+        if dtype is not None:
+            module = _with_dtype(module, dtype)
+        return EmbeddingModel(_ready(module, device), str(path), device)
+
+    @staticmethod
+    def from_pyannote(model, use_hf_token=True, device="cuda") -> "EmbeddingModel":
+        """A pyannote model name, through ``pyannote.audio`` (raises
+        ImportError without it)."""
+        from .convert import load_pyannote_embedding
+
+        device = require_cuda(device)
+        return EmbeddingModel(_ready(load_pyannote_embedding(model, use_hf_token)[0], device),
+                              str(model), device)
+
+    @staticmethod
+    def from_onnx(model_path, input_names=None, output_name: str = "embedding") -> "EmbeddingModel":
+        """An ONNX model on the host (needs ``onnxruntime``)."""
+        from .onnx import ONNXModel
+
+        module = ONNXModel(model_path, input_names or ["waveform", "weights"], output_name)
+        return EmbeddingModel(module, str(model_path), "cpu")
+
+    @property
+    def host_only(self) -> bool:
+        """Whether the model runs on the host (numpy in and out) and only
+        through the pipelines."""
+        return getattr(self.module, "host_only", False)
 
     @property
     def embedding_dim(self) -> int:
-        return self.module.embedding_dim
+        return getattr(self.module, "embedding_dim", 512)
 
     @property
     def sample_rate(self) -> int:
-        return self.module.sample_rate
+        return getattr(self.module, "sample_rate", 16000)
 
     @property
     def fbank_ring_kind(self) -> Optional[str]:
@@ -283,9 +523,11 @@ class EmbeddingModel:
         return self.module.num_mels
 
     @torch.no_grad()
-    def __call__(self, waveform: torch.Tensor, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def __call__(self, waveform, weights=None):
         """diart's call: waveform (B, C, S), weights (B, frames) or None ->
         (B, dim)."""
+        if self.host_only:
+            return self.module(waveform, weights)
         frames = self.trunk(waveform)
         if weights is None:
             return self.head(frames)
@@ -302,3 +544,7 @@ class EmbeddingModel:
     @torch.no_grad()
     def head(self, frames: torch.Tensor, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.module.head(frames, weights)
+
+    def save(self, path) -> None:
+        """The port's native file at ``path`` (see the module docstring)."""
+        _save_native(path, self.module)

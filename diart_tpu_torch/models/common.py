@@ -62,28 +62,42 @@ def resample_weights(weights: torch.Tensor, num_frames: int) -> torch.Tensor:
 
 
 class QuantizableConv(nn.Module):
-    """Dilated, unpadded 1-D convolution over (batch, channels, time), run in
-    ``compute_dtype``; the bias is added in that dtype after the convolution,
-    as the JAX module does. (The JAX module's int8 path is not ported.)"""
+    """Unpadded 1-D or 2-D convolution over (batch, channels, time[, freq]),
+    run in ``compute_dtype``; the bias, where there is one, is added in that
+    dtype after the convolution, as the JAX module does. ``kernel_size`` is
+    an int (1-D) or a pair (2-D); ``groups`` makes a depthwise convolution
+    (TitaNet's). (The JAX module's int8 path is not ported.)"""
 
     def __init__(
         self,
         in_channels: int,
         features: int,
-        kernel_size: int,
+        kernel_size,
         dilation: int = 1,
         compute_dtype=torch.float32,
+        bias: bool = True,
+        stride: int = 1,
+        padding=0,
+        groups: int = 1,
     ):
         super().__init__()
+        kernel = tuple(kernel_size) if isinstance(kernel_size, (tuple, list)) else (kernel_size,)
         self.dilation = dilation
+        self.stride = stride
+        self.padding = padding
+        self.groups = groups
         self.compute_dtype = compute_dtype
-        self.weight = nn.Parameter(torch.zeros(features, in_channels, kernel_size))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self._conv = F.conv2d if len(kernel) == 2 else F.conv1d
+        self.weight = nn.Parameter(torch.zeros(features, in_channels // groups, *kernel))
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        y = F.conv1d(x.to(dt), self.weight.to(dt), dilation=self.dilation)
-        return y + self.bias.to(y.dtype)[None, :, None]
+        y = self._conv(x.to(dt), self.weight.to(dt), stride=self.stride, padding=self.padding,
+                       dilation=self.dilation, groups=self.groups)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(y.dtype).view((1, -1) + (1,) * (y.dim() - 2))
 
 
 class InferenceBatchNorm(nn.Module):

@@ -164,8 +164,12 @@ class EcapaTDNN(nn.Module):
         super().__init__()
         c, dt = channels, compute_dtype
         self.embedding_dim = embedding_dim
+        self.channels = channels
         self.num_mels = num_mels
         self.sample_rate = sample_rate
+        self.attention_bottleneck = attention_bottleneck
+        self.res2_scale = res2_scale
+        self.se_bottleneck = se_bottleneck
         self.compute_dtype = compute_dtype
         self.stem = _TDNNBlock(num_mels, c, 5, 1, dt)
         self.block1 = _SERes2Block(c, 3, 2, res2_scale, se_bottleneck, dt)

@@ -24,7 +24,7 @@ from ..ops.linear_stats import StatsOperands, fused_linear_stats, prepare_stats_
 from .common import InferenceBatchNorm, QuantizableConv, held_operands, resample_weights, trained
 from .sincnet import SincNet
 
-__all__ = ["XVectorSincNet", "stats_from_moments", "weighted_stats_pool"]
+__all__ = ["FusedStatsHead", "XVectorSincNet", "stats_from_moments", "weighted_stats_pool"]
 
 
 def stats_from_moments(s1, s2, v1, v2, eps: float = 1e-8) -> torch.Tensor:
@@ -50,32 +50,14 @@ def weighted_stats_pool(frames: torch.Tensor, weights: torch.Tensor, eps: float 
     return stats_from_moments(s1, s2, w.sum(-1), (w * w).sum(-1), eps).to(frames.dtype)
 
 
-class XVectorSincNet(nn.Module):
-    """SincNet + TDNN x-vector; TDNN (kernel, dilation, channels) =
-    (5,1,512), (3,2,512), (3,3,512), (1,1,512), (1,1,1500)."""
-
-    def __init__(
-        self,
-        embedding_dim: int = 512,
-        sample_rate: int = 16000,
-        compute_dtype=torch.float32,
-        tdnn_specs: Tuple[Tuple[int, int, int], ...] = (
-            (5, 1, 512), (3, 2, 512), (3, 3, 512), (1, 1, 512), (1, 1, 1500),
-        ),
-    ):
-        super().__init__()
-        self.embedding_dim = embedding_dim
-        self.sample_rate = sample_rate
-        self.compute_dtype = compute_dtype
-        self.tdnn_specs = tuple(tdnn_specs)
-        self.sincnet = SincNet(sample_rate=sample_rate, compute_dtype=compute_dtype)
-        in_dim = 60
-        for i, (kernel, dilation, channels) in enumerate(self.tdnn_specs):
-            setattr(self, f"tdnn{i}", QuantizableConv(in_dim, channels, kernel, dilation, compute_dtype))
-            setattr(self, f"tdnn{i}_norm", InferenceBatchNorm(channels))
-            in_dim = channels
-        self.embedding = nn.Linear(2 * in_dim, embedding_dim)
-        self._head_ops = {}  # frames dtype -> (key, StatsOperands)
+class FusedStatsHead:
+    """The pooling head of the x-vector families (this module's and
+    :class:`diart_tpu_torch.models.xvect.XVectorFbank`): with the fused head
+    (the final TDNN is 1x1, as in the standard geometry) the trunk stops
+    before that TDNN and :meth:`pooled_stats` computes its projection,
+    leaky ReLU, batch norm and weighted moments in
+    :func:`fused_linear_stats`, with the operands laid out once. The class
+    sets ``tdnn_specs``, ``tdnn{i}``, ``tdnn{i}_norm`` and ``_head_ops``."""
 
     def _head_layers(self):
         """The last TDNN's conv and batch norm, which the fused head computes."""
@@ -101,6 +83,52 @@ class XVectorSincNet(nn.Module):
         can take over (true for the standard geometry)."""
         kernel, dilation, _ = self.tdnn_specs[-1]
         return kernel == 1 and dilation == 1
+
+    def pooled_stats(self, frames: torch.Tensor, weights: Optional[torch.Tensor], fused: bool):
+        """frames (B, T, C) from the trunk (the same ``fused``), weights
+        (B, S, Tw) or None -> (weighted [mean, std] (B, S, 2C), squeeze)."""
+        squeeze = weights is None
+        if weights is None:
+            weights = torch.ones(frames.shape[0], 1, frames.shape[1], device=frames.device)
+        weights = resample_weights(weights, frames.shape[1])
+        if not fused:
+            return weighted_stats_pool(frames, weights), squeeze
+        conv, norm, params = self._head_layers()
+        wf = weights.float()
+        if trained(params):
+            a, c = norm.folded()
+            s1, s2 = fused_linear_stats(frames, conv.weight[:, :, 0].t(), conv.bias, a, c, wf)
+        else:
+            s1, s2 = fused_linear_stats(frames, self.head_operands(frames.dtype), weights=wf)
+        return stats_from_moments(s1, s2, wf.sum(-1), (wf * wf).sum(-1)), squeeze
+
+
+class XVectorSincNet(FusedStatsHead, nn.Module):
+    """SincNet + TDNN x-vector; TDNN (kernel, dilation, channels) =
+    (5,1,512), (3,2,512), (3,3,512), (1,1,512), (1,1,1500)."""
+
+    def __init__(
+        self,
+        embedding_dim: int = 512,
+        sample_rate: int = 16000,
+        compute_dtype=torch.float32,
+        tdnn_specs: Tuple[Tuple[int, int, int], ...] = (
+            (5, 1, 512), (3, 2, 512), (3, 3, 512), (1, 1, 512), (1, 1, 1500),
+        ),
+    ):
+        super().__init__()
+        self.embedding_dim = embedding_dim
+        self.sample_rate = sample_rate
+        self.compute_dtype = compute_dtype
+        self.tdnn_specs = tuple(tdnn_specs)
+        self.sincnet = SincNet(sample_rate=sample_rate, compute_dtype=compute_dtype)
+        in_dim = 60
+        for i, (kernel, dilation, channels) in enumerate(self.tdnn_specs):
+            setattr(self, f"tdnn{i}", QuantizableConv(in_dim, channels, kernel, dilation, compute_dtype))
+            setattr(self, f"tdnn{i}_norm", InferenceBatchNorm(channels))
+            in_dim = channels
+        self.embedding = nn.Linear(2 * in_dim, embedding_dim)
+        self._head_ops = {}  # frames dtype -> (key, StatsOperands)
 
     def forward(self, waveform, weights=None):
         return self.head(self.trunk(waveform), weights)
@@ -134,20 +162,6 @@ class XVectorSincNet(nn.Module):
         """frames (B, T, C) from :meth:`trunk` (same ``fused_head``), weights
         (B, S, Tw) or None -> (B, S, embedding_dim) (or (B, dim))."""
         fused = self.fused_head if fused_head is None else fused_head
-        squeeze = weights is None
-        if weights is None:
-            weights = torch.ones(frames.shape[0], 1, frames.shape[1], device=frames.device)
-        weights = resample_weights(weights, frames.shape[1])
-        if fused:
-            conv, norm, params = self._head_layers()
-            wf = weights.float()
-            if trained(params):
-                a, c = norm.folded()
-                s1, s2 = fused_linear_stats(frames, conv.weight[:, :, 0].t(), conv.bias, a, c, wf)
-            else:
-                s1, s2 = fused_linear_stats(frames, self.head_operands(frames.dtype), weights=wf)
-            stats = stats_from_moments(s1, s2, wf.sum(-1), (wf * wf).sum(-1))
-        else:
-            stats = weighted_stats_pool(frames, weights)
+        stats, squeeze = self.pooled_stats(frames, weights, fused)
         emb = self.embedding(stats.float())
         return emb[:, 0] if squeeze else emb

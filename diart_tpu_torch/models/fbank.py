@@ -1,8 +1,9 @@
-"""Log-mel filterbank frontend (port of the speechbrain kind of
-``diart_tpu/models/fbank.py``), direct and incremental.
+"""Log-mel filterbank frontends (port of ``diart_tpu/models/fbank.py``):
+the speechbrain, kaldi and nemo kinds, direct and incremental.
 
 Framing, windowing and the DFT run as one strided convolution whose basis
-(cosine rows, then sine rows, window folded in) is a numpy float64
+(cosine rows, then sine rows, with the window and any per-frame linear map
+such as kaldi's DC removal and pre-emphasis folded in) is a numpy float64
 constant cast to f32, as in the JAX package. The DFT product and the mel
 contraction run in true f32 whatever the caller's TF32 flags say
 (:func:`_true_f32`): TF32 keeps about three decimal digits, and the JAX
@@ -12,9 +13,15 @@ The incremental pieces (``FbankRingSpec`` ... ``fbank_edge_right``) are
 what the engine's ``fbank_ring`` uses: every stage up to the window-level
 normalization is frame-local, so the raw per-frame features of the
 unchanged samples live in a ring across hops and only the new block's
-frames and the window-edge frames are computed each hop. The ring geometry
-covers all three kinds; only the speechbrain kind's features are ported
-(``ROADMAP.md`` Queue 1 item 10 queues the kaldi and nemo kinds).
+frames and the window-edge frames are computed each hop. The cached stage
+per kind:
+
+* kaldi: ``log(max(mel, eps))``; snip-edges framing, no edge frames;
+* speechbrain: ``10 log10(max(mel, 1e-10))`` before the top_db floor;
+  zero-padded centred framing, 2 edge frames a side;
+* nemo: ``log(mel + 2^-24)``; whole-signal pre-emphasis (interior frames
+  see their true neighbours), reflect-padded centred framing, 2 edge
+  frames a side.
 """
 
 from __future__ import annotations
@@ -34,11 +41,17 @@ __all__ = [
     "fbank_edge_right",
     "fbank_ring_fill",
     "fbank_ring_spec",
+    "kaldi_log_mel",
+    "kaldi_mel_matrix",
+    "librosa_mel_matrix",
+    "nemo_log_mel",
     "speechbrain_log_mel",
     "speechbrain_mel_matrix",
 ]
 
-_QUEUED = "the {} fbank kind is not ported yet (ROADMAP.md Queue 1 item 10)"
+_F32_EPS = float(np.finfo(np.float32).eps)
+_NEMO_GUARD = 2.0**-24
+_NEMO_FFT = 512
 
 
 @contextlib.contextmanager
@@ -84,6 +97,68 @@ def speechbrain_mel_matrix(
     return np.maximum(0.0, np.minimum(slope + 1.0, -slope + 1.0)).astype(np.float32)
 
 
+@lru_cache(maxsize=None)
+def librosa_mel_matrix(
+    num_mels: int = 80,
+    n_fft: int = 512,
+    sample_rate: int = 16000,
+    f_min: float = 0.0,
+    f_max: float = None,
+) -> np.ndarray:
+    """Mel filterbank in librosa's default convention (``htk=False,
+    norm='slaney'``), which NeMo's preprocessor uses: the Slaney mel scale
+    (linear below 1 kHz, log above) and each triangle scaled by
+    ``2 / (f[m+2] - f[m])``. (num_mels, n_fft // 2 + 1)."""
+    f_max = f_max or sample_rate / 2
+    log_step = np.log(6.4) / 27.0
+
+    def to_mel(hz):
+        hz = np.asarray(hz, np.float64)
+        safe = np.maximum(hz, 1e-10)  # both where-branches evaluate
+        return np.where(hz >= 1000.0, 15.0 + np.log(safe / 1000.0) / log_step, hz * 3.0 / 200.0)
+
+    def to_hz(mel):
+        mel = np.asarray(mel, np.float64)
+        return np.where(mel >= 15.0, 1000.0 * np.exp(log_step * (mel - 15.0)), mel * 200.0 / 3.0)
+
+    hz = to_hz(np.linspace(to_mel(f_min), to_mel(f_max), num_mels + 2))
+    fft_freqs = np.arange(n_fft // 2 + 1) * sample_rate / n_fft
+    lower = (fft_freqs[None, :] - hz[:-2, None]) / (hz[1:-1] - hz[:-2])[:, None]
+    upper = (hz[2:, None] - fft_freqs[None, :]) / (hz[2:] - hz[1:-1])[:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    return (weights * (2.0 / (hz[2:] - hz[:-2]))[:, None]).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def kaldi_mel_matrix(
+    num_mels: int = 80,
+    padded_window: int = 512,
+    sample_rate: int = 16000,
+    low_freq: float = 20.0,
+    high_freq: float = 0.0,
+) -> np.ndarray:
+    """Kaldi-convention mel filterbank (as torchaudio.compliance.kaldi):
+    triangles in mel space over the first ``padded_window // 2`` FFT bins
+    (Nyquist excluded). (num_mels, padded_window // 2)."""
+
+    def to_mel(hz):
+        return 1127.0 * np.log(1.0 + np.asarray(hz) / 700.0)
+
+    high = high_freq if high_freq > 0 else sample_rate / 2 + high_freq
+    num_bins = padded_window // 2
+    mel_freqs = to_mel(np.arange(num_bins) * sample_rate / padded_window)
+    mel_low, mel_high = to_mel(low_freq), to_mel(high)
+    delta = (mel_high - mel_low) / (num_mels + 1)
+    filters = np.zeros((num_mels, num_bins), np.float32)
+    for i in range(num_mels):
+        left = mel_low + i * delta
+        center, right = left + delta, left + 2 * delta
+        up = (mel_freqs - left) / (center - left)
+        down = (right - mel_freqs) / (right - center)
+        filters[i] = np.clip(np.minimum(up, down), 0.0, None)
+    return filters
+
+
 def _dft_rows(dft_size: int, taps: np.ndarray, bins: int, offset: int = 0):
     """(cos, sin) DFT basis rows ``cis(-2pi k (offset+m) / dft_size)`` at tap
     positions ``m``, times the window — float64."""
@@ -101,6 +176,38 @@ def _hamming_basis(n_fft: int) -> np.ndarray:
     return np.concatenate([cos_r, sin_r], 0).astype(np.float32)
 
 
+@lru_cache(maxsize=None)
+def _nemo_basis(n_fft: int, win_length: int) -> np.ndarray:
+    """A symmetric Hann(win_length) centred in n_fft; only its win_length
+    nonzero taps, phase-offset by the left margin."""
+    n = np.arange(win_length)
+    hann = 0.5 - 0.5 * np.cos(2 * np.pi * n / (win_length - 1))
+    cos_r, sin_r = _dft_rows(n_fft, hann, n_fft // 2 + 1, offset=(n_fft - win_length) // 2)
+    return np.concatenate([cos_r, sin_r], 0).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _kaldi_basis(frame_length: int, padded: int, preemphasis: float, remove_dc: bool) -> np.ndarray:
+    """Per-frame DC removal, pre-emphasis and the povey window are linear
+    maps of the frame, folded into the DFT basis in float64. The Nyquist
+    bin is left out, as kaldi's mel triangles never reach it."""
+    flen = frame_length
+    linear = np.eye(flen)
+    if remove_dc:
+        linear = linear - np.full((flen, flen), 1.0 / flen)
+    if preemphasis:
+        pre = np.eye(flen)
+        pre[0, 0] = 1.0 - preemphasis
+        for i in range(1, flen):
+            pre[i, i - 1] = -preemphasis
+        linear = pre @ linear
+    n = np.arange(flen)
+    povey = (0.5 - 0.5 * np.cos(2 * np.pi * n / (flen - 1))) ** 0.85
+    linear = povey[:, None] * linear
+    cos_r, sin_r = _dft_rows(padded, np.ones(flen), padded // 2)
+    return np.concatenate([cos_r @ linear, sin_r @ linear], 0).astype(np.float32)
+
+
 _CONSTANTS: dict = {}
 
 
@@ -113,45 +220,57 @@ def _constant(array: np.ndarray, device: torch.device) -> torch.Tensor:
     return t
 
 
-@lru_cache(maxsize=None)
-def _phase_basis(n_fft: int, hop: int) -> np.ndarray:
-    """The Hamming DFT basis as a (2 * bins, hop, ceil(n_fft / hop)) stride-1
-    convolution over the waveform viewed as ``hop`` interleaved channels."""
-    basis = _hamming_basis(n_fft)
-    k = -(-n_fft // hop)
-    w = np.pad(basis, ((0, 0), (0, k * hop - n_fft))).reshape(-1, k, hop)
-    return np.ascontiguousarray(np.swapaxes(w, 1, 2))
+_PHASED: dict = {}
 
 
-def _dft_power(signal: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
-    """Power spectrum of hopped Hamming frames: signal (B, samples), frame
-    ``t`` starting at sample ``t * hop`` -> (B, frames, n_fft // 2 + 1) f32.
+def _phase_basis(basis: np.ndarray, hop: int) -> np.ndarray:
+    """A (2 * bins, taps) DFT basis as a (2 * bins, hop, ceil(taps / hop))
+    stride-1 convolution over the waveform viewed as ``hop`` interleaved
+    channels (bases are cached constants, so their ids are stable keys)."""
+    key = (id(basis), hop)
+    w = _PHASED.get(key)
+    if w is None:
+        taps = basis.shape[1]
+        k = -(-taps // hop)
+        w = np.pad(basis, ((0, 0), (0, k * hop - taps))).reshape(-1, k, hop)
+        w = _PHASED[key] = np.ascontiguousarray(np.swapaxes(w, 1, 2))
+    return w
+
+
+def _dft_power(signal: torch.Tensor, basis: np.ndarray, hop: int) -> torch.Tensor:
+    """Power spectrum of hopped frames: signal (B, samples), frame ``t``
+    starting at sample ``t * hop``; basis (2 * bins, taps) -> (B, frames,
+    bins) f32.
 
     The waveform is viewed as ``hop`` interleaved channels, so the stride-hop
     single-channel convolution becomes a stride-1, hop-channel one (the JAX
     package's phase decomposition; exact)."""
     batch, samples = signal.shape
-    bins = n_fft // 2 + 1
-    num_frames = (samples - n_fft) // hop + 1
-    k = -(-n_fft // hop)
+    bins, taps = basis.shape[0] // 2, basis.shape[1]
+    num_frames = (samples - taps) // hop + 1
+    k = -(-taps // hop)
     needed = (num_frames + k - 1) * hop
     x = signal[:, :needed].float()
     if needed > samples:
         x = F.pad(x, (0, needed - samples))
     x = x.reshape(batch, -1, hop).transpose(1, 2)  # (B, hop, hops)
-    w = _constant(_phase_basis(n_fft, hop), signal.device)
+    w = _constant(_phase_basis(basis, hop), signal.device)
     with _true_f32(signal.device):
         y = F.conv1d(x, w)  # (B, 2 * bins, frames)
     power = y[:, :bins] ** 2 + y[:, bins:] ** 2
     return power.transpose(1, 2)
 
 
-def _mel_db(power: torch.Tensor, mel: np.ndarray, amin: float = 1e-10) -> torch.Tensor:
-    """10 log10 of the mel energies of ``power`` (B, frames, bins), floored
-    at ``amin`` — speechbrain's cached (pre top_db) stage."""
+def _mel(power: torch.Tensor, mel: np.ndarray) -> torch.Tensor:
+    """Mel energies of ``power`` (B, frames, bins) in true f32."""
     with _true_f32(power.device):
-        fb = torch.matmul(power, _constant(mel, power.device).t())
-    return 10.0 * torch.log10(torch.clamp(fb, min=amin))
+        return torch.matmul(power, _constant(mel, power.device).t())
+
+
+def _mel_db(power: torch.Tensor, mel: np.ndarray, amin: float = 1e-10) -> torch.Tensor:
+    """10 log10 of the mel energies of ``power``, floored at ``amin`` —
+    speechbrain's cached (pre top_db) stage."""
+    return 10.0 * torch.log10(torch.clamp(_mel(power, mel), min=amin))
 
 
 def speechbrain_log_mel(
@@ -174,10 +293,67 @@ def speechbrain_log_mel(
     padded = F.pad(waveform.float(), (pad, pad))
     num_frames = samples // hop + 1
     need = (num_frames - 1) * hop + n_fft
-    power = _dft_power(padded[:, :need], n_fft, hop)
+    power = _dft_power(padded[:, :need], _hamming_basis(n_fft), hop)
     x_db = _mel_db(power, speechbrain_mel_matrix(num_mels, n_fft, sample_rate, f_min, f_max), amin)
     floor = x_db.amax(dim=(1, 2), keepdim=True) - top_db
     return torch.maximum(x_db, floor)
+
+
+def _preemph_first_kept(x: torch.Tensor, coeff: float) -> torch.Tensor:
+    """NeMo's whole-signal pre-emphasis: the first sample kept as it is."""
+    return torch.cat([x[:, :1], x[:, 1:] - coeff * x[:, :-1]], dim=1)
+
+
+def nemo_log_mel(
+    waveform: torch.Tensor,
+    num_mels: int = 80,
+    n_fft: int = _NEMO_FFT,
+    win_length: int = 400,
+    hop: int = 160,
+    sample_rate: int = 16000,
+    preemph: float = 0.97,
+    log_guard: float = _NEMO_GUARD,
+) -> torch.Tensor:
+    """(B, samples) -> (B, frames, num_mels) log-mel features in NeMo's
+    ``AudioToMelSpectrogramPreprocessor`` convention (the TitaNet
+    frontend): whole-signal pre-emphasis (first sample kept), centred
+    reflect-padded STFT with a symmetric Hann(win_length) window inside
+    ``n_fft``, power spectrum, librosa slaney mel triangles and
+    ``log(x + 2^-24)``. Per-feature normalization is the caller's."""
+    x = waveform.float()
+    if preemph:
+        x = _preemph_first_kept(x, preemph)
+    samples = x.shape[1]
+    pad = n_fft // 2
+    padded = F.pad(x, (pad, pad), mode="reflect")
+    num_frames = samples // hop + 1
+    # the window is zero outside its centred span: the DFT convolution takes
+    # only its win_length taps, from ``left`` samples in
+    left = (n_fft - win_length) // 2
+    need = (num_frames - 1) * hop + win_length
+    power = _dft_power(padded[:, left : left + need], _nemo_basis(n_fft, win_length), hop)
+    return torch.log(_mel(power, librosa_mel_matrix(num_mels, n_fft, sample_rate)) + log_guard)
+
+
+def kaldi_log_mel(
+    waveform: torch.Tensor,
+    num_mels: int = 80,
+    frame_length: int = 400,
+    hop: int = 160,
+    sample_rate: int = 16000,
+    preemphasis: float = 0.97,
+    remove_dc: bool = True,
+) -> torch.Tensor:
+    """(B, samples) -> (B, frames, num_mels) log-mel fbanks in kaldi's
+    conventions (torchaudio.compliance.kaldi.fbank with dither 0, the
+    WeSpeaker frontend): snip-edges framing, per-frame DC removal,
+    pre-emphasis, povey window, power spectrum of a power-of-two DFT, mel
+    triangles in mel space, natural log floored at the f32 epsilon."""
+    padded = 1 << (frame_length - 1).bit_length()
+    basis = _kaldi_basis(frame_length, padded, preemphasis, remove_dc)
+    power = _dft_power(waveform.float(), basis, hop)
+    mel = _mel(power, kaldi_mel_matrix(num_mels, padded, sample_rate))
+    return torch.log(torch.clamp(mel, min=_F32_EPS))
 
 
 # --------------------------------------------------------------------- #
@@ -259,47 +435,72 @@ def fbank_ring_spec(
 
 def _fbank_raw_frames(spec: FbankRingSpec, x: torch.Tensor) -> torch.Tensor:
     """Cached-stage features of the frames starting on x's sample-0 grid:
-    (B, samples) -> (B, (samples - win) // hop + 1, num_mels). The constants
-    are the direct frontend's defaults, as the model calls it."""
-    if spec.kind != "speechbrain":
-        raise NotImplementedError(_QUEUED.format(spec.kind))
-    power = _dft_power(x, spec.win, spec.hop)
-    return _mel_db(power, speechbrain_mel_matrix(spec.num_mels, spec.win, spec.sample_rate))
+    (B, samples) -> (B, (samples - win) // hop + 1, num_mels); for nemo, x
+    is already pre-emphasized. The constants are the direct frontends'
+    defaults, as the models call them."""
+    if spec.kind == "kaldi":
+        padded = 1 << (spec.win - 1).bit_length()
+        power = _dft_power(x, _kaldi_basis(spec.win, padded, 0.97, True), spec.hop)
+        mel = _mel(power, kaldi_mel_matrix(spec.num_mels, padded, spec.sample_rate))
+        return torch.log(torch.clamp(mel, min=_F32_EPS))
+    if spec.kind == "speechbrain":
+        power = _dft_power(x, _hamming_basis(spec.win), spec.hop)
+        return _mel_db(power, speechbrain_mel_matrix(spec.num_mels, spec.win, spec.sample_rate))
+    if spec.kind == "nemo":
+        power = _dft_power(x, _nemo_basis(_NEMO_FFT, spec.win), spec.hop)
+        mel = _mel(power, librosa_mel_matrix(spec.num_mels, _NEMO_FFT, spec.sample_rate))
+        return torch.log(mel + _NEMO_GUARD)
+    raise ValueError(spec.kind)
+
+
+_FILL = {
+    "kaldi": float(np.log(np.finfo(np.float32).eps)),
+    "speechbrain": -100.0,  # 10 log10(1e-10)
+    "nemo": float(np.log(_NEMO_GUARD)),
+}
 
 
 def fbank_ring_fill(spec: FbankRingSpec) -> np.ndarray:
     """The cached-stage value of a frame of all-zero samples — what a
     never-written ring slot holds, so warm-up windows reproduce the direct
     path's zero-filled window. (num_mels,) float32."""
-    if spec.kind != "speechbrain":
-        raise NotImplementedError(_QUEUED.format(spec.kind))
-    return np.full(spec.num_mels, -100.0, np.float32)  # 10 log10(1e-10)
+    return np.full(spec.num_mels, _FILL[spec.kind], np.float32)
 
 
 def fbank_block_raw(spec: FbankRingSpec, tail: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
     """Cached-stage features of the ``fpb`` frames a new block completes.
-    tail: (B, >= tail_conv) raw samples before the block; block:
-    (B, step_samples) -> (B, fpb, num_mels)."""
+    tail: (B, >= tail_conv, + 1 for pre-emphasis) raw samples before the
+    block; block: (B, step_samples) -> (B, fpb, num_mels)."""
+    ctx = 1 if spec.preemph else 0
+    x = torch.cat([tail[:, tail.shape[1] - spec.tail_conv - ctx :], block], dim=1)
     if spec.preemph:
-        raise NotImplementedError(_QUEUED.format(spec.kind))
-    x = torch.cat([tail[:, tail.shape[1] - spec.tail_conv :], block], dim=1)
+        x = _preemph_first_kept(x, spec.preemph)[:, 1:]
     return _fbank_raw_frames(spec, x)[:, : spec.fpb]
 
 
 def fbank_edge_left(spec: FbankRingSpec, head: torch.Tensor) -> torch.Tensor:
-    """The ``edge`` window-leading frames, which read the zero left padding.
-    head: (B, head_len) samples from the window start -> (B, edge, num_mels)."""
+    """The ``edge`` window-leading frames, which read the left padding
+    (zeros, or for nemo the reflected pre-emphasized signal). head:
+    (B, head_len) samples from the window start -> (B, edge, num_mels)."""
     assert spec.edge
     if spec.preemph:
-        raise NotImplementedError(_QUEUED.format(spec.kind))
-    return _fbank_raw_frames(spec, F.pad(head, (spec.pad, 0)))[:, : spec.edge]
+        xp = _preemph_first_kept(head, spec.preemph)
+        x = torch.cat([xp[:, 1 : spec.pad + 1].flip(1), xp], dim=1)  # reflect, no edge repeat
+    else:
+        x = F.pad(head, (spec.pad, 0))
+    return _fbank_raw_frames(spec, x)[:, : spec.edge]
 
 
 def fbank_edge_right(spec: FbankRingSpec, tail: torch.Tensor) -> torch.Tensor:
-    """The ``edge`` window-trailing frames, which read the zero right
-    padding. tail: (B, >= right_need) newest samples -> (B, edge, num_mels)."""
+    """The ``edge`` window-trailing frames, which read the right padding.
+    tail: (B, >= right_need, + 1 for pre-emphasis) newest samples ->
+    (B, edge, num_mels)."""
     assert spec.edge
+    ctx = 1 if spec.preemph else 0
+    t = tail[:, tail.shape[1] - spec.right_need - ctx :]
     if spec.preemph:
-        raise NotImplementedError(_QUEUED.format(spec.kind))
-    t = tail[:, tail.shape[1] - spec.right_need :]
-    return _fbank_raw_frames(spec, F.pad(t, (0, spec.pad)))[:, : spec.edge]
+        xp = _preemph_first_kept(t, spec.preemph)[:, 1:]
+        x = torch.cat([xp, xp[:, -1 - spec.pad : -1].flip(1)], dim=1)  # reflect at the end
+    else:
+        x = F.pad(t, (0, spec.pad))
+    return _fbank_raw_frames(spec, x)[:, : spec.edge]

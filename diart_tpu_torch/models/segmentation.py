@@ -1,5 +1,8 @@
-"""PyanNet speaker segmentation (port of ``diart_tpu/models/segmentation.py``,
-multilabel head; the powerset head is not ported yet)."""
+"""PyanNet speaker segmentation (port of ``diart_tpu/models/segmentation.py``):
+the multilabel head (per-speaker sigmoids) and the powerset head
+(log-softmax over speaker subsets, decoded by
+:func:`diart_tpu_torch.models.powerset.to_multilabel` in the model
+wrapper)."""
 
 from __future__ import annotations
 
@@ -14,9 +17,10 @@ __all__ = ["PyanNet"]
 
 
 class PyanNet(nn.Module):
-    """SincNet -> BiLSTM -> linear x N -> per-speaker sigmoid.
+    """SincNet -> BiLSTM -> linear x N -> per-speaker sigmoid, or with
+    ``powerset_classes > 0`` log-softmax over that many powerset classes.
 
-    waveform (batch, 1, samples) -> activations (batch, frames, speakers)."""
+    waveform (batch, 1, samples) -> (batch, frames, speakers or classes)."""
 
     def __init__(
         self,
@@ -26,10 +30,16 @@ class PyanNet(nn.Module):
         lstm_hidden: int = 128,
         lstm_layers: int = 4,
         linear_dims: tuple = (128, 128),
+        powerset_classes: int = 0,
     ):
         super().__init__()
         self.num_speakers = num_speakers
         self.sample_rate = sample_rate
+        self.compute_dtype = compute_dtype
+        self.lstm_hidden = lstm_hidden
+        self.lstm_layers = lstm_layers
+        self.linear_dims = tuple(linear_dims)
+        self.powerset_classes = powerset_classes
         self.num_linear = len(linear_dims)
         self.sincnet = SincNet(sample_rate=sample_rate, compute_dtype=compute_dtype)
         self.lstm = BiLSTM(60, lstm_hidden, lstm_layers)
@@ -37,7 +47,7 @@ class PyanNet(nn.Module):
         for i, dim in enumerate(linear_dims):
             setattr(self, f"linear{i}", nn.Linear(in_dim, dim))
             in_dim = dim
-        self.classifier = nn.Linear(in_dim, num_speakers)
+        self.classifier = nn.Linear(in_dim, powerset_classes or num_speakers)
 
     @staticmethod
     def num_frames(num_samples: int) -> int:
@@ -50,4 +60,7 @@ class PyanNet(nn.Module):
         x = self.lstm(x).float()
         for i in range(self.num_linear):
             x = F.leaky_relu(getattr(self, f"linear{i}")(x), 0.01)
-        return torch.sigmoid(self.classifier(x)).transpose(0, 1)
+        logits = self.classifier(x)
+        if self.powerset_classes > 0:
+            return torch.log_softmax(logits, dim=-1).transpose(0, 1)
+        return torch.sigmoid(logits).transpose(0, 1)

@@ -107,7 +107,7 @@ class StepOutput(NamedTuple):
 class MultiStreamEngine:
     """Drives B concurrent streams through one batched step.
 
-    segmentation / embedding: registry models on one device (the engine
+    segmentation / embedding: device models on one device (the engine
     runs where they live). ``embedding=None`` is VAD mode: segmentation +
     aggregation, no clustering. The remaining arguments mirror the JAX
     engine's.
@@ -149,6 +149,11 @@ class MultiStreamEngine:
         self.max_speakers = max_speakers
         self.precision = precision if precision is not None else precision_policy.active()
         self.normalize_weights = normalize_embedding_weights
+        if segmentation.host_only or (embedding is not None and embedding.host_only):
+            raise RuntimeError(
+                "MultiStreamEngine requires device models; host-only (ONNX) models run "
+                "through the SpeakerDiarization / VoiceActivityDetection pipeline path instead"
+            )
         self.device = segmentation.device
         self._seg = segmentation
         self._emb = embedding

@@ -6,7 +6,9 @@ modules do, so a tree maps onto them by path. Layouts that differ:
 * flax ``Dense`` kernel (in, out) -> ``nn.Linear`` weight (out, in), with
   or without a bias;
 * flax conv kernel (k, in, out) over NWC -> Conv1d-layout weight
-  (out, in, k) over NCW;
+  (out, in, k) over NCW (a depthwise kernel (k, 1, C) -> (C, 1, k));
+* flax 2-D conv kernel (kh, kw, in, out) over NHWC -> Conv2d-layout
+  weight (out, in, kh, kw) over NCHW;
 * everything else (LSTM ``l{i}_w_ih/w_hh/b``, ``InferenceBatchNorm``
   ``scale/bias/mean/var``, SincNet ``low_hz/band_hz/wav_norm_*/norm*_*``)
   copies as it is.
@@ -33,12 +35,18 @@ __all__ = ["load_flax_params"]
 
 def _flatten(module: nn.Module, tree: dict, prefix: str, out: Dict[str, np.ndarray]) -> None:
     sub = module.get_submodule(prefix[:-1]) if prefix else module
-    if isinstance(sub, (nn.Linear, nn.Conv1d, QuantizableConv)):
+    if isinstance(sub, (nn.Linear, nn.Conv1d, nn.Conv2d, QuantizableConv)):
         leaves = {"kernel"} | ({"bias"} if sub.bias is not None else set())
         if set(tree) != leaves:
             raise KeyError(f"{prefix[:-1]}: the tree has {sorted(tree)}, the module takes {sorted(leaves)}")
         kernel = np.asarray(tree["kernel"])
-        out[prefix + "weight"] = kernel.T if isinstance(sub, nn.Linear) else kernel.transpose(2, 1, 0)
+        if isinstance(sub, nn.Linear):
+            kernel = kernel.T
+        elif kernel.ndim == 4:
+            kernel = kernel.transpose(3, 2, 0, 1)
+        else:
+            kernel = kernel.transpose(2, 1, 0)
+        out[prefix + "weight"] = kernel
         if sub.bias is not None:
             out[prefix + "bias"] = np.asarray(tree["bias"])
         return

@@ -523,8 +523,8 @@ def test_embedding_blocks_on_batches(models):
 
 
 def test_model_device_rules(models):
-    """Blocks run where their model is: another device raises; names that
-    are not registry names are not ported yet and say so."""
+    """Blocks run where their model is: another device raises; pyannote
+    names need pyannote.audio (an optional dependency) and say so."""
     _, (pseg, pemb) = models
     with pytest.raises(ValueError, match="models are on cpu"):
         blocks.SpeakerSegmentation(pseg, device="cuda")
@@ -532,7 +532,7 @@ def test_model_device_rules(models):
         blocks.OverlapAwareSpeakerEmbedding(pemb, device="cuda")
     assert blocks.SpeakerEmbedding(pemb, device="cpu").device.type == "cpu"
     for model_cls in (SegmentationModel, EmbeddingModel):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        with pytest.raises(ImportError, match="pyannote.audio"):
             model_cls.from_pretrained("pyannote/segmentation", device="cpu")
     assert SegmentationModel.from_pretrained("tpu/pyannet", device="cpu", **SEG_KW).num_speakers == 3
 

@@ -5,9 +5,10 @@ subprocesses with ``--cpu``, on the default registry models
 fixed seeds) and synthetic audio: the subprocess CLI tests of
 ``tests/test_cli.py``, ported, each held to the same run made in process
 (RTTM text string-equal: same code, same weights, same audio). Without
-``--cpu`` a CLI needs a GPU and fails here; the flags of features the port
-does not have yet raise; the runtime and the CLIs import without jax,
-diart_tpu, pandas and websockets.
+``--cpu`` a CLI needs a GPU and fails here; ``--powerset`` passes a
+declared powerset checkpoint through and ``--mesh`` (not ported yet)
+raises; the runtime and the CLIs import without jax, diart_tpu, pandas
+and websockets.
 """
 
 import os
@@ -212,15 +213,51 @@ def test_cli_without_card_raises(wav_file, tmp_path, module):
     ("serve", ["--mesh", "2"], "item 6"),
 ])
 def test_unported_flags_raise(monkeypatch, wav_file, tmp_path, module, flags, item):
-    """--powerset and --mesh are kept so the command lines match, and raise
-    NotImplementedError naming their ROADMAP.md item."""
+    """--mesh is kept so the command lines match, and raises
+    NotImplementedError naming its ROADMAP.md item. --powerset (its item,
+    4, is done) is ported: stream and benchmark with a torch checkpoint
+    declared powerset (3, 2) write the text of the same run made in
+    process."""
     import importlib
 
     cli = importlib.import_module(f"diart_tpu_torch.console.{module}")
-    first = {"stream": [str(wav_file), "--no-plot"], "benchmark": [str(tmp_path)], "serve": []}[module]
-    monkeypatch.setattr(sys, "argv", [module, *first, "--cpu", *flags])
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
+    if flags[0] == "--mesh":
+        monkeypatch.setattr(sys, "argv", [module, "--cpu", *flags])
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
+            cli.run()
+        return
+    from torch_replicas import TorchPyanNet
+
+    torch.manual_seed(7)
+    net = TorchPyanNet(num_speakers=7, lstm_hidden=16, lstm_layers=1, linear_dims=(16,))
+    with torch.no_grad():
+        net.classifier.bias[0] = -5.0  # the empty set suppressed: turns are made
+    ckpt = tmp_path / "powerset.pt"
+    torch.save(net.state_dict(), ckpt)
+    seg = SegmentationModel.from_pretrained(str(ckpt), device="cpu", powerset=(3, 2))
+    assert seg.num_speakers == 3
+    emb = EmbeddingModel.from_pretrained("tpu/xvector", device="cpu")
+    config = SpeakerDiarizationConfig(segmentation=seg, embedding=emb, **CONFIG)
+    out = tmp_path / "out"
+    common = ["--cpu", "--segmentation", str(ckpt), *flags, *GEOMETRY, "--output", str(out)]
+    if module == "stream":
+        monkeypatch.setattr(sys, "argv", [module, str(wav_file), "--no-plot", *common])
         cli.run()
+        padding = config.get_file_padding(wav_file)
+        pipeline = SpeakerDiarization(config)
+        pipeline.set_timestamp_shift(-padding[0])
+        source = FileAudioSource(wav_file, SAMPLE_RATE, padding, config.step)
+        want = StreamingInference(pipeline, source, batch_size=1, do_profile=False, show_progress=False)()
+    else:
+        audio_dir = tmp_path / "audio"
+        audio_dir.mkdir()
+        shutil.copy(wav_file, audio_dir / "meeting.wav")
+        monkeypatch.setattr(sys, "argv", [module, str(audio_dir), "--batch-size", "4", *common])
+        cli.run()
+        want = Benchmark(audio_dir, None, tmp_path / "want", show_progress=False, batch_size=4)(
+            SpeakerDiarization, config)[0]
+    text = (out / "meeting.rttm").read_text()
+    assert text and text == want.to_rttm()
 
 
 def test_precision_flag(monkeypatch):
