@@ -106,11 +106,33 @@ Phases (any failure exits non-zero):
    allows); ``python -m diart_tpu_torch.console.convert`` in a subprocess
    (its file equal to the in-process conversion) and the stream CLI with
    ``--powerset 3 2`` (its text equal to the in-process run).
-8. Print ``{"kernels": [...]}`` (with each kernel's launches on the
-   pipelines', the runtime's and the families' runs) and, last,
-   ``{"ok": true, "device": ...}``.
+8. Training and tuning (``drive_training``): each kernel's
+   ``autograd.Function`` (the kernel forward, autograd through its plain
+   version backward) against autograd through the plain version at the
+   main paths' shapes with B=64, bf16 and f32: every input's gradient for a
+   seeded cotangent, the forward's, the backward's and the plain
+   backward's times; the trainers at full width on B=32 chunks of 5 s for
+   6 AdamW steps: ``tpu/pyannet`` with PIT-BCE (f32, lr 1e-3, random
+   targets), ``tpu/xvector`` and ``tpu/ecapa`` with AAM-softmax (bf16
+   trunks, lr 1e-5, 8 tone-plus-noise speakers): finite losses, the last
+   below the first, every parameter's gradient finite and nonzero (SincNet
+   and every LSTM layer's ``w_ih`` / ``w_hh``, every SE-Res2Block
+   parameter), each kernel's launches a step; the forward / backward /
+   update split, device busy and idle share of a step; the trained model's
+   engine equal to a fresh one loaded with its weights; one f32 step of
+   each trainer on 2 samples against the CPU; 3 steps, a checkpoint and 3
+   more bitwise equal to 6 straight; ``python -m
+   diart_tpu_torch.console.tune --multi-stream`` in a subprocess over 4
+   synthesized files with reference RTTMs (3 trials in the study) and an
+   in-process ``Optimizer(multi_stream=True)``: one cached engine for every
+   trial, every ``set_hyperparameters`` under the sync check, each trial's
+   value 100 x |DER| of its RTTM files; ms a trial.
+9. Print ``{"kernels": [...]}`` (with each kernel's launches on the
+   pipelines', the runtime's, the families' and the training runs, and its
+   gradient's error and times) and, last, ``{"ok": true, "device": ...}``.
 
-``--families`` runs only the build and phase 7.
+``--families`` runs only the build and phase 7; ``--training`` only the
+build and phase 8.
 ``--step-timing [--root TREE]`` runs only the step timing of phase 4 (its
 sync check recorded, not fatal), importing ``diart_tpu_torch`` from
 ``TREE``: run it on two trees in the order A B B A to compare commits.
@@ -2306,6 +2328,549 @@ def drive_families(out_dir):
 
 
 # --------------------------------------------------------------------- #
+# Training and tuning: the kernels' gradients, both trainers at full width,
+# the card against the CPU, checkpoints, the tune CLI and the Optimizer
+# --------------------------------------------------------------------- #
+TRAIN_B, TRAIN_STEPS, TRAIN_SAMPLES = 32, 6, 80000  # 32 chunks of 5 s
+# AdamW's first steps move every weight by about lr; at the embedding
+# trunks' fan-ins (up to 1536) that is large: at 1e-3 ECAPA's frames grow
+# tenfold in four steps and saturate its attention's tanh (no gradient
+# below it), and at 1e-4 both AAM losses rise again by the third step on
+# this batch (a CPU run of the same steps gives the same losses); at 1e-5
+# they fall at every step
+TRAIN_LR = {"seg": 1e-3, "xvector": 1e-5, "ecapa": 1e-5}
+TRAIN_CLASSES = 8  # tone-plus-noise speakers, 4 chunks each
+RESUME_B = 8  # the checkpoint check's batch (3 + 3 steps against 6)
+# a Function's gradient is autograd through the plain version on the same
+# inputs, so it is the plain version's own; both sums of index_select's
+# backward (the reflect padding) use atomics on the card, so their order
+# may differ from run to run: within 1e-5 (f32) / 1e-2 (bf16: a flipped
+# rounding of a bf16 gradient is 2**-8 of it) of the largest gradient
+KERNEL_GRAD_TOL = {"f32": 1e-5, "bf16": 1e-2}
+# card against CPU in f32, one step on 2 samples: the loss within 1e-4;
+# each gradient tensor norm-wise within 5e-2, or within 1e-6 of the
+# model's largest entry where its norm is under 1e-6 of the largest (zero
+# but for rounding). The gradients below SincNet's max-pools and leaky
+# ReLUs are ill-conditioned: an input within rounding of a kink or of a
+# pooling tie takes the other side, and on the CPU a 2**-22 relative
+# change of the waveform moves SincNet's gradients by up to 6.3e-4 of
+# their norm; the card rounds differently at every layer. Every updated
+# parameter within 2 x lr and two f32 roundings of its value: Adam's first
+# step is lr * g / (|g| + eps) for each entry, and where |g| is near eps
+# rounding noise moves it by up to lr either way.
+CPU_LOSS_TOL, CPU_GRAD_TOL = 1e-4, 5e-2
+# each counted kernel's launches in one training step (forward only: the
+# backward is the plain versions' autograd)
+TRAIN_LAUNCHES = {
+    "seg": dict(lstm_sweep=4, linear_stats=0, attn_stats=0, se_res2=0, se_res2_staged=0),
+    "xvector": dict(lstm_sweep=0, linear_stats=1, attn_stats=0, se_res2=0, se_res2_staged=0),
+    "ecapa": dict(lstm_sweep=0, linear_stats=0, attn_stats=1, se_res2=3, se_res2_staged=0),
+}
+TUNE_SECONDS = (10, 13, 16, 20)  # the tuning corpus, one file each
+TUNE_TRIALS = 3
+
+
+def kernel_grad_cases(dtype, cgen, gen):
+    """(name, Function call, plain version, inputs) at each kernel's
+    main-path shape with B=64: the inputs all require a gradient."""
+    import torch
+    from diart_tpu_torch.ops import attn_stats, linear_stats, lstm_sweep, se_res2
+
+    n = lambda *s: torch.randn(*s, generator=cgen, device="cuda")
+    proj = n(T_LSTM, 2, B, 4 * H).to(dtype)
+    w_hh = n(2, 4 * H, H) * (0.3 / (H / 8) ** 0.5)
+    x_res2 = n(B, T_ECAPA, C_ECAPA).to(dtype)
+    return [
+        ("lstm_sweep", lambda p, w: lstm_sweep.SweepFunction.apply(p, w, None),
+         lstm_sweep.lstm_sweep_reference, (proj, w_hh)),
+        ("linear_stats", lambda *a: linear_stats.LinearStatsFunction.apply(*a, None, 0.01),
+         linear_stats.linear_stats_reference, stats_inputs(B, T_EMB, C_IN, C_OUT, S, dtype, cgen)),
+        ("attn_stats", lambda *a: attn_stats.AttnStatsFunction.apply(*a, None),
+         attn_stats.attentive_stats_reference, attn_inputs(B, T_ECAPA, C_MFA, H_ATT, S, dtype, cgen)),
+        ("se_res2", lambda x, *p: se_res2.SERes2Function.apply(x, *p, None, 2),
+         lambda x, *p: se_res2.se_res2_block_reference(x, *p, 2), (x_res2, *res2_params(gen, "cuda"))),
+    ]
+
+
+def check_kernel_grads():
+    """Each kernel's Function against autograd through its plain version on
+    the same inputs and a seeded cotangent, bf16 and f32: the gradient of
+    every input, the forward (the kernel), the Function's backward (the
+    plain version recomputed and differentiated) and the plain version's
+    backward alone (CUDA events)."""
+    import torch
+
+    out = {}
+    for key, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        cgen = torch.Generator(device="cuda").manual_seed(11)
+        gen = torch.Generator().manual_seed(11)
+        for name, fn, ref, inputs in kernel_grad_cases(dtype, cgen, gen):
+            leaves = [t.detach().requires_grad_(True) for t in inputs]
+            got_out = fn(*leaves)
+            got_out = got_out if isinstance(got_out, tuple) else (got_out,)
+            cots = [torch.randn(o.shape, generator=cgen, device="cuda").to(o.dtype) for o in got_out]
+            got = torch.autograd.grad(got_out, leaves, cots, retain_graph=True)
+            want_out = ref(*leaves)
+            want_out = want_out if isinstance(want_out, tuple) else (want_out,)
+            want = torch.autograd.grad(want_out, leaves, cots, retain_graph=True)
+            scale = max(w.float().abs().max().item() for w in want)
+            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+            tol = KERNEL_GRAD_TOL[key] * scale
+            bitwise = bitwise_equal(got, want)
+            finite = all(torch.isfinite(g).all().item() for g in got)
+            fwd_ms = time_ms(lambda: fn(*leaves), 3, warmup=1)
+            bwd_ms = time_ms(lambda: torch.autograd.grad(got_out, leaves, cots, retain_graph=True), 3, warmup=1)
+            plain_bwd_ms = time_ms(lambda: torch.autograd.grad(want_out, leaves, cots, retain_graph=True), 3,
+                                   warmup=1)
+            rec = dict(inputs=len(leaves), grad_max_abs_err=err, grad_tol=tol, grad_scale=scale,
+                       bitwise=bitwise, forward_ms=fwd_ms, backward_ms=bwd_ms,
+                       plain_backward_ms=plain_bwd_ms, shapes=[list(t.shape) for t in leaves])
+            out.setdefault(name, {})[key] = rec
+            log(f"{name} gradient [{key}]: {len(leaves)} inputs, max_abs_err={err:.3e} (tol {tol:.3e}, "
+                f"bitwise {bitwise}); forward (kernel) {fwd_ms:.3f} ms, backward (plain version "
+                f"recomputed + autograd) {bwd_ms:.3f} ms, the plain version's backward alone "
+                f"{plain_bwd_ms:.3f} ms")
+            if not (finite and err <= tol):
+                raise AssertionError(f"{name} [{key}]: the Function's gradient disagrees with its plain version")
+            del got_out, want_out, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def seg_batch(batch, frames, gen, device):
+    """A fixed seeded segmentation batch: (B, 1, 5 s) noise waveforms and
+    random 4-speaker targets."""
+    import torch
+
+    waves = 0.1 * torch.randn(batch, 1, TRAIN_SAMPLES, generator=gen)
+    targets = (torch.rand(batch, frames, 4, generator=gen) > 0.6).float()
+    return waves.to(device), targets.to(device)
+
+
+def speaker_batch(batch, rng, device):
+    """(B, 1, 5 s) chunks of TRAIN_CLASSES tone-plus-noise speakers (a
+    fundamental and two harmonics each, random phase), and their labels."""
+    import torch
+
+    t = np.arange(TRAIN_SAMPLES) / 16000.0
+    labels = np.arange(batch) % TRAIN_CLASSES
+    waves = []
+    for k in labels:
+        f0 = 140.0 + 45.0 * k
+        wave = sum(a * np.sin(2 * np.pi * h * f0 * t + rng.uniform(0, 2 * np.pi))
+                   for h, a in ((1, 0.3), (2, 0.15), (3, 0.08)))
+        waves.append(wave + 0.05 * rng.normal(size=t.size))
+    waves = torch.from_numpy(np.stack(waves).astype(np.float32))[:, None, :]
+    return waves.to(device), torch.from_numpy(labels).to(device)
+
+
+def trainer(kind, device, dtype="f32", seed=0):
+    """(model, state, optimizer, step(state) -> (state, loss)) of one trainer
+    at full width: ``seg`` (tpu/pyannet, PIT-BCE) or an embedding family
+    (AAM-softmax over TRAIN_CLASSES)."""
+    from diart_tpu_torch import EmbeddingModel, SegmentationModel
+    from diart_tpu_torch.train import (embedding_train_step, make_embedding_train_state, make_train_state,
+                                       train_step)
+
+    if kind == "seg":
+        model = SegmentationModel.from_registry("tpu/pyannet", device=device, seed=seed)
+        state, opt = make_train_state(model, learning_rate=TRAIN_LR[kind])
+        return model, state, opt, lambda s, w, y: train_step(lambda m, x: m(x), opt, s, w, y)
+    model = EmbeddingModel.from_registry(EMBEDDINGS[kind], device=device, seed=seed + 1, dtype=dtype)
+    state, opt = make_embedding_train_state(model, TRAIN_CLASSES, model.embedding_dim,
+                                            learning_rate=TRAIN_LR[kind], seed=seed)
+    return model, state, opt, lambda s, w, y: embedding_train_step(lambda m, x: m(x), opt, s, w, y)
+
+
+def f32_policy():
+    from diart_tpu_torch.precision import Precision
+
+    return Precision(bf16_lstm=False, bf16_frontend=False)
+
+
+def named_grads(state):
+    """(name, gradient) of every trained parameter, the prototypes included."""
+    pairs = [(n, p.grad) for n, p in state.module.named_parameters()]
+    return pairs + ([("prototypes", state.prototypes.grad)] if state.prototypes is not None else [])
+
+
+def check_all_gradients(state, what):
+    """Every parameter has a finite, nonzero gradient; the smallest norms."""
+    import torch
+
+    bad = [n for n, g in named_grads(state) if g is None or not torch.isfinite(g).all().item()
+           or g.abs().max().item() == 0.0]
+    if bad:
+        raise AssertionError(f"{what}: no finite nonzero gradient for {bad[:12]} ({len(bad)} parameters)")
+    norms = sorted((g.norm().item(), n) for n, g in named_grads(state))
+    return len(norms), norms[:3]
+
+
+def train_full_width(kind, model_dtype, launches_per_step, serve_probe):
+    """TRAIN_STEPS AdamW steps of trainer ``kind`` at full width and B=32 on
+    the card: finite losses, the last below the first, every parameter's
+    gradient finite and nonzero, each kernel's launches a step; then the
+    forward / backward / update split of one more step (CUDA events), its
+    device busy and idle share (a profile), and the trained model serving
+    its new weights."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    counters = launch_counters()
+    model, state, opt, step = trainer(kind, "cuda", model_dtype)
+    if kind == "seg":
+        waves, targets = seg_batch(TRAIN_B, model.num_frames(TRAIN_SAMPLES), torch.Generator().manual_seed(3),
+                                   "cuda")
+    else:
+        waves, targets = speaker_batch(TRAIN_B, np.random.default_rng(3), "cuda")
+    before = serve_probe(model)  # held kernel operands made before training
+    losses, walls, launches = [], [], []
+    for _ in range(TRAIN_STEPS):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, waves, targets)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        launches.append({k: fn.launches for k, fn in counters.items()})
+        losses.append(loss)
+    losses = [float(l) for l in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train[{kind}]: losses {losses} (finite, the last below the first)")
+    if any(l != launches_per_step for l in launches):
+        raise AssertionError(f"train[{kind}]: expected {launches_per_step} launches a step; got {launches}")
+    n_params, smallest = check_all_gradients(state, f"train[{kind}]")
+    f1 = None
+    if kind == "ecapa":  # F1: every SE-Res2Block parameter is trained
+        blocks = [(n, g) for n, g in named_grads(state) if n.startswith("block")]
+        f1 = len(blocks)
+        if not blocks or any(g.abs().max().item() == 0.0 for _, g in blocks):
+            raise AssertionError("train[ecapa]: an SE-Res2Block parameter has no gradient")
+    if kind == "seg":  # F2: SincNet and every LSTM layer's w_ih and w_hh
+        names = {n for n, _ in named_grads(state)}
+        want = {f"lstm.l{i}_{w}" for i in range(model.module.lstm.num_layers) for w in ("w_ih", "w_hh")}
+        if not want <= names or not any(n.startswith("sincnet.") for n in names):
+            raise AssertionError(f"train[seg]: parameters missing from the check: {sorted(want - names)}")
+
+    # one more step, split with CUDA events as train_step runs it
+    module, ev = state.module, [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    opt.zero_grad(set_to_none=True)
+    ev[0].record()
+    if kind == "seg":
+        from diart_tpu_torch.train import pit_bce_loss
+
+        loss = pit_bce_loss(module(waves), targets)
+    else:
+        from diart_tpu_torch.train import aam_softmax_loss
+
+        loss = aam_softmax_loss(module(waves), targets, state.prototypes)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    opt.step()
+    ev[3].record()
+    torch.cuda.synchronize()
+    split = dict(forward_ms=ev[0].elapsed_time(ev[1]), backward_ms=ev[1].elapsed_time(ev[2]),
+                 update_ms=ev[2].elapsed_time(ev[3]))
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, waves, targets)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    dev = device_summary(prof, 1)
+    idle = max(0.0, 1.0 - dev["device_busy_ms"] / prof_wall)
+
+    # the trained model serves its new weights: a no-grad engine step on it
+    # (held operands remade) equals one on a fresh model loaded with them
+    after = serve_probe(model)
+    fresh, *_ = trainer(kind, "cuda", model_dtype, seed=7)
+    fresh.module.load_state_dict(model.module.state_dict())
+    again = serve_probe(fresh)
+    if not bitwise_equal(after, again) or bitwise_equal(after, before):
+        raise AssertionError(f"train[{kind}]: the trained model does not serve its new weights")
+
+    step_ms = float(np.median(walls[1:]))
+    rec = dict(batch=TRAIN_B, steps=TRAIN_STEPS, lr=TRAIN_LR[kind], losses=losses, step_wall_ms=step_ms,
+               step_wall_ms_all=walls, launches_per_step=launches[-1], params_with_grad=n_params,
+               smallest_grad_norms=smallest, split_ms=split, profiled_step_wall_ms=prof_wall,
+               device_busy_ms=dev["device_busy_ms"], device_launches=dev["kernels_per_step"],
+               idle_share=idle, top_device_items=dev["top_device_items"][:8], f1_block_params=f1)
+    log(f"train[{kind}] full width, B={TRAIN_B}, {TRAIN_STEPS} AdamW steps at lr {TRAIN_LR[kind]}: losses "
+        + " ".join(f"{l:.4f}" for l in losses)
+        + f"; every one of {n_params} parameters has a finite nonzero gradient (smallest norms "
+        + ", ".join(f"{n} {v:.2e}" for v, n in smallest) + f"); launches a step {launches[-1]}"
+        + (f"; all {f1} SE-Res2Block parameters trained" if f1 else ""))
+    log(f"train[{kind}] step wall median {step_ms:.2f} ms (all: {', '.join(f'{w:.1f}' for w in walls)}); "
+        f"forward {split['forward_ms']:.2f} ms, backward {split['backward_ms']:.2f} ms, update "
+        f"{split['update_ms']:.2f} ms; profiled step: wall {prof_wall:.2f} ms, device busy "
+        f"{dev['device_busy_ms']:.2f} ms ({dev['kernels_per_step']:.0f} device launches), idle share "
+        f"{idle:.3f}; the trained model serves its new weights (bitwise equal to a fresh load)")
+    for item in rec["top_device_items"][:5]:
+        log(f"  {item['ms_per_step']:8.3f} ms  x{item['per_step']:6.1f}  {item['name']}")
+    del state, opt, model, fresh
+    torch.cuda.empty_cache()
+    return rec
+
+
+def engine_probe(kind):
+    """A no-grad engine probe of a trained model beside a fixed partner:
+    ``probe_frame_scores`` after 10 hops of 2 streams (the segmentation
+    scores, or the embeddings)."""
+    import torch
+    from diart_tpu_torch import EmbeddingModel, MultiStreamEngine, SegmentationModel
+
+    audio = make_audio(np.random.default_rng(9), WARMUP_HOPS + 1, 2, 8000)
+
+    def probe(model):
+        if kind == "seg":
+            seg, emb = model, EmbeddingModel.from_registry("tpu/xvector", device="cuda", seed=1, dtype="bf16")
+        else:
+            seg, emb = SegmentationModel.from_registry("tpu/pyannet", device="cuda", seed=0), model
+        engine = MultiStreamEngine(seg, emb, duration=5.0, step=0.5, latency=0.5, sample_rate=16000,
+                                   max_speakers=20, batch_size=2)
+        state = engine.init_state()
+        for i in range(WARMUP_HOPS):
+            state, _ = engine.step(state, audio[i], run_mask=np.full(2, i + 1 >= WARMUP_HOPS))
+        s, e = engine.probe_frame_scores(state, audio[WARMUP_HOPS])
+        torch.cuda.synchronize()
+        return (s.clone(), e.clone())
+
+    return probe
+
+
+def compare_trainer_cpu(kind):
+    """One f32 step of trainer ``kind`` on 2 samples on the card and on the
+    CPU from the same weights: the loss, every gradient and every updated
+    parameter."""
+    import torch
+
+    out = []
+    for device in ("cuda", "cpu"):
+        model, state, opt, step = trainer(kind, device, "f32")
+        if kind == "seg":
+            waves, targets = seg_batch(2, model.num_frames(TRAIN_SAMPLES), torch.Generator().manual_seed(4), device)
+        else:
+            waves, targets = speaker_batch(2, np.random.default_rng(4), device)
+        state, loss = step(state, waves, targets)
+        grads = {n: g.detach().cpu() for n, g in named_grads(state)}
+        params = {n: p.detach().cpu() for n, p in state.module.named_parameters()}
+        if state.prototypes is not None:
+            params["prototypes"] = state.prototypes.detach().cpu()
+        out.append((float(loss), grads, params))
+    (lc, gc, pc), (lh, gh, ph) = out
+    loss_err = abs(lc - lh) / abs(lh)
+    top_norm = max(g.norm().item() for g in gh.values())
+    largest = max(g.abs().max().item() for g in gh.values())
+    rel, bad = [], []
+    for n, g in gh.items():
+        d = (gc[n] - g)
+        if g.norm().item() >= 1e-6 * top_norm:
+            rel.append((d.norm().item() / g.norm().item(), n))
+            if rel[-1][0] > CPU_GRAD_TOL:
+                bad.append(n)
+        elif d.abs().max().item() > 1e-6 * largest:
+            bad.append(n)
+    rel.sort(reverse=True)
+    lr = TRAIN_LR[kind]
+    param_err = max(((pc[n] - p).abs() - 2.0**-22 * p.abs()).max().item() for n, p in ph.items())
+    log(f"train[{kind}] card vs CPU, one f32 step on 2 samples: loss {lc:.6f} / {lh:.6f} (rel err "
+        f"{loss_err:.2e}, tol {CPU_LOSS_TOL:.0e}); gradients norm-wise within {rel[0][0]:.2e} (tol "
+        f"{CPU_GRAD_TOL:.0e}; largest: " + ", ".join(f"{n} {e:.2e}" for e, n in rel[:3])
+        + f"); updated parameters within {param_err:.2e} beyond two roundings (tol {2 * lr:.0e})")
+    if bad or not (loss_err <= CPU_LOSS_TOL and param_err <= 2 * lr):
+        raise AssertionError(f"train[{kind}] card vs CPU disagree (gradients of {bad})")
+    return dict(loss_rel_err=loss_err, grad_norm_rel_err=rel[0][0], grad_worst=rel[:5],
+                param_max_abs_err=param_err)
+
+
+def check_resume(tmp):
+    """The segmentation trainer at full width, B=8: 3 steps, save, restore
+    into a fresh state (other weights, fresh moments), 3 more steps give
+    the bits of 6 straight steps (cuDNN's deterministic algorithms)."""
+    import torch
+    from diart_tpu_torch.train import restore_train_state, save_train_state
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model, straight, _, step = trainer("seg", "cuda")
+        waves, targets = seg_batch(RESUME_B, model.num_frames(TRAIN_SAMPLES), torch.Generator().manual_seed(5),
+                                   "cuda")
+        losses = []
+        for _ in range(2 * 3):
+            straight, loss = step(straight, waves, targets)
+            losses.append(loss)
+        _, resumed, _, step2 = trainer("seg", "cuda")
+        for _ in range(3):
+            resumed, _ = step2(resumed, waves, targets)
+        path = save_train_state(os.path.join(tmp, "ckpt"), resumed)
+        _, again, _, step3 = trainer("seg", "cuda", seed=9)
+        again = restore_train_state(os.path.join(tmp, "ckpt"), again)
+        tail = []
+        for _ in range(3):
+            again, loss = step3(again, waves, targets)
+            tail.append(loss)
+        same_loss = all(torch.equal(a, b) for a, b in zip(tail, losses[3:]))
+        same_params = bitwise_equal(list(straight.module.state_dict().values()),
+                                    list(again.module.state_dict().values()))
+        diff = max((a - b).abs().max().item() for a, b in zip(straight.module.state_dict().values(),
+                                                               again.module.state_dict().values()))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    log(f"checkpoint: 3 steps, {os.path.basename(path)} saved and restored into a fresh state, 3 more: "
+        f"losses bitwise {same_loss}, parameters bitwise {same_params} (max diff {diff:.3e}) against 6 "
+        f"straight steps")
+    if not (same_loss and same_params and again.step == 6):
+        raise AssertionError("checkpoint: the resumed run differs from the straight one")
+    return dict(losses_bitwise=same_loss, params_bitwise=same_params, file=os.path.basename(path))
+
+
+def write_reference(path, uri, seconds):
+    """A reference RTTM of two speakers taking 2.5 s turns."""
+    with open(path, "w") as f:
+        for k, start in enumerate(np.arange(0.0, seconds - 0.5, 2.5)):
+            dur = min(2.5, seconds - start)
+            f.write(f"SPEAKER {uri} 1 {start:.3f} {dur:.3f} <NA> <NA> spk{k % 2} <NA> <NA>\n")
+
+
+def drive_tuning(tmp):
+    """The tune CLI (subprocess, --multi-stream, TUNE_TRIALS trials) and an
+    in-process Optimizer(multi_stream=True) over 4 synthesized files with
+    reference RTTMs: the CLI exits 0 with its trials in the study; in
+    process one cached engine serves every trial, every
+    set_hyperparameters runs under the sync check, and each trial's value
+    is 100 x |DER| recomputed from its RTTM files."""
+    import sqlite3
+    from pathlib import Path
+
+    from diart_tpu_torch.blocks import SpeakerDiarization
+    from diart_tpu_torch.core import Annotation, load_rttm
+    from diart_tpu_torch.metrics import DiarizationErrorRate
+    from diart_tpu_torch.optim import Optimizer, Study, TPESampler
+
+    corpus, ref = os.path.join(tmp, "tune_audio"), os.path.join(tmp, "tune_ref")
+    os.makedirs(corpus)
+    os.makedirs(ref)
+    rng = np.random.default_rng(8)
+    for k, seconds in enumerate(TUNE_SECONDS):
+        write_seconds(os.path.join(corpus, f"talk{k}.wav"), rng, seconds)
+        write_reference(os.path.join(ref, f"talk{k}.rttm"), f"talk{k}", seconds)
+    db = os.path.join(tmp, "tune.db")
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "diart_tpu_torch.console.tune", corpus, "--reference", ref, "--multi-stream",
+           "--num-iter", str(TUNE_TRIALS), "--storage", db, *RUNTIME_CLI_ARGS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=root,
+                          env=dict(os.environ, NVIDIA_TF32_OVERRIDE="0"))
+    cli_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"tune CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+    with sqlite3.connect(db) as conn:
+        rows = conn.execute("SELECT params, value, state FROM trials").fetchall()
+    if len(rows) != TUNE_TRIALS or any(s != "COMPLETE" for *_, s in rows):
+        raise AssertionError(f"tune CLI: expected {TUNE_TRIALS} complete trials; got {rows}")
+    best = [l for l in proc.stdout.splitlines() if l.startswith("Best")]
+    log(f"tune CLI (subprocess, --multi-stream, default models on the card): exit 0, {len(rows)} trials in the "
+        f"study ({', '.join(f'{v:.3f}' for _, v, _ in rows)}), {cli_wall:.2f} s wall; {'; '.join(best)}")
+
+    config = runtime_pipeline("xvector").config
+    study = Study(os.path.join(tmp, "inproc", "study.db"), sampler=TPESampler(seed=0))
+    optimizer = Optimizer(SpeakerDiarization, corpus, ref, study, base_config=config, multi_stream=True)
+    evaluate, trials, engines, hp_calls = optimizer._evaluate, [], [], []
+
+    def checked_set(engine):
+        original = engine.set_hyperparameters
+
+        def set_hyperparameters(**kw):
+            with no_host_sync():
+                original(**kw)
+            hp_calls.append(kw)
+
+        engine.set_hyperparameters = set_hyperparameters
+
+    def traced(params):
+        out_dir = os.path.join(tmp, f"trial{len(trials)}")
+        optimizer.benchmark.output_path = Path(out_dir)
+        os.makedirs(out_dir)
+        t0 = time.perf_counter()
+        value = evaluate(params)
+        ms = (time.perf_counter() - t0) * 1e3
+        engine = optimizer.benchmark._engine_cache[1]
+        if not engines:
+            checked_set(engine)
+        engines.append(engine)
+        metric, bound = DiarizationErrorRate(), 0.0
+        for k in range(len(TUNE_SECONDS)):
+            uri = f"talk{k}"
+            hyp = load_rttm(os.path.join(out_dir, f"{uri}.rttm")).get(uri, Annotation(uri=uri))
+            reference = load_rttm(os.path.join(ref, f"{uri}.rttm"))[uri]
+            metric(reference, hyp)
+            bound += 2 * 0.0005 * (len(list(hyp.itertracks())) + len(list(reference.itertracks())))
+        recomputed = 100.0 * abs(metric)
+        # the files keep times to 1 ms: each turn's two ends move by at most
+        # 0.5 ms, so the error moves by at most that much per end
+        tol = 100.0 * bound / sum(TUNE_SECONDS) + 1e-9
+        trials.append(dict(params=params, value=value, recomputed=recomputed, tol=tol, ms=ms))
+        if abs(value - recomputed) > tol:
+            raise AssertionError(f"tuning: trial value {value} is not 100 x |DER| of its RTTM files ({recomputed})")
+        return value
+
+    optimizer._evaluate = traced
+    optimizer(num_iter=TUNE_TRIALS, show_progress=False)
+    if len(engines) != TUNE_TRIALS or any(e is not engines[0] for e in engines):
+        raise AssertionError("tuning: the trials did not share one cached engine")
+    if len(hp_calls) != TUNE_TRIALS - 1:
+        raise AssertionError(f"tuning: expected {TUNE_TRIALS - 1} set_hyperparameters calls; got {len(hp_calls)}")
+    ms = [t["ms"] for t in trials]
+    log(f"Optimizer(multi_stream=True), {TUNE_TRIALS} trials over {len(TUNE_SECONDS)} files "
+        f"({sum(TUNE_SECONDS)} s of audio): one cached engine for every trial, {len(hp_calls)} "
+        f"set_hyperparameters under the sync check, values "
+        + ", ".join(f"{t['value']:.4f} (RTTM files: {t['recomputed']:.4f}, tol {t['tol']:.1e})" for t in trials)
+        + f"; ms a trial {', '.join(f'{m:.0f}' for m in ms)}")
+    return dict(cli=dict(wall_s=cli_wall, trials=[dict(params=p, value=v) for p, v, _ in rows]),
+                optimizer=dict(trials=trials, ms_a_trial=ms, set_hyperparameters_checked=len(hp_calls)))
+
+
+def drive_training(out_dir):
+    """Phase 8: the kernels' gradients, both trainers at full width, the
+    card against the CPU, a bitwise resume and tuning."""
+    import shutil
+    import tempfile
+
+    from diart_tpu_torch import precision
+
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(scratch, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=scratch)  # inside the checkout
+    try:
+        t0 = time.perf_counter()
+        grads = check_kernel_grads()
+        log(f"kernel gradients in {time.perf_counter() - t0:.1f} s")
+        runs = {}
+        # segmentation in f32 (the sweep's f32 stream, the f32 frontend); the
+        # embedding trunks in bf16 under the serving policy, as the engines run
+        for kind, dtype, policy in (("seg", "f32", f32_policy()), ("xvector", "bf16", precision.active()),
+                                    ("ecapa", "bf16", precision.active())):
+            t1 = time.perf_counter()
+            with precision.use(policy):
+                runs[kind] = train_full_width(kind, dtype, TRAIN_LAUNCHES[kind], engine_probe(kind))
+            runs[kind]["seconds"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        with precision.use(f32_policy()):
+            vs_cpu = {kind: compare_trainer_cpu(kind) for kind in ("seg", "xvector", "ecapa")}
+            resume = check_resume(tmp)
+        log(f"card vs CPU and checkpoint in {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        tuning = drive_tuning(tmp)
+        log(f"tuning in {time.perf_counter() - t1:.1f} s")
+        return dict(kernel_grads=grads, runs=runs, vs_cpu=vs_cpu, resume=resume, tuning=tuning,
+                    seconds=time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------- #
 KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # the statistics kernels' extra readings: prepared and raw operands, the
 # product alone (a yardstick, not the same function)
@@ -2321,6 +2886,8 @@ def main() -> int:
                         help="with --step-timing: import diart_tpu_torch from this tree (to compare two trees)")
     parser.add_argument("--families", action="store_true",
                         help="only build the kernels and run the families phase (7)")
+    parser.add_argument("--training", action="store_true",
+                        help="only build the kernels and run the training and tuning phase (8)")
     args = parser.parse_args()
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -2380,6 +2947,15 @@ def main() -> int:
         log(f"gpu: {smi}")
         return 0
 
+    if args.training:
+        training = drive_training(args.out)
+        if args.out:
+            with open(os.path.join(args.out, "chip_smoke_training.json"), "w") as f:
+                json.dump(dict(gpu=smi, training=training), f, indent=1)
+        log(f"total {time.perf_counter() - t_start:.1f} s after start-up")
+        log(f"gpu: {smi}")
+        return 0
+
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(0)
     bf16_f32 = (("bf16", torch.bfloat16), ("f32", torch.float32))
@@ -2434,6 +3010,11 @@ def main() -> int:
     families = drive_families(args.out)
     log(f"families phase in {time.perf_counter() - t0:.1f} s")
 
+    # training and tuning: the kernels' gradients, both trainers, the tuner
+    t0 = time.perf_counter()
+    training = drive_training(args.out)
+    log(f"training phase in {time.perf_counter() - t0:.1f} s")
+
     # the main paths run the bf16 LSTM stream and bf16 embedding trunks
     xv, ec = runs["xvector"]["launches"], runs["ecapa"]["launches"]
     on_session = lambda name: {e: sessions[e]["session"]["launches"][name] for e in sessions}
@@ -2442,6 +3023,14 @@ def main() -> int:
     # (the profiler's per-call device time reads a tenth of the CUDA-event
     # time this late in the run, so the new callers' entries give the latter)
     at_shape = lambda rec: {k: rec["bf16"][k] for k in KEYS + ("product_library_ms", "shape")}
+    # each kernel's gradient (bf16 at the top, as the main paths run; f32
+    # beside it) and its launches a training step
+    grads = training["kernel_grads"]
+    on_training = lambda name: {k: r["launches_per_step"][name] for k, r in training["runs"].items()}
+    grad_keys = ("grad_max_abs_err", "grad_tol", "bitwise", "forward_ms", "backward_ms", "plain_backward_ms")
+    with_grad = lambda name: dict(**{k: grads[name]["bf16"][k] for k in grad_keys},
+                                  grad_f32={k: grads[name]["f32"][k] for k in grad_keys},
+                                  launches_training_step=on_training(name))
     on_runtime = lambda name: dict(
         **{f"inference_{k}": r["launches"][name] for k, r in runtime["inference"].items()},
         benchmark_multi_stream=runtime["benchmark"]["launches"][name],
@@ -2454,7 +3043,7 @@ def main() -> int:
              launches_family_paths=on_family("lstm_sweep"),
              **{k: lstm["bf16"][k] for k in KEYS},
              ms_b256=lstm["bf16"]["ms_b256"], ms_b528=lstm["bf16"]["ms_b528"],
-             ms_f32=lstm["f32"]["ms"], plan=lstm["bf16"]["plan"]),
+             ms_f32=lstm["f32"]["ms"], plan=lstm["bf16"]["plan"], **with_grad("lstm_sweep")),
         dict(name="linear_stats", route="cuda", source="diart_tpu_torch/csrc/linear_stats.cu",
              replaces="diart_tpu/ops/pallas_stats.py:163", launches=xv["linear_stats"],
              launches_session_paths=on_session("linear_stats"),
@@ -2462,7 +3051,8 @@ def main() -> int:
              launches_family_paths=on_family("linear_stats"),
              at_xvect_sb=dict(at_shape(families["kernels"]["linear_stats_xvect_sb"]),
                               ms_f32=families["kernels"]["linear_stats_xvect_sb"]["f32"]["ms"]),
-             **{k: stats["bf16"][k] for k in KEYS + STATS_KEYS}, ms_f32=stats["f32"]["ms"]),
+             **{k: stats["bf16"][k] for k in KEYS + STATS_KEYS}, ms_f32=stats["f32"]["ms"],
+             **with_grad("linear_stats")),
         dict(name="attn_stats", route="cuda", source="diart_tpu_torch/csrc/attn_stats.cu",
              replaces="diart_tpu/ops/pallas_attn_stats.py:170", launches=ec["attn_stats"],
              launches_session_paths=on_session("attn_stats"),
@@ -2470,7 +3060,8 @@ def main() -> int:
              launches_family_paths=on_family("attn_stats"),
              at_titanet=dict(at_shape(families["kernels"]["attn_stats_titanet"]),
                              ms_f32=families["kernels"]["attn_stats_titanet"]["f32"]["ms"]),
-             **{k: attn["bf16"][k] for k in KEYS + STATS_KEYS}, ms_f32=attn["f32"]["ms"]),
+             **{k: attn["bf16"][k] for k in KEYS + STATS_KEYS}, ms_f32=attn["f32"]["ms"],
+             **with_grad("attn_stats")),
         dict(name="se_res2", route="cuda", source="diart_tpu_torch/csrc/se_res2.cu",
              replaces="diart_tpu/ops/pallas_res2.py:294", launches=ec["se_res2"],
              launches_session_paths=on_session("se_res2"),
@@ -2478,7 +3069,7 @@ def main() -> int:
              launches_family_paths=on_family("se_res2"),
              **{k: res2["bf16"][k] for k in KEYS}, ms_b8=res2["bf16"]["ms_b8"],
              device_ms=res2["bf16"]["device_ms"],
-             ms_f32=res2["f32"]["ms"], by_launch=res2["bf16"]["by_launch"],
+             ms_f32=res2["f32"]["ms"], by_launch=res2["bf16"]["by_launch"], **with_grad("se_res2"),
              stage_mode=dict(res2["bf16"]["stage"], entry="se_res2_staged",
                              replaces=["scripts/res2_stage_debug.py:141",
                                        "scripts/res2_stage_debug.py:49",
@@ -2492,7 +3083,7 @@ def main() -> int:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(result, engines=runs, probes=probes, sessions=sessions, pipelines=pipelines,
                            pipelines_vs_cpu=pipe_cpu, session_tensor_blocks=session_tensors, runtime=runtime,
-                           families=families,
+                           families=families, training=training,
                            kernels=kernels), f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s after start-up")
     log(f"gpu: {smi}")

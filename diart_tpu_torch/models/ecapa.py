@@ -138,7 +138,8 @@ class _SERes2Block(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.features % self.res2_scale == 0:
-            return fused_se_res2_block(x, self.kernel_operands(x.dtype), self.dilation)
+            ops = self.folded_params() if trained(self.parameters()) else self.kernel_operands(x.dtype)
+            return fused_se_res2_block(x, ops, self.dilation)
         residual = x
         x = self.se(self.tdnn2(self.res2net(self.tdnn1(x))))
         return x + residual

@@ -53,6 +53,19 @@ def _mel_init(num_filters: int, sample_rate: int, min_low_hz: float, min_band_hz
     return hz[:-1].astype(np.float32), np.diff(hz).astype(np.float32)
 
 
+def _clip(v: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``torch.clamp`` whose gradient is half at a bound, as ``jnp.clip``'s
+    (the top filter's high cutoff starts at exactly ``sample_rate / 2``;
+    ``torch.clamp`` passes the whole gradient there). The mean of the clamp
+    and of a copy whose gradient stops at the bounds: the same values.
+    Without autograd it is the clamp alone."""
+    clamped = torch.clamp(v, lo, hi)
+    if not (torch.is_grad_enabled() and v.requires_grad):
+        return clamped
+    inside = torch.where((v > lo) & (v < hi), v, clamped.detach())
+    return 0.5 * (clamped + inside)
+
+
 def sinc_filters(
     low_hz: torch.Tensor,
     band_hz: torch.Tensor,
@@ -65,9 +78,7 @@ def sinc_filters(
     (num_filters, kernel_size), cosine filters first, then sine filters."""
     dev = low_hz.device
     low = min_low_hz + low_hz.float().abs()
-    high = torch.clamp(
-        low + min_band_hz + band_hz.float().abs(), min_low_hz, sample_rate / 2
-    )
+    high = _clip(low + min_band_hz + band_hz.float().abs(), min_low_hz, sample_rate / 2)
     band = (high - low)[:, None]
 
     half = kernel_size // 2

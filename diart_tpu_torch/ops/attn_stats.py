@@ -5,7 +5,10 @@ Counterpart of ``diart_tpu/ops/pallas_attn_stats.py``'s
 a CUDA tensor it launches the hand-written kernel ``csrc/attn_stats.cu``,
 which never writes the (B, T, C) attention logits or products to memory;
 on a CPU tensor it runs the plain version below. There is no fallback
-between the two.
+between the two. Under autograd on a CUDA tensor the call is
+:class:`AttnStatsFunction`: the kernel forward, autograd through the plain
+version backward (as the JAX package's ``custom_vjp``); prepared operands
+are cut off from autograd, so trained parameters go in raw.
 
 The kernel computes the logits on the TF32 tensor cores at f32 accuracy
 (3xTF32: each operand split into a TF32 ``hi`` and ``lo``,
@@ -18,14 +21,16 @@ The kernel computes the logits on the TF32 tensor cores at f32 accuracy
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _build
+from ._grad import plain_vjp, refuse_trained_operands, wants_grad
 
 __all__ = [
     "AttnOperands",
+    "AttnStatsFunction",
     "attentive_stats_reference",
     "fused_attentive_stats",
     "launch_plan",
@@ -94,11 +99,11 @@ def prepare_attn_operands(w2: torch.Tensor, b2: torch.Tensor) -> AttnOperands:
     """Lay ``w2`` (H, C) and ``b2`` (C,) out for the kernel."""
     if w2.dim() != 2 or tuple(b2.shape) != (w2.shape[1],):
         raise ValueError(f"w2 must be (H, C) and b2 (C,); got {tuple(w2.shape)}, {tuple(b2.shape)}")
-    w2f = w2.detach().float().contiguous()
+    w2f = w2.float().contiguous()
     hdim = w2.shape[0]
     wt = torch.nn.functional.pad(w2f.t(), (0, -(-hdim // SLICE_H) * SLICE_H - hdim))
     hi, lo = split_tf32(wt)
-    return AttnOperands(hi, lo, w2f, b2.detach().float().contiguous())
+    return AttnOperands(hi, lo, w2f, b2.float().contiguous())
 
 
 def _signature(lib: ctypes.CDLL) -> None:
@@ -170,6 +175,25 @@ def _launch(x, hidden, ops: AttnOperands, weights):
     return den, s1, s2
 
 
+class AttnStatsFunction(torch.autograd.Function):
+    """The attentive statistics with a gradient (``jax.custom_vjp`` of
+    ``pallas_attn_stats.py``): the forward launches the kernel on CUDA
+    tensors (the plain version on CPU tensors) with ``ops``, or ``w2, b2``
+    prepared for the call; the backward is autograd through
+    :func:`attentive_stats_reference` on the saved raw inputs."""
+
+    @staticmethod
+    def forward(ctx, x, hidden, w2, b2, weights, ops: Optional[AttnOperands] = None):
+        ctx.save_for_backward(x, hidden, w2, b2, weights)
+        if x.device.type == "cpu":
+            return attentive_stats_reference(x, hidden, w2, b2, weights)
+        return _launch(x, hidden, ops if ops is not None else prepare_attn_operands(w2, b2), weights)
+
+    @staticmethod
+    def backward(ctx, g_den, g_s1, g_s2):
+        return (*plain_vjp(ctx, attentive_stats_reference, (g_den, g_s1, g_s2)), None)
+
+
 def fused_attentive_stats(x, hidden, w2, b2=None, weights=None):
     """``(den, s1, s2)`` of channel-attentive weighted pooling without
     materializing the (B, T, C) logits or products.
@@ -184,6 +208,8 @@ def fused_attentive_stats(x, hidden, w2, b2=None, weights=None):
         raise ValueError("prepared operands carry b2")
     if ops is None and b2 is None:
         raise ValueError("raw operands need b2")
+    if ops is not None:
+        refuse_trained_operands(ops, "the prepared attention operands (AttnOperands)")
     w2r, b2r = (ops.w2, ops.b2) if ops is not None else (w2, b2)
     if x.dim() != 3 or hidden.dim() != 3 or w2r.dim() != 2 or weights is None or weights.dim() != 3:
         raise ValueError("x must be (B, T, C), hidden (B, T, H), w2 (H, C), weights (B, S, T)")
@@ -203,6 +229,8 @@ def fused_attentive_stats(x, hidden, w2, b2=None, weights=None):
         return attentive_stats_reference(x, hidden, w2r, b2r, weights)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    if wants_grad(x, hidden, w2r, b2r, weights):
+        return AttnStatsFunction.apply(x, hidden, w2r, b2r, weights, ops)
     if ops is None:
         ops = prepare_attn_operands(w2, b2)
     return _launch(x, hidden, ops, weights)

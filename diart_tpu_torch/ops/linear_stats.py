@@ -4,19 +4,25 @@ Counterpart of ``diart_tpu/ops/pallas_stats.py``'s ``fused_linear_stats``,
 equal to its ``linear_stats_reference``. On a CUDA tensor it launches the
 hand-written kernel ``csrc/linear_stats.cu``, which never writes the
 (B, T, C) projection to memory; on a CPU tensor it runs the plain einsum
-version below. There is no fallback between the two.
+version below. There is no fallback between the two. Under autograd on a
+CUDA tensor the call is :class:`LinearStatsFunction`: the kernel forward,
+autograd through the plain version backward (as the JAX package's
+``custom_vjp``); prepared operands are cut off from autograd, so trained
+parameters go in raw.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _build
+from ._grad import plain_vjp, refuse_trained_operands, wants_grad
 
 __all__ = [
+    "LinearStatsFunction",
     "StatsOperands",
     "fused_linear_stats",
     "launch_plan",
@@ -72,8 +78,8 @@ def prepare_stats_operands(w, b, scale, shift, dtype: torch.dtype) -> StatsOpera
     if dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16; got {dtype}")
     ldw = channels if dtype == torch.float32 else -(-channels // 8) * 8
-    f32 = lambda v: v.detach().float().contiguous()
-    wc = torch.nn.functional.pad(w.detach().to(dtype), (0, ldw - channels)).contiguous()
+    f32 = lambda v: v.float().contiguous()
+    wc = torch.nn.functional.pad(w.to(dtype), (0, ldw - channels)).contiguous()
     return StatsOperands(wc, f32(b), f32(scale), f32(shift), channels)
 
 
@@ -157,6 +163,30 @@ def _launch(x, ops: StatsOperands, weights, negative_slope: float):
     return s1, s2
 
 
+class LinearStatsFunction(torch.autograd.Function):
+    """The fused head with a gradient (``jax.custom_vjp`` of
+    ``pallas_stats.py``): the forward launches the kernel on CUDA tensors
+    (the plain version on CPU tensors) with ``ops``, or the raw parameters
+    prepared for the call; the backward is autograd through
+    :func:`linear_stats_reference` on the saved raw inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, scale, shift, weights, ops: Optional[StatsOperands] = None,
+                negative_slope: float = 0.01):
+        ctx.save_for_backward(x, w, b, scale, shift, weights)
+        ctx.negative_slope = negative_slope
+        if x.device.type == "cpu":
+            return linear_stats_reference(x, w, b, scale, shift, weights, negative_slope)
+        if ops is None:
+            ops = prepare_stats_operands(w, b, scale, shift, x.dtype)
+        return _launch(x, ops, weights, negative_slope)
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        ref = lambda *args: linear_stats_reference(*args, ctx.negative_slope)
+        return (*plain_vjp(ctx, ref, (g1, g2)), None, None)
+
+
 def fused_linear_stats(x, w, b=None, scale=None, shift=None, weights=None,
                        negative_slope: float = 0.01):
     """Weighted moments of ``scale * leaky(x @ w + b) + shift`` without
@@ -178,12 +208,15 @@ def fused_linear_stats(x, w, b=None, scale=None, shift=None, weights=None,
             raise ValueError("prepared operands carry the bias and the affine")
         if ops.w.dtype != x.dtype:
             raise ValueError(f"the operands were prepared for {ops.w.dtype}; x is {x.dtype}")
+        refuse_trained_operands(ops, "the prepared stats operands (StatsOperands)")
         raw = (ops.w[:, :ops.channels], ops.bias, ops.scale, ops.shift)
     _check(x, *raw, weights)
     if x.device.type == "cpu":
         return linear_stats_reference(x, *raw, weights, negative_slope)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    if wants_grad(x, *raw, weights):
+        return LinearStatsFunction.apply(x, *raw, weights, ops, negative_slope)
     if ops is None:
         ops = prepare_stats_operands(w, b, scale, shift, x.dtype)
     return _launch(x, ops, weights, negative_slope)

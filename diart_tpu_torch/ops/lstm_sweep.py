@@ -4,7 +4,11 @@ Counterpart of ``diart_tpu/ops/pallas_lstm.py``'s ``lstm_sweep_tm``: the
 time-major sweep over UNREVERSED projections, equal to its ``_tm_reference``.
 On a CUDA tensor it launches the hand-written kernel ``csrc/lstm_sweep.cu``
 (one persistent launch per call); on a CPU tensor it runs the plain
-step-by-step version below. There is no fallback between the two.
+step-by-step version below. There is no fallback between the two. Under
+autograd on a CUDA tensor the call is :class:`SweepFunction`: the kernel
+forward, autograd through the plain version backward (as the JAX
+package's ``custom_vjp``); the packed operand is cut off from autograd, so a
+trained ``w_hh`` goes in raw.
 
 The kernel reads ``w_hh`` in a layout of its own: :func:`pack_w_hh` makes it
 (:class:`SweepWeights`) and ``lstm_sweep_tm`` takes either the raw
@@ -26,13 +30,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
 from . import _build
+from ._grad import plain_vjp, refuse_trained_operands, wants_grad
 
 __all__ = [
+    "SweepFunction",
     "SweepWeights",
     "launch_plan",
     "lstm_sweep_reference",
@@ -59,16 +65,16 @@ def lstm_sweep_reference(proj_t: torch.Tensor, w_hh: torch.Tensor) -> torch.Tens
     w = w_hh.to(dt).float()  # (2, 4H, H)
     h = torch.zeros(2, batch, hidden, device=proj_t.device)
     c = torch.zeros_like(h)
-    out = torch.empty(time, 2, batch, hidden, dtype=dt, device=proj_t.device)
+    fwd, bwd = [], []  # stacked at the end, so autograd keeps no copy of the output a step
     for t in range(time):
         xt = torch.stack([proj_t[t, 0], proj_t[time - 1 - t, 1]]).float()
         gates = xt + torch.bmm(h.to(dt).float(), w.transpose(1, 2))
         i, f, g, o = gates.split(hidden, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
-        out[t, 0] = h[0].to(dt)
-        out[time - 1 - t, 1] = h[1].to(dt)
-    return out
+        fwd.append(h[0].to(dt))
+        bwd.append(h[1].to(dt))
+    return torch.stack([torch.stack(fwd), torch.stack(bwd[::-1])], dim=1)
 
 
 def _signature(lib: ctypes.CDLL) -> None:
@@ -123,7 +129,7 @@ def pack_w_hh(w_hh: torch.Tensor, dtype: torch.dtype) -> SweepWeights:
     if tuple(w_hh.shape) != (2, 4 * hidden, hidden):
         raise ValueError(f"w_hh must be (2, 4H, H); got {tuple(w_hh.shape)}")
     route = _route(hidden, dtype)
-    w = w_hh.detach().to(dtype)
+    w = w_hh.to(dtype)
     if route == "mma":
         row, col = _fragment_index(hidden, w.device)
         data = w[:, row, col].contiguous()
@@ -168,6 +174,45 @@ def packed_gates(packed: SweepWeights, h: torch.Tensor) -> torch.Tensor:
     return acc.reshape(2, -1, 4 * hidden)
 
 
+def _launch(proj_t: torch.Tensor, packed: SweepWeights) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors."""
+    time, _, batch, gates4 = proj_t.shape
+    hidden = gates4 // 4
+    lib = _build.library("lstm_sweep", _signature)
+    dev = proj_t.device
+    if proj_t.data_ptr() % 16:  # the kernel copies the stream in 16-byte pieces
+        proj_t = proj_t.clone()
+    out = torch.empty(time, 2, batch, hidden, dtype=proj_t.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.lstm_sweep_launch(
+            proj_t.data_ptr(), packed.data.data_ptr(), out.data_ptr(), time, batch, hidden,
+            _DTYPES[proj_t.dtype], _ROUTES[packed.route], _build.num_sms(dev),
+            _build.stream_handle(dev),
+        )
+    _build.check(lib, "lstm_sweep", err)
+    lstm_sweep_tm.launches += 1
+    return out
+
+
+class SweepFunction(torch.autograd.Function):
+    """The sweep with a gradient (``jax.custom_vjp`` of ``pallas_lstm.py``):
+    the forward launches the kernel on CUDA tensors (the plain version on
+    CPU tensors) with ``packed``, or ``w_hh`` packed for the call; the
+    backward is autograd through :func:`lstm_sweep_reference` on the saved
+    ``proj_t`` and ``w_hh``."""
+
+    @staticmethod
+    def forward(ctx, proj_t, w_hh, packed: Optional[SweepWeights] = None):
+        ctx.save_for_backward(proj_t, w_hh)
+        if proj_t.device.type == "cpu":
+            return lstm_sweep_reference(proj_t, w_hh)
+        return _launch(proj_t, packed if packed is not None else pack_w_hh(w_hh, proj_t.dtype))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (*plain_vjp(ctx, lstm_sweep_reference, (grad,)), None)
+
+
 def lstm_sweep_tm(proj_t: torch.Tensor, w_hh: Union[torch.Tensor, SweepWeights]) -> torch.Tensor:
     """Time-major bidirectional sweep.
 
@@ -196,6 +241,8 @@ def lstm_sweep_tm(proj_t: torch.Tensor, w_hh: Union[torch.Tensor, SweepWeights])
         )
     if (w_hh.data if packed else w_hh).device != proj_t.device:
         raise ValueError("proj_t and w_hh must be on the same device")
+    if packed is not None:
+        refuse_trained_operands(packed, "the packed w_hh (SweepWeights)")
     if proj_t.device.type == "cpu":
         return lstm_sweep_reference(proj_t, unpack_w_hh(packed) if packed else w_hh)
     if proj_t.device.type != "cuda":
@@ -204,22 +251,9 @@ def lstm_sweep_tm(proj_t: torch.Tensor, w_hh: Union[torch.Tensor, SweepWeights])
         raise ValueError("proj_t must be contiguous")
     if hidden > KERNEL_MAX_HIDDEN:
         raise ValueError(f"the sweep kernel takes H <= {KERNEL_MAX_HIDDEN}; got {hidden}")
-    lib = _build.library("lstm_sweep", _signature)
-    dev = proj_t.device
-    if packed is None:
-        packed = pack_w_hh(w_hh, proj_t.dtype)
-    if proj_t.data_ptr() % 16:  # the kernel copies the stream in 16-byte pieces
-        proj_t = proj_t.clone()
-    out = torch.empty(time, 2, batch, hidden, dtype=proj_t.dtype, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.lstm_sweep_launch(
-            proj_t.data_ptr(), packed.data.data_ptr(), out.data_ptr(), time, batch, hidden,
-            _DTYPES[proj_t.dtype], _ROUTES[packed.route], _build.num_sms(dev),
-            _build.stream_handle(dev),
-        )
-    _build.check(lib, "lstm_sweep", err)
-    lstm_sweep_tm.launches += 1
-    return out
+    if wants_grad(proj_t, None if packed else w_hh):
+        return SweepFunction.apply(proj_t, unpack_w_hh(packed) if packed else w_hh, packed)
+    return _launch(proj_t, packed if packed is not None else pack_w_hh(w_hh, proj_t.dtype))
 
 
 lstm_sweep_tm.launches = 0

@@ -5,7 +5,11 @@ equal to its ``se_res2_block_reference``; the stage mode is the counterpart
 of ``staged`` / ``reference_stage`` (``scripts/res2_stage_debug.py``). On
 a CUDA tensor they launch the hand-written kernels of ``csrc/se_res2.cu``;
 on a CPU tensor they run the plain versions below. There is no fallback
-between the two.
+between the two. Under autograd on a CUDA tensor the block is
+:class:`SERes2Function`: the kernel forward, autograd through the plain
+version backward (as the JAX package's ``custom_vjp``); prepared operands
+are cut off from autograd, so trained parameters go in as the raw 16-tuple.
+The stage mode is a diagnostic and has no gradient.
 
 ``params`` is the 16-tuple ``(w1, b1, a1, c1, wg, bg, ag, cg, w2, b2, a2,
 c2, ws1, bs1, ws2, bs2)`` of the JAX package: w1/w2 (C, C) as (in, out);
@@ -31,10 +35,12 @@ from typing import NamedTuple, Sequence, Union
 import torch
 
 from . import _build
+from ._grad import plain_vjp, refuse_trained_operands, wants_grad
 from .functional import reflect_index
 
 __all__ = [
     "Res2Operands",
+    "SERes2Function",
     "cascade_tile",
     "cascade_tiled",
     "fused_se_res2_block",
@@ -207,7 +213,12 @@ def _operands(x, params: Params, dilation: int) -> Res2Operands:
         raise ValueError(f"x must be (B, T, C); got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16; got {x.dtype}")
-    ops = params if isinstance(params, Res2Operands) else kernel_operands(params, x.dtype)
+    if isinstance(params, Res2Operands):
+        refuse_trained_operands(params, "the prepared block operands (Res2Operands)")
+        ops = params
+    else:
+        with torch.no_grad():  # the kernel's layout; a gradient goes through the raw tuple
+            ops = kernel_operands(params, x.dtype)
     if ops.w1.dtype != x.dtype:
         raise TypeError(f"the operands were laid out for {ops.w1.dtype}, x is {x.dtype}")
     batch, time, chans = x.shape
@@ -239,15 +250,9 @@ def _aligned(x):
     return xc.clone() if xc.data_ptr() % 16 else xc
 
 
-def fused_se_res2_block(x, params: Params, dilation: int):
-    """One SE-Res2Block of x (B, T, C) f32 or bf16 with the 16-tuple
-    ``params`` or its :class:`Res2Operands`; returns (B, T, C) in x's
-    dtype. Counts one launch per call (the block's five kernels run on the caller's stream). Two
-    (B, T, C) buffers: the output, which holds z1 and z2 on the way, and the
-    concat."""
-    k = _operands(x, params, dilation)
-    if x.device.type == "cpu":
-        return se_res2_block_reference(x, *k.params(), dilation)
+def _launch(x, k: Res2Operands, dilation: int):
+    """Launch the block's kernels on CUDA tensors. Two (B, T, C) buffers:
+    the output, which holds z1 and z2 on the way, and the concat."""
     batch, time, chans = x.shape
     groups, taps = k.wg.shape[:2]
     hidden = k.ws1.shape[1]
@@ -270,6 +275,42 @@ def fused_se_res2_block(x, params: Params, dilation: int):
     return out
 
 
+class SERes2Function(torch.autograd.Function):
+    """The block with a gradient (``jax.custom_vjp`` of ``pallas_res2.py``):
+    ``apply(x, *params, ops, dilation)``. The forward launches the kernels
+    on CUDA tensors (the plain version on CPU tensors) with ``ops``, or the
+    16-tuple ``params`` laid out for the call; the backward is autograd
+    through :func:`se_res2_block_reference` on the saved x and ``params``."""
+
+    @staticmethod
+    def forward(ctx, x, *args):
+        *params, ops, dilation = args
+        ctx.save_for_backward(x, *params)
+        ctx.dilation = dilation
+        if x.device.type == "cpu":
+            return se_res2_block_reference(x, *params, dilation)
+        return _launch(x, ops if ops is not None else kernel_operands(params, x.dtype), dilation)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ref = lambda *args: se_res2_block_reference(*args, ctx.dilation)
+        return (*plain_vjp(ctx, ref, (grad,)), None, None)
+
+
+def fused_se_res2_block(x, params: Params, dilation: int):
+    """One SE-Res2Block of x (B, T, C) f32 or bf16 with the 16-tuple
+    ``params`` or its :class:`Res2Operands`; returns (B, T, C) in x's
+    dtype. Counts one launch per call (the block's five kernels run on the
+    caller's stream)."""
+    k = _operands(x, params, dilation)
+    raw = k.params() if isinstance(params, Res2Operands) else tuple(params)
+    if x.device.type == "cpu":
+        return se_res2_block_reference(x, *raw, dilation)
+    if wants_grad(x, *raw):
+        return SERes2Function.apply(x, *raw, k, dilation)
+    return _launch(x, k, dilation)
+
+
 fused_se_res2_block.launches = 0
 
 
@@ -280,6 +321,8 @@ def se_res2_staged(x, params: Params, dilation: int, stage: int):
     k = _operands(x, params, dilation)
     if stage < 0:
         raise ValueError(f"stage must be >= 0; got {stage}")
+    if wants_grad(x, *(() if isinstance(params, Res2Operands) else params)):
+        raise TypeError("se_res2_staged is a diagnostic and has no gradient; call it under torch.no_grad()")
     if x.device.type == "cpu":
         return se_res2_stage_reference(x, k.params(), dilation, stage)
     batch, time, chans = x.shape

@@ -484,16 +484,12 @@ class Benchmark:
                     pred.write_rttm(out)
         return predictions
 
-    def __call__(
-        self,
-        pipeline_class: type,
-        config: blocks.PipelineConfig,
-        metric: Optional[BaseMetric] = None,
-    ) -> Union["pd.DataFrame", List[Annotation]]:
+    def predict(self, pipeline_class: type, config: blocks.PipelineConfig) -> List[Annotation]:
+        """Every file's prediction (written to the output path, where there
+        is one), unscored: the files as one engine session with
+        ``multi_stream``, else one after another through a pipeline."""
         if self.multi_stream:
-            predictions = self.run_multi_stream(pipeline_class, config)
-            metric = pipeline_class.suggest_metric() if metric is None else metric
-            return self.evaluate(predictions, metric)
+            return self.run_multi_stream(pipeline_class, config)
 
         audio_file_paths = self.get_file_paths()
         num_files = len(audio_file_paths)
@@ -505,8 +501,16 @@ class Benchmark:
             desc = f"Streaming {filepath.stem} ({i + 1}/{num_files})"
             progress = TQDMProgressBar(desc, leave=False, do_close=True)
             predictions.append(self.run_single(pipeline, filepath, progress))
+        return predictions
 
-        metric = pipeline.suggest_metric() if metric is None else metric
+    def __call__(
+        self,
+        pipeline_class: type,
+        config: blocks.PipelineConfig,
+        metric: Optional[BaseMetric] = None,
+    ) -> Union["pd.DataFrame", List[Annotation]]:
+        predictions = self.predict(pipeline_class, config)
+        metric = pipeline_class.suggest_metric() if metric is None else metric
         return self.evaluate(predictions, metric)
 
 
