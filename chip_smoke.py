@@ -6,7 +6,7 @@ Run from the repository root with no arguments (``python3 chip_smoke.py``);
 
 Phases (any failure exits non-zero):
 
-1. Build the four hand-written kernels (``diart_tpu_torch/csrc/*.cu``, one
+1. Build the five hand-written kernels (``diart_tpu_torch/csrc/*.cu``, one
    ``nvcc`` each, in parallel) and print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes of the main paths with 64 streams: the LSTM sweep at T=293,
@@ -127,12 +127,38 @@ Phases (any failure exits non-zero):
    in-process ``Optimizer(multi_stream=True)``: one cached engine for every
    trial, every ``set_hyperparameters`` under the sync check, each trial's
    value 100 x |DER| of its RTTM files; ms a trial.
-9. Print ``{"kernels": [...]}`` (with each kernel's launches on the
+9. Scale-out and int8 (``drive_scaleout_int8``): ``int8_conv`` at every
+   quantizable site of the five embedding families at full width, B=64,
+   bf16, on the inputs one forward hands each site (one check a distinct
+   geometry): ``quantize_rows`` and the int32 sums bitwise against the
+   plain version on the card, the dequantized output too; its ms beside
+   its bound, the plain version's, cuDNN's bf16 convolution of the shape
+   and ``torch._int_mm`` over the unfolded input where the shape allows;
+   each family's engine (``tpu/pyannet`` beside the seeded registry model)
+   at B=64 with ``Precision(int8_trunk=True)``: 12 hops under the sync
+   check with every kernel's launches a step held (``int8_conv``: the
+   family's sites on the card's route), utterance embeddings against the
+   switch off (cosine >= 0.999), the same engine for 2 streams in f32
+   against the CPU (the CPU's sites handed the card's inputs), step wall,
+   device busy and idle share with the switch on and off (a record); the
+   x-vector and ECAPA engines at B=64 cut into 2 shards of one card
+   (``streams_mesh(devices=["cuda:0"] * 2)``) against the unsharded ones
+   (every sharded step under the sync check, each kernel on every shard,
+   scores within 1e-5, the same session text) and the server of
+   ``serve --mesh 2`` driven by ``_tick`` with stub clients (the unsharded
+   session's text); two processes in a gloo group with CUDA tensors (each
+   owning half the streams: their rows equal one process's engine; one
+   data-parallel AAM step of 32 as 2 x 16: every gradient within 1e-5 of
+   one process's) and a one-process NCCL group that all-reduces once
+   (NCCL cannot put two ranks on one GPU).
+10. Print ``{"kernels": [...]}`` (with each kernel's launches on the
    pipelines', the runtime's, the families' and the training runs, and its
-   gradient's error and times) and, last, ``{"ok": true, "device": ...}``.
+   gradient's error and times; ``int8_conv``'s at every site) and, last,
+   ``{"ok": true, "device": ...}``.
 
 ``--families`` runs only the build and phase 7; ``--training`` only the
-build and phase 8.
+build and phase 8; ``--scaleout`` only the build and phase 9
+(``--rank-child`` is phase 9's own way to start its processes).
 ``--step-timing [--root TREE]`` runs only the step timing of phase 4 (its
 sync check recorded, not fatal), importing ``diart_tpu_torch`` from
 ``TREE``: run it on two trees in the order A B B A to compare commits.
@@ -154,7 +180,8 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}  # tensor cores; f32 outside them
+# tensor cores (int8: operations); f32 outside them
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12, "int8": 1979e12}
 T_LSTM, B, H = 293, 64, 128
 T_EMB, C_IN, C_OUT, S = 279, 512, 1500, 4
 T_ECAPA, C_ECAPA, C_MFA, H_ATT, RES2_SCALE, SE_HIDDEN = 501, 512, 1536, 128, 8, 128
@@ -734,14 +761,14 @@ def make_audio(rng, hops, batch, step):
 EMBEDDINGS = {"xvector": "tpu/xvector", "ecapa": "tpu/ecapa"}
 
 
-def build_engine(device, batch, emb="xvector", seg_dtype="f32", emb_dtype="bf16", precision=None):
+def build_engine(device, batch, emb="xvector", seg_dtype="f32", emb_dtype="bf16", precision=None, mesh=None):
     from diart_tpu_torch import EmbeddingModel, MultiStreamEngine, SegmentationModel
 
     seg = SegmentationModel.from_registry("tpu/pyannet", device=device, seed=0, dtype=seg_dtype)
     model = EmbeddingModel.from_registry(EMBEDDINGS[emb], device=device, seed=1, dtype=emb_dtype)
     return MultiStreamEngine(
         seg, model, duration=5.0, step=0.5, latency=0.5, sample_rate=16000,
-        max_speakers=20, batch_size=batch, precision=precision,
+        max_speakers=20, batch_size=batch, precision=precision, mesh=mesh,
     )
 
 
@@ -1193,7 +1220,7 @@ def drive_session(emb, audio, out_dir):
             run, chunk = pending.run_mask, pending.chunk_index
             steady = np.flatnonzero(run & (chunk > 0))
             first_rows_seen += int((run & (chunk == 0)).sum())
-            bits = pending.fetch[0].numpy()
+            bits = np.concatenate([t.numpy() for t in pending.fetch[0]])  # one piece a shard
             scores = pending.device_aggregated.cpu().numpy()
             host = np.packbits((scores > np.float32(SESSION_TAU)).reshape(B, -1), axis=1)
             if not np.array_equal(bits, host):
@@ -1233,8 +1260,8 @@ def drive_session(emb, audio, out_dir):
                                     ("native_scores", t9 - t8), ("numpy_scores", t10 - t9)):
                         timings[key].append(dt * 1e3)
                     fetch_bytes = dict(
-                        bits=sum(t.numel() * t.element_size() for t in pending.fetch),
-                        scores=sum(t.numel() * t.element_size() for t in s_pending.fetch))
+                        bits=sum(t.numel() * t.element_size() for g in pending.fetch for t in g),
+                        scores=sum(t.numel() * t.element_size() for g in s_pending.fetch for t in g))
             lines += sum(t.count("\n") for t in texts if t)
         sync_texts.append(texts)
         # two hops in flight; the reset lands between a dispatch and its harvest
@@ -2871,6 +2898,655 @@ def drive_training(out_dir):
 
 
 # --------------------------------------------------------------------- #
+# --------------------------------------------------------------------- #
+# Phase 9: scale-out and int8: the int8 convolution at every quantizable
+# site, the five families with the int8 trunk, the sharded engine and the
+# server on one card, process groups on one card
+# --------------------------------------------------------------------- #
+INT8_FAMILIES = ("xvector", "ecapa", "resnet34", "titanet", "xvect-sb")
+# the int8 convolutions of one step on the card's route: the families'
+# QuantizableConv sites outside the fused kernels (ECAPA's SE-Res2Blocks and
+# the x-vector families' last TDNN run in se_res2 / linear_stats)
+INT8_SITES = {"xvector": 4, "ecapa": 2, "resnet34": 35, "titanet": 14, "xvect-sb": 4}
+INT8_OTHER_LAUNCHES = {  # the other kernels' launches a step beside tpu/pyannet's 4 sweeps
+    "xvector": dict(linear_stats=1), "ecapa": dict(attn_stats=1, se_res2=3), "resnet34": {},
+    "titanet": dict(attn_stats=1), "xvect-sb": dict(linear_stats=1)}
+INT8_HOPS = 12
+INT8_COS = 0.999  # tests/test_quant.py's embedding fidelity bound
+INT8_CPU_TOL = 1e-4
+INT8_MAIN_SITE = "xvector.tdnn1"  # the kernel line's numbers: the port's main engine
+MESH_SLOTS = 2
+MESH_HOPS = 14
+DP_B = 32
+
+
+def int8_engine(family, device, batch, dtype="bf16", precision=None, mesh=None):
+    """``tpu/pyannet`` beside the registry model of ``family`` (seeded, full
+    width), 5 s / 0.5 s, 20 speakers, the session thresholds."""
+    from diart_tpu_torch import EmbeddingModel, MultiStreamEngine, SegmentationModel
+
+    seg = SegmentationModel.from_registry("tpu/pyannet", device=device, seed=0)
+    emb = EmbeddingModel.from_registry(f"tpu/{family}", device=device, seed=1, dtype=dtype)
+    return MultiStreamEngine(seg, emb, duration=5.0, step=0.5, latency=0.5, sample_rate=16000,
+                             max_speakers=20, batch_size=batch, precision=precision, mesh=mesh,
+                             tau_active=SESSION_TAU, rho_update=0.05)
+
+
+def int8_counters() -> dict:
+    from diart_tpu_torch.ops import quant
+
+    return dict(launch_counters(), int8_conv=quant.int8_conv)
+
+
+def quantizable_sites(module):
+    """The QuantizableConv modules the int8 path takes, by name."""
+    from diart_tpu_torch.models.common import QuantizableConv
+
+    return [(n, m) for n, m in module.named_modules() if isinstance(m, QuantizableConv) and m.quantizable]
+
+
+def capture_site_inputs(module, fn):
+    """Run ``fn()`` and return [(site name, module, its input)] in call
+    order (forward pre-hooks on the quantizable sites)."""
+    seen, hooks = [], []
+    for name, m in quantizable_sites(module):
+        hooks.append(m.register_forward_pre_hook(
+            lambda mod, args, name=name: seen.append((name, mod, args[0].detach().clone()))))
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def check_int8_site(tag, conv, x):
+    """``int8_conv`` at one site's input on the card against its plain
+    version on the same input: ``quantize_rows`` and the int32 sums bitwise,
+    the dequantized output (the site's dtype, the bias added) bitwise too
+    (every epilogue operation is rounded as the plain version's); the
+    kernel's ms beside its bound, the plain version's and the yardsticks:
+    cuDNN's bf16 convolution of the same shape and, where the reduction is
+    a multiple of 8 and the window 1-D or 1x1, ``torch._int_mm`` over the
+    input unfolded beforehand (the product alone)."""
+    import torch
+    import torch.nn.functional as F
+    from diart_tpu_torch.ops import quant
+
+    w, b = conv.weight, conv.bias
+    st, pad, dil, dt = conv.stride, conv.padding, conv.dilation, conv.compute_dtype
+    ops = quant.prepare_int8_operands(w, b)
+    q, s = quant.quantize_rows(x)
+    qp, sp = quant.quantize_per_sample(x)
+    quant_ok = torch.equal(q, qp.flatten(2).transpose(1, 2)) and torch.equal(s, sp.view(-1))
+    acc = quant.int8_conv_accumulators(x, w, st, pad, dil, operands=ops)
+    acc_p = quant.int8_accumulate(qp, quant.quantize_weight(w)[0], st, pad, dil)
+    acc_ok = torch.equal(acc, acc_p)
+    got = quant.int8_conv(x, w, b, st, pad, dil, dt, operands=ops)
+    want = quant.int8_conv_reference(x, w, b, st, pad, dil, dt)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    out_ok = torch.equal(got, want)
+    ms = time_ms(lambda: quant.int8_conv(x, w, b, st, pad, dil, dt, operands=ops), 10)
+    plain_ms = time_ms(lambda: quant.int8_conv_reference(x, w, b, st, pad, dil, dt), 2, warmup=1)
+    conv_fn = F.conv2d if w.dim() == 4 else F.conv1d
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    cudnn_ms = time_ms(lambda: conv_fn(xb, wb, stride=st, padding=pad, dilation=dil), 10)
+    c_out, c_in = w.shape[:2]
+    window = tuple(w.shape[2:])
+    k = c_in * int(np.prod(window))
+    n = got.numel() // c_out
+    int_mm_ms = None
+    if k % 8 == 0 and c_out % 8 == 0 and (w.dim() == 3 or window == (1, 1)):
+        if w.dim() == 3:  # (B, T, C) int8 unfolded to (B * O, k * C_in)
+            cols = q.unfold(1, (window[0] - 1) * dil + 1, 1)[..., ::dil].permute(0, 1, 3, 2)
+        else:  # a 1x1 window of stride s: a strided view
+            cols = qp[:, :, ::st, ::st].permute(0, 2, 3, 1)
+        a = cols.reshape(-1, k).contiguous()
+        bw = ops.q_w[:, :k].contiguous().t()  # (K, N), column-major as _int_mm takes it
+        if a.shape[0] > 16:
+            int_mm_ms = time_ms(lambda: torch._int_mm(a, bw), 10)
+    nbytes = x.numel() * x.element_size() + got.numel() * got.element_size() + ops.q_w.numel()
+    bnd, by = bound_ms(nbytes, 2.0 * c_out * n * k, "int8")
+    rec = dict(site=tag, x=list(x.shape), x_dtype=str(x.dtype).replace("torch.", ""),
+               weight=list(w.shape), stride=st, padding=pad, dilation=dil, quantize_bitwise=quant_ok,
+               accumulators_bitwise=acc_ok, output_bitwise=out_ok, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bnd, bound_by=by, library_ms=cudnn_ms, int_mm_ms=int_mm_ms,
+               tops=2.0 * c_out * n * k / ms / 1e9)
+    log(f"int8_conv[{tag}] x {tuple(x.shape)} {rec['x_dtype']}, w {tuple(w.shape)}, stride {st}, padding {pad}, "
+        f"dilation {dil}: quantize_rows bitwise {quant_ok}, int32 sums bitwise {acc_ok}, output bitwise {out_ok} "
+        f"(max_abs_err={err:.3e}); {ms:.3f} ms ({rec['tops']:.1f} TOP/s; bound {bnd:.3f} ms by {by}), plain "
+        f"{plain_ms:.3f} ms, cuDNN bf16 conv {cudnn_ms:.3f} ms"
+        + (f", _int_mm of the unfolded input {int_mm_ms:.3f} ms" if int_mm_ms is not None else ""))
+    if not (quant_ok and acc_ok and out_ok):
+        raise AssertionError(f"int8_conv[{tag}] disagrees with its plain version")
+    return rec
+
+
+def check_int8_sites():
+    """Every quantizable site of the five families at full width, B=64 and
+    their serving dtype (bf16 trunks), at the inputs one forward hands it:
+    one check for each distinct geometry."""
+    import torch
+    from diart_tpu_torch import EmbeddingModel, precision
+
+    recs, done = [], set()
+    wave = torch.from_numpy(make_audio(np.random.default_rng(9), 10, B, 8000).transpose(1, 0, 2)
+                            .reshape(B, 1, -1).astype(np.float32) / 32768.0).cuda()
+    for family in INT8_FAMILIES:
+        model = EmbeddingModel.from_registry(f"tpu/{family}", device="cuda", seed=1, dtype="bf16")
+        with torch.no_grad(), precision.use(precision.Precision(int8_trunk=True)):
+            seen = capture_site_inputs(model.module, lambda: model.module.trunk(wave))
+        for name, conv, x in seen:
+            key = (tuple(x.shape), tuple(conv.weight.shape), str(conv.stride), str(conv.padding),
+                   str(conv.dilation), x.stride())
+            if key in done:
+                continue
+            done.add(key)
+            recs.append(check_int8_site(f"{family}.{name}", conv, x))
+        del model, seen
+        torch.cuda.empty_cache()
+    return recs
+
+
+def quick_timing(engine, audio, steps=6):
+    """Back-to-back wall of ``steps`` steps (median of 2 rounds), then the
+    device busy time and launches a step of 3 profiled steps."""
+    import torch
+
+    b = audio.shape[1]
+    ones = np.ones(b, bool)
+    state = engine.init_state()
+    for i in range(WARMUP_HOPS + 1):
+        state, _ = engine.step(state, audio[i], ones, np.full(b, i + 1 >= WARMUP_HOPS))
+    rounds = []
+    for r in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            state, _ = engine.step(state, audio[(r + i) % audio.shape[0]], ones, ones)
+        torch.cuda.synchronize()
+        rounds.append((time.perf_counter() - t0) * 1e3 / steps)
+    res = dict(back_to_back_wall_ms=float(np.median(rounds)), rounds_ms=rounds)
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            state, _ = engine.step(state, audio[i], ones, ones)
+        torch.cuda.synchronize()
+    res.update(device_summary(prof, 3, top=6))
+    res["idle_share"] = 1.0 - res["device_busy_ms"] / res["back_to_back_wall_ms"]
+    return res
+
+
+def cosines(a, b):
+    import torch
+
+    return torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=-1)
+
+
+def int8_vs_cpu(family, audio):
+    """The family's int8 engine for 2 streams in f32 (TF32 off) on the card
+    against the same engine on the CPU: INT8_HOPS hops on the card, then the
+    frame scores ``probe_frame_scores`` gives from that state on both (the
+    state copied to the CPU). The CPU's quantizable sites are handed the
+    card's inputs to them (teacher forcing): an activation within rounding
+    of a quantization tie takes the neighbouring int8 value on the other
+    device, and through the trunk such flips cascade, most of all through
+    ResNet34's 35 quantized convolutions; forced, each site's int8 output
+    is the card's kernel against the plain version on the same input, and
+    what is left is f32 rounding: within INT8_CPU_TOL."""
+    from diart_tpu_torch.precision import Precision
+
+    prec = Precision(bf16_lstm=False, bf16_frontend=False, int8_trunk=True)
+    card = int8_engine(family, "cuda", 2, dtype="f32", precision=prec)
+    state = card.init_state()
+    for i in range(INT8_HOPS):
+        state, _ = card.step(state, audio[i, :2], np.ones(2, bool), np.full(2, i + 1 >= WARMUP_HOPS))
+    block = audio[INT8_HOPS, :2]
+    probe = []
+    seen = capture_site_inputs(card._emb.module, lambda: probe.append(card.probe_frame_scores(state, block)))
+    sg, eg = (t.float().cpu() for t in probe[0])
+    host = int8_engine(family, "cpu", 2, dtype="f32", precision=prec)
+    cstate = host.place_state(state)
+    forced = iter(seen)
+    hooks = [m.register_forward_pre_hook(lambda mod, args: (next(forced)[2].cpu(),))
+             for _, m in quantizable_sites(host._emb.module)]
+    try:
+        sc, ec = host.probe_frame_scores(cstate, block)
+    finally:
+        for h in hooks:
+            h.remove()
+    seg_err = (sg - sc).abs().max().item()
+    emb_err = (eg - ec).abs().max().item()
+    rec = dict(sites_forced=len(seen), seg_err=seg_err, emb_err=emb_err, tol=INT8_CPU_TOL)
+    log(f"int8[{family}] card vs CPU (f32, 2 streams, {INT8_HOPS} hops, {len(seen)} sites forced): seg "
+        f"max_abs_err={seg_err:.3e}, emb max_abs_err={emb_err:.3e} (tol {INT8_CPU_TOL:.0e})")
+    if len(seen) != INT8_SITES[family] or not (seg_err <= INT8_CPU_TOL and emb_err <= INT8_CPU_TOL):
+        raise AssertionError(f"int8[{family}]: the card disagrees with the CPU engine")
+    return rec
+
+
+def drive_int8_family(family, audio):
+    """The family's engine at B streams with ``int8_trunk`` on (bf16 trunk):
+    one step outside the sync check, then INT8_HOPS hops under it with the
+    launches counted from zero (int8_conv: the family's sites a step); the
+    utterance embeddings of B windows against the same model with the
+    switch off (cosine >= INT8_COS); the card against the CPU; the step
+    wall, device busy and idle share with the switch on and off (a record)."""
+    import torch
+    from diart_tpu_torch import precision
+    from diart_tpu_torch.precision import Precision
+
+    on = int8_engine(family, "cuda", B, precision=Precision(int8_trunk=True))
+    on.step(on.init_state(), audio[0])
+    torch.cuda.synchronize()
+    counters = int8_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    state = on.init_state()
+    with no_host_sync():
+        for i in range(INT8_HOPS):
+            state, out = on.step(state, audio[i], np.ones(B, bool), np.full(B, i + 1 >= WARMUP_HOPS))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    per_step = dict(dict.fromkeys(counters, 0), lstm_sweep=4, int8_conv=INT8_SITES[family],
+                    **INT8_OTHER_LAUNCHES[family])
+    if launches != {k: v * INT8_HOPS for k, v in per_step.items()}:
+        raise AssertionError(f"int8[{family}]: expected {per_step} launches a step; got {launches}")
+    if not torch.isfinite(out.aggregated).all():
+        raise AssertionError(f"int8[{family}]: non-finite scores")
+    wave = torch.from_numpy(audio[:10].transpose(1, 0, 2).reshape(B, 1, -1).astype(np.float32) / 32768.0).cuda()
+    with precision.use(Precision(int8_trunk=True)):
+        e_on = on._emb(wave)
+    e_off = on._emb(wave)
+    cos = cosines(e_on, e_off)
+    log(f"int8[{family}] engine B={B}, {INT8_HOPS} hops under the sync check: launches {launches} "
+        f"({per_step} a step); utterance embeddings int8 on against off: min cosine {cos.min().item():.6f} "
+        f"(bound {INT8_COS}), mean {cos.mean().item():.6f}")
+    if not cos.min().item() >= INT8_COS:
+        raise AssertionError(f"int8[{family}]: embedding cosine {cos.min().item():.6f} below {INT8_COS}")
+    timing_on = quick_timing(on, audio)
+    del on
+    off = int8_engine(family, "cuda", B)
+    timing_off = quick_timing(off, audio)
+    del off
+    torch.cuda.empty_cache()
+    log(f"int8[{family}] step at B={B}, a record (int8 on / off): back-to-back wall "
+        f"{timing_on['back_to_back_wall_ms']:.3f} / {timing_off['back_to_back_wall_ms']:.3f} ms, device busy "
+        f"{timing_on['device_busy_ms']:.3f} / {timing_off['device_busy_ms']:.3f} ms, idle share "
+        f"{timing_on['idle_share']:.3f} / {timing_off['idle_share']:.3f}, device launches "
+        f"{timing_on['kernels_per_step']:.0f} / {timing_off['kernels_per_step']:.0f} a step")
+    return dict(launches=launches, launches_per_step=per_step, min_cosine=cos.min().item(),
+                mean_cosine=cos.mean().item(), vs_cpu=int8_vs_cpu(family, audio), timing_on=timing_on,
+                timing_off=timing_off)
+
+
+def drive_mesh_engine(emb, audio):
+    """The engine with embedding ``emb`` at B streams cut into MESH_SLOTS
+    shards on the one card (``streams_mesh(devices=[cuda:0] * 2)``). In f32
+    (TF32 off, the bf16 switches off): MESH_HOPS hops with warm-up, a paused
+    stream and a slot reset in the second shard, every sharded step under
+    the sync check (one step before them outside it), each kernel of the
+    path launched on every shard in every step; each shard's scores and
+    centres within 1e-5 of an unsharded engine of the shard's B / 2 streams
+    (the same products at the same shapes: expected bitwise). Against the
+    unsharded engine of all B streams the difference is a record: cuBLAS
+    and cuDNN pick their products by batch size, and 14 hops of centroid
+    updates carry an f32 difference of the embeddings into the scores. In
+    the serving configuration (bf16 LSTM stream and trunk): the sessions'
+    RTTM text equal to the B-stream engine's at every hop; the step wall of
+    both, a record."""
+    import torch
+    from diart_tpu_torch import MultiStreamSession
+    from diart_tpu_torch.parallel import streams_mesh
+
+    def engine(batch, mesh=None, **kw):
+        e = build_engine("cuda", batch, emb, mesh=mesh, **kw)
+        e.set_hyperparameters(tau_active=SESSION_TAU, rho_update=0.05)  # the random models then make turns
+        return e
+
+    f32 = dict(emb_dtype="f32", precision=f32_policy())
+    per = B // MESH_SLOTS
+    sharded = engine(B, streams_mesh(devices=["cuda:0"] * MESH_SLOTS), **f32)
+    single, halves = engine(B, **f32), [engine(per, **f32) for _ in range(MESH_SLOTS)]
+    sharded.step(sharded.init_state(), audio[0])
+    torch.cuda.synchronize()
+    counters = launch_counters()
+    launches = dict.fromkeys(counters, 0)
+    s1, s2 = single.init_state(), sharded.init_state()
+    sh = [h.init_state() for h in halves]
+    paused, reset_slot = 1, B - 2
+    err = cerr = full_err = full_cerr = 0.0
+    for i in range(MESH_HOPS):
+        audio_mask = np.ones(B, bool)
+        run_mask = np.full(B, i + 1 >= WARMUP_HOPS)
+        if i == MESH_HOPS - 2:
+            audio_mask[paused] = run_mask[paused] = False
+        if i == MESH_HOPS - 1:
+            run_mask[reset_slot] = False
+        before = {k: fn.launches for k, fn in counters.items()}
+        with no_host_sync():
+            s2, o2 = sharded.step(s2, audio[i], audio_mask, run_mask)
+            if i == MESH_HOPS - 2:
+                s2 = sharded.reset_stream(s2, reset_slot)
+        for k, fn in counters.items():
+            launches[k] += fn.launches - before[k]
+        s1, o1 = single.step(s1, audio[i], audio_mask, run_mask)
+        for k, h in enumerate(halves):
+            rows = slice(k * per, (k + 1) * per)
+            sh[k], oh = h.step(sh[k], audio[i, rows], audio_mask[rows], run_mask[rows])
+            if i == MESH_HOPS - 2 and rows.start <= reset_slot < rows.stop:
+                sh[k] = h.reset_stream(sh[k], reset_slot - rows.start)
+            err = max(err, (o2.aggregated[k] - oh.aggregated).abs().max().item())
+            cerr = max(cerr, (s2.centers[k] - sh[k].centers).abs().max().item())
+        if i == MESH_HOPS - 2:
+            s1 = single.reset_stream(s1, reset_slot)
+        full_err = max(full_err, (o2.aggregated.cpu() - o1.aggregated.cpu()).abs().max().item())
+        full_cerr = max(full_cerr, (s2.centers.cpu() - s1.centers.cpu()).abs().max().item())
+    torch.cuda.synchronize()
+    per_hop = path_launches(emb, 4)
+    want = {k: v * MESH_HOPS * MESH_SLOTS for k, v in per_hop.items()}
+    if launches != want:
+        raise AssertionError(f"mesh[{emb}]: expected {want} launches of the sharded steps; got {launches}")
+    active = s2.center_active.cpu().sum().item()
+    del single, halves
+    sharded, single = engine(B, streams_mesh(devices=["cuda:0"] * MESH_SLOTS)), engine(B)
+    texts = []
+    for e in (single, sharded):
+        session = MultiStreamSession(e, tau_active=SESSION_TAU, collect_audio=False)
+        hop_texts = []
+        for i in range(MESH_HOPS):
+            present = np.ones(B, bool)
+            if i == 4:
+                present[paused] = False
+            hop_texts.append(session.push_rttm(audio[i], present))
+            if i == 6:
+                session.reset_slots([reset_slot], uris=["fresh"], shifts=[1.5])
+        texts.append(hop_texts)
+    lines = sum(t.count("\n") for hop in texts[0] for t in hop if t)
+    rec = dict(shards=MESH_SLOTS, launches=launches, agg_err_f32=err, centres_err_f32=cerr, tol=1e-5,
+               bitwise=err == 0.0 and cerr == 0.0, active_centres_f32=active, agg_err_vs_all_streams=full_err,
+               centres_err_vs_all_streams=full_cerr, session_text_equal=texts[0] == texts[1], rttm_lines=lines,
+               timing_sharded=quick_timing(sharded, audio), timing_single=quick_timing(single, audio))
+    log(f"mesh[{emb}] B={B} as {MESH_SLOTS} x {per} on one card, f32, {MESH_HOPS} hops (sharded steps under the "
+        f"sync check): launches of the sharded steps {launches} (every kernel on every shard); each shard against "
+        f"an unsharded engine of its {per} streams: aggregated max_abs_err={err:.3e}, centres {cerr:.3e} (tol "
+        f"1e-5; {active} active centres); against the unsharded {B}-stream engine, a record: aggregated "
+        f"{full_err:.3e}, centres {full_cerr:.3e}; serving configuration: session text over {MESH_HOPS} hops "
+        f"equal to the {B}-stream engine's: {rec['session_text_equal']} ({lines} lines); step wall sharded / "
+        f"unsharded {rec['timing_sharded']['back_to_back_wall_ms']:.3f} / "
+        f"{rec['timing_single']['back_to_back_wall_ms']:.3f} ms, device busy "
+        f"{rec['timing_sharded']['device_busy_ms']:.3f} / {rec['timing_single']['device_busy_ms']:.3f} ms "
+        f"(a record)")
+    if not (err <= 1e-5 and cerr <= 1e-5 and active and rec["session_text_equal"] and lines):
+        raise AssertionError(f"mesh[{emb}]: the sharded engine disagrees with the unsharded one")
+    return rec
+
+
+def drive_server_mesh(audio):
+    """``serve --mesh 2``'s server on one card: StreamingServer over the
+    sharded x-vector engine (MESH_SLOTS shards of cuda:0), stub clients in
+    all B slots, MESH_HOPS hops driven by ``_tick`` (float32 wire), every
+    dispatch under the sync check; each client's text equal to a session on
+    the unsharded engine pushed the same blocks."""
+    import asyncio
+
+    import torch
+    from diart_tpu_torch import MultiStreamSession
+    from diart_tpu_torch.parallel import streams_mesh
+    from diart_tpu_torch.runtime.server import StreamingServer
+    from diart_tpu_torch.utils import encode_audio
+
+    engine = build_engine("cuda", B, "xvector", mesh=streams_mesh(devices=["cuda:0"] * MESH_SLOTS))
+    single = build_engine("cuda", B, "xvector")
+    for e in (engine, single):
+        e.set_hyperparameters(tau_active=SESSION_TAU, rho_update=0.05)
+    server = StreamingServer(engine, tau_active=SESSION_TAU)
+    server.session.warm()
+    session = server.session
+
+    def begin(blocks, present, _begin=session.push_begin):
+        with no_host_sync():
+            return _begin(blocks, present)
+
+    session.push_begin = begin
+    clients = [server._claim_slot(StubSocket()) for _ in range(B)]
+    floats = audio[:MESH_HOPS].astype(np.float32) / 32768.0
+
+    async def drive():
+        for k in range(MESH_HOPS):
+            for lane, client in enumerate(clients):
+                client.buffer = np.concatenate([client.buffer, server._ingest(encode_audio(floats[k, lane][None]),
+                                                                              "f32")])
+            await server._tick(0)
+            while server._in_flight:
+                fut, slots = await server._outbox.get()
+                await server._send_outputs(await fut, slots)
+                server._in_flight -= 1
+
+    asyncio.run(drive())
+    torch.cuda.synchronize()
+    ref = MultiStreamSession(single, uris=[f"client{lane}" for lane in range(B)], tau_active=SESSION_TAU,
+                             collect_audio=False)
+    want = [""] * B
+    for k in range(MESH_HOPS):
+        for lane, text in enumerate(ref.push_rttm(floats[k], np.ones(B, bool))):
+            want[lane] += text or ""
+    got = ["".join(c.websocket.sent) for c in clients]
+    server._dispatch_pool.shutdown()
+    for pool in server._harvest_pools:
+        pool.shutdown()
+    lines = sum(t.count("\n") for t in got)
+    log(f"server --mesh {MESH_SLOTS} (one card): {B} stub clients, {MESH_HOPS} hops by _tick under the sync "
+        f"check; every client's text equals the unsharded session's: {got == want} ({lines} lines)")
+    if got != want or not lines:
+        raise AssertionError("server --mesh: a client's text differs from the unsharded session's")
+    return dict(clients=B, hops=MESH_HOPS, rttm_lines=lines)
+
+
+def dp_batch(device):
+    """DP_B tone-plus-noise chunks and their labels (``speaker_batch``)."""
+    return speaker_batch(DP_B, np.random.default_rng(12), device)
+
+
+def dp_trainer(device):
+    """The x-vector AAM trainer in f32 (seeded weights and prototypes)."""
+    from diart_tpu_torch import EmbeddingModel
+    from diart_tpu_torch.train import make_embedding_train_state
+
+    model = EmbeddingModel.from_registry("tpu/xvector", device=device, seed=2, dtype="f32")
+    return make_embedding_train_state(model, TRAIN_CLASSES, model.embedding_dim, learning_rate=1e-5, seed=3)
+
+
+def group_engine_run(mesh, rows):
+    """The f32 x-vector engine (TF32 off, the bf16 switches off) over the
+    streams ``rows`` of B, MESH_HOPS hops of seeded audio: (state, last
+    output). With ``mesh``, a rank's engine of the group's B streams;
+    without, an unsharded engine of just ``rows`` (the same products at
+    the same shapes as the rank's)."""
+    batch = B if mesh is not None else rows.stop - rows.start
+    engine = build_engine("cuda", batch, "xvector", emb_dtype="f32", precision=f32_policy(), mesh=mesh)
+    audio = make_audio(np.random.default_rng(13), MESH_HOPS, B, 8000)[:, rows]
+    state = engine.init_state()
+    for i in range(MESH_HOPS):
+        state, out = engine.step(state, audio[i], run_mask=np.full(audio.shape[1], i + 1 >= WARMUP_HOPS))
+    return state, out
+
+
+def rank_child(kind, rank, port, out_dir) -> int:
+    """One process of ``drive_process_groups`` (``--rank-child``). ``gloo``:
+    rank ``rank`` of 2 in a gloo group with CUDA tensors on cuda:0, driving
+    its half of the x-vector engine's B streams (MESH_HOPS hops) and one
+    data-parallel AAM step of DP_B samples; ``nccl``: a one-process NCCL
+    group that all-reduces once."""
+    import torch
+    import torch.distributed as dist
+    from diart_tpu_torch import precision
+    from diart_tpu_torch.parallel import streams_mesh
+    from diart_tpu_torch.parallel.mesh import initialize_distributed
+    from diart_tpu_torch.train import embedding_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = 2 if kind == "gloo" else 1
+    os.environ.update(DIART_TPU_COORDINATOR=f"127.0.0.1:{port}", DIART_TPU_NUM_PROCESSES=str(world),
+                      DIART_TPU_PROCESS_ID=str(rank))
+    if kind == "nccl":
+        assert initialize_distributed(device="cuda") and dist.get_backend() == "nccl"
+        t = torch.full((4,), 2.0, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        assert torch.equal(t.cpu(), torch.full((4,), 2.0)), t
+        dist.destroy_process_group()
+        print("nccl: ok", flush=True)
+        return 0
+    mesh = streams_mesh(devices=["cuda:0"], backend="gloo")
+    assert dist.get_backend() == "gloo" and mesh.world_size == 2 and mesh.rank == rank
+    rows = mesh.local_slice(B)
+    state, out = group_engine_run(mesh, rows)
+    dump = dict(rows=np.array([rows.start, rows.stop]), agg=out.aggregated.cpu().numpy(),
+                centers=state.centers.cpu().numpy())
+    state, opt = dp_trainer("cuda")
+    waves, labels = dp_batch("cuda")
+    with precision.use(f32_policy()):
+        state, loss = embedding_train_step(lambda m, x: m(x), opt, state, waves, labels, dp=mesh)
+    dump["loss"] = loss.cpu().numpy()
+    dump.update({f"grad/{n}": g.cpu().numpy() for n, g in named_grads(state)})
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **dump)
+    dist.destroy_process_group()
+    print(f"gloo rank {rank}: ok", flush=True)
+    return 0
+
+
+def drive_process_groups(tmp):
+    """Process groups on the one card, in f32: two processes in a gloo group
+    with CUDA tensors, each owning half of the x-vector engine's streams
+    (each rank's rows within 1e-5 of one process's engine of those streams,
+    as ``drive_mesh_engine`` holds its shards) and taking one
+    data-parallel AAM step of DP_B / 2 samples (every gradient norm-wise
+    within 1e-5 of one process's step on DP_B; a gradient that is a sum of
+    large cancelling terms, a norm under 1e-3 of the largest (SincNet's
+    waveform-norm bias, before the filters' instance norms), within 1e-5 of
+    a thousandth of the largest);
+    and a one-process NCCL group that initializes and all-reduces. NCCL
+    cannot put two ranks on one GPU, so the two-rank group is gloo."""
+    import socket
+
+    from diart_tpu_torch import precision
+    from diart_tpu_torch.train import embedding_train_step
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    here = os.path.abspath(__file__)
+    ports = {"gloo": free_port(), "nccl": free_port()}
+    procs = []
+    for kind, rank in (("gloo", 0), ("gloo", 1), ("nccl", 0)):
+        port = ports[kind]
+        procs.append((kind, rank, subprocess.Popen(
+            [sys.executable, here, "--rank-child", kind, str(rank), str(port), tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=os.path.dirname(here))))
+    t0 = time.perf_counter()
+    try:
+        for kind, rank, p in procs:
+            out, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise AssertionError(f"{kind} rank {rank} exited {p.returncode}: {out[-1000:]} {err[-3000:]}")
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    log("process groups: NCCL cannot put two ranks on one GPU, so the two-rank group is gloo (CUDA tensors "
+        "on cuda:0); a one-process NCCL group initialized and all-reduced once")
+    dumps = [np.load(os.path.join(tmp, f"rank{r}.npz")) for r in (0, 1)]
+    agg_err = cen_err = 0.0
+    for d in dumps:
+        lo, hi = d["rows"]
+        state, out = group_engine_run(None, slice(int(lo), int(hi)))
+        agg_err = max(agg_err, float(np.abs(d["agg"] - out.aggregated.cpu().numpy()).max()))
+        cen_err = max(cen_err, float(np.abs(d["centers"] - state.centers.cpu().numpy()).max()))
+    tstate, opt = dp_trainer("cuda")
+    waves, labels = dp_batch("cuda")
+    with precision.use(f32_policy()):
+        tstate, loss = embedding_train_step(lambda m, x: m(x), opt, tstate, waves, labels)
+    want = {f"grad/{n}": g.cpu().numpy() for n, g in named_grads(tstate)}
+    top = max(np.linalg.norm(v) for v in want.values())
+    worst, worst_name = 0.0, None
+    for name, w in want.items():
+        norm = np.linalg.norm(w)
+        scale = max(norm, 1e-3 * top)
+        for d in dumps:
+            rel = float(np.linalg.norm(d[name] - w) / scale)
+            if rel > worst:
+                worst, worst_name = rel, f"{name[5:]} (norm {norm / top:.1e} of the largest)"
+    loss_err = abs(float(dumps[0]["loss"]) - loss.item()) / abs(loss.item())
+    log(f"process groups (gloo, 2 ranks on cuda:0, {wall:.1f} s for the three processes): each rank's rows "
+        f"against one process's engine of those streams: aggregated max_abs_err={agg_err:.3e}, centres "
+        f"{cen_err:.3e} (tol 1e-5); "
+        f"data-parallel AAM step {DP_B} as 2 x {DP_B // 2}: loss rel err {loss_err:.3e}, worst gradient "
+        f"norm-wise rel err {worst:.3e} over {len(want)} tensors, {worst_name} (tol 1e-5)")
+    if not (agg_err <= 1e-5 and cen_err <= 1e-5 and worst <= 1e-5 and loss_err <= 1e-5):
+        raise AssertionError("process groups: the ranks disagree with one process")
+    return dict(agg_err=agg_err, centres_err=cen_err, loss_rel_err=loss_err, worst_grad_rel_err=worst,
+                worst_grad=worst_name, wall_s=wall, nccl="initialized, all-reduced once (one process)")
+
+
+def drive_scaleout_int8(out_dir):
+    """Phase 9: int8_conv at every quantizable site, the five families with
+    the int8 trunk, the sharded engines and server on one card, process
+    groups on one card."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    sites = check_int8_sites()
+    log(f"int8 site checks in {time.perf_counter() - t0:.1f} s")
+    families = {}
+    for family in INT8_FAMILIES:
+        t1 = time.perf_counter()
+        families[family] = drive_int8_family(family, make_audio(np.random.default_rng(10), INT8_HOPS + 12, B, 8000))
+        families[family]["seconds"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+    log(f"int8 families in {time.perf_counter() - t0:.1f} s")
+    audio = make_audio(np.random.default_rng(11), MESH_HOPS + 12, B, 8000)
+    mesh = {emb: drive_mesh_engine(emb, audio) for emb in ("xvector", "ecapa")}
+    mesh["server"] = drive_server_mesh(audio)
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(scratch, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=scratch)
+    try:
+        groups = drive_process_groups(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(sites=sites, families=families, mesh=mesh, process_groups=groups,
+                seconds=time.perf_counter() - t0)
+
+
+def int8_entry(scaleout) -> dict:
+    """The kernel line's entry for int8_conv: the numbers at the main
+    engine's site (the x-vector's TDNN 1, bf16), its launches in the int8
+    x-vector engine's run, every site's record and each family's launches."""
+    sites = scaleout["sites"]
+    main_site = next(r for r in sites if r["site"] == INT8_MAIN_SITE)
+    fams = scaleout["families"]
+    return dict(name="int8_conv", route="cuda", source="diart_tpu_torch/csrc/int8_conv.cu",
+                replaces="diart_tpu/ops/quant.py:87",
+                launches=fams["xvector"]["launches"]["int8_conv"],
+                launches_family_paths={f: r["launches"]["int8_conv"] for f, r in fams.items()},
+                launches_per_step={f: r["launches_per_step"]["int8_conv"] for f, r in fams.items()},
+                **{k: main_site[k] for k in KEYS}, int_mm_ms=main_site["int_mm_ms"],
+                max_abs_err_all_sites=max(r["max_abs_err"] for r in sites),
+                sites=[{k: r[k] for k in ("site", "x", "weight", "ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms", "int_mm_ms", "tops")} for r in sites])
+
+
 KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # the statistics kernels' extra readings: prepared and raw operands, the
 # product alone (a yardstick, not the same function)
@@ -2888,6 +3564,10 @@ def main() -> int:
                         help="only build the kernels and run the families phase (7)")
     parser.add_argument("--training", action="store_true",
                         help="only build the kernels and run the training and tuning phase (8)")
+    parser.add_argument("--scaleout", action="store_true",
+                        help="only build the kernels and run the scale-out and int8 phase (9)")
+    parser.add_argument("--rank-child", nargs=4, metavar=("KIND", "RANK", "PORT", "DIR"),
+                        help="one process of phase 9's process groups (started by the script itself)")
     args = parser.parse_args()
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -2899,6 +3579,9 @@ def main() -> int:
         return 2
     from diart_tpu_torch.ops import _build
 
+    if args.rank_child:
+        kind, rank, port, out = args.rank_child
+        return rank_child(kind, int(rank), int(port), out)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -2943,6 +3626,15 @@ def main() -> int:
         if args.out:
             with open(os.path.join(args.out, "chip_smoke_families.json"), "w") as f:
                 json.dump(dict(gpu=smi, families=families), f, indent=1)
+        log(f"total {time.perf_counter() - t_start:.1f} s after start-up")
+        log(f"gpu: {smi}")
+        return 0
+
+    if args.scaleout:
+        scaleout = drive_scaleout_int8(args.out)
+        if args.out:
+            with open(os.path.join(args.out, "chip_smoke_scaleout.json"), "w") as f:
+                json.dump(dict(gpu=smi, scaleout=scaleout), f, indent=1)
         log(f"total {time.perf_counter() - t_start:.1f} s after start-up")
         log(f"gpu: {smi}")
         return 0
@@ -3015,6 +3707,12 @@ def main() -> int:
     training = drive_training(args.out)
     log(f"training phase in {time.perf_counter() - t0:.1f} s")
 
+    # scale-out and int8: the int8 convolution and the five families with the
+    # int8 trunk, the sharded engines and server on one card, process groups
+    t0 = time.perf_counter()
+    scaleout = drive_scaleout_int8(args.out)
+    log(f"scale-out and int8 phase in {time.perf_counter() - t0:.1f} s")
+
     # the main paths run the bf16 LSTM stream and bf16 embedding trunks
     xv, ec = runs["xvector"]["launches"], runs["ecapa"]["launches"]
     on_session = lambda name: {e: sessions[e]["session"]["launches"][name] for e in sessions}
@@ -3078,12 +3776,13 @@ def main() -> int:
                              stages_checked=sum(res2[k]["stage"]["stages_checked"] for k in res2),
                              max_abs_err=max(res2[k]["stage"]["max_abs_err"] for k in res2),
                              library_ms=None)),
+        int8_entry(scaleout),
     ]
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(result, engines=runs, probes=probes, sessions=sessions, pipelines=pipelines,
                            pipelines_vs_cpu=pipe_cpu, session_tensor_blocks=session_tensors, runtime=runtime,
-                           families=families, training=training,
+                           families=families, training=training, scaleout=scaleout,
                            kernels=kernels), f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s after start-up")
     log(f"gpu: {smi}")

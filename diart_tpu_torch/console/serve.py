@@ -10,10 +10,9 @@ is given; without a GPU it fails. Needs ``websockets``.
 import argparse
 
 from .. import argdoc
-from ..parallel import MultiStreamEngine
+from ..parallel import MultiStreamEngine, streams_mesh
 from ..runtime.server import StreamingServer
 from .stream import (
-    MESH_ITEM,
     add_common_model_args,
     add_common_pipeline_args,
     apply_precision_arg,
@@ -48,8 +47,11 @@ def run():
         default=0,
         type=int,
         help="Shard the stream batch over N devices along a 'streams' mesh "
-        "axis. Not ported yet: a nonzero value raises NotImplementedError "
-        f"until {MESH_ITEM}",
+        "axis (--num-streams must be divisible by N): one engine shard a "
+        "CUDA device, or N CPU shard slots with --cpu. Fails when fewer "
+        "devices exist. With DIART_TPU_COORDINATOR / DIART_TPU_NUM_PROCESSES "
+        "/ DIART_TPU_PROCESS_ID set, N counts the whole process group's "
+        "devices",
     )
     parser.add_argument(
         "--int16-transfer",
@@ -97,8 +99,14 @@ def run():
             "--realtime already dispatches one hop per step"
         )
 
+    mesh = None
     if args.mesh:
-        raise NotImplementedError(f"--mesh is not ported yet: {MESH_ITEM}")
+        if args.num_streams % args.mesh:
+            parser.error(
+                f"--num-streams ({args.num_streams}) must be divisible by "
+                f"--mesh ({args.mesh})"
+            )
+        mesh = streams_mesh(args.mesh, device="cpu" if args.cpu else "cuda")
 
     # after apply_precision_arg: the engine holds the default policy, which
     # the server's dispatch threads then run under
@@ -119,6 +127,7 @@ def run():
         max_speakers=args.max_speakers,
         normalize_embedding_weights=args.normalize_embedding_weights,
         batch_size=args.num_streams,
+        mesh=mesh,
     )
     server = StreamingServer(
         engine,

@@ -13,10 +13,6 @@ from .. import models as m
 from .. import utils
 from ..runtime import FileAudioSource, MicrophoneAudioSource, RTTMWriter, StreamingInference
 
-# a feature of the JAX package's CLIs that the port does not have yet, by the
-# ROADMAP.md item that brings it
-MESH_ITEM = "ROADMAP.md Queue 1 item 6 (parallel/mesh.py)"
-
 
 def add_common_model_args(parser: argparse.ArgumentParser, embedding: bool = True):
     parser.add_argument(

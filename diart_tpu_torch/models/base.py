@@ -28,6 +28,7 @@ pipelines, as in the JAX package.
 
 from __future__ import annotations
 
+import copy
 import inspect
 import json
 import zlib
@@ -48,7 +49,7 @@ from .segmentation import PyanNet
 from .titanet import TitaNet
 from .xvect import XVectorFbank
 
-__all__ = ["EmbeddingModel", "SegmentationModel", "init_weights"]
+__all__ = ["EmbeddingModel", "SegmentationModel", "init_weights", "same_device"]
 
 TORCH_SUFFIXES = (".bin", ".pt", ".ckpt", ".safetensors")
 MODULE_CLASSES: Dict[str, type] = {
@@ -181,6 +182,28 @@ def _with_dtype(module: nn.Module, dtype) -> nn.Module:
 
 def _ready(module: nn.Module, device) -> nn.Module:
     return module.to(device).eval().requires_grad_(False)
+
+
+def same_device(a, b) -> bool:
+    """Whether ``a`` and ``b`` name one device (``cuda`` is the current
+    CUDA device)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    current = lambda d: d.index if d.index is not None else torch.cuda.current_device()
+    return current(a) == current(b)
+
+
+def _replica(module, device) -> nn.Module:
+    """A copy of ``module`` on ``device`` (its weights copied once)."""
+    if not isinstance(module, nn.Module):
+        raise TypeError(
+            f"{type(module).__name__} holds its own weights and cannot be replicated to another "
+            f"device; build it there"
+        )
+    return copy.deepcopy(module).to(device)
 
 
 class _SegFn:
@@ -388,6 +411,13 @@ class SegmentationModel:
         """The port's native file at ``path`` (see the module docstring)."""
         _save_native(path, self.module, self._powerset)
 
+    def replicate(self, device) -> "SegmentationModel":
+        """This model on ``device``: itself where it lies there, else a
+        copy."""
+        if same_device(device, self.device):
+            return self
+        return SegmentationModel(_replica(self.module, device), self.name, device, self._powerset)
+
 
 class EmbeddingModel:
     """Waveform + per-speaker weights -> embeddings, with a trunk/head split.
@@ -548,3 +578,10 @@ class EmbeddingModel:
     def save(self, path) -> None:
         """The port's native file at ``path`` (see the module docstring)."""
         _save_native(path, self.module)
+
+    def replicate(self, device) -> "EmbeddingModel":
+        """This model on ``device``: itself where it lies there, else a
+        copy."""
+        if same_device(device, self.device):
+            return self
+        return EmbeddingModel(_replica(self.module, device), self.name, device)

@@ -9,8 +9,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import precision as precision_policy
 from ..ops.attn_stats import AttnOperands, fused_attentive_stats
 from ..ops.functional import reflect_index
+from ..ops.quant import int8_conv, prepare_int8_operands
 
 __all__ = [
     "InferenceBatchNorm",
@@ -66,7 +68,14 @@ class QuantizableConv(nn.Module):
     run in ``compute_dtype``; the bias, where there is one, is added in that
     dtype after the convolution, as the JAX module does. ``kernel_size`` is
     an int (1-D) or a pair (2-D); ``groups`` makes a depthwise convolution
-    (TitaNet's). (The JAX module's int8 path is not ported.)"""
+    (TitaNet's).
+
+    With the ``int8_trunk`` switch on, a ``quantizable`` convolution runs as
+    the dynamic int8 convolution (:func:`diart_tpu_torch.ops.quant.int8_conv`)
+    with its weights quantized once and held. ``quantizable=False`` marks
+    the convolutions that are a plain ``nn.Conv`` in the JAX package
+    (TitaNet's depthwise one, ResNet34's stem), which stay in
+    ``compute_dtype`` under the switch."""
 
     def __init__(
         self,
@@ -79,20 +88,37 @@ class QuantizableConv(nn.Module):
         stride: int = 1,
         padding=0,
         groups: int = 1,
+        quantizable: bool = True,
     ):
         super().__init__()
+        if quantizable and groups != 1:
+            raise ValueError("a grouped convolution is not quantizable")
         kernel = tuple(kernel_size) if isinstance(kernel_size, (tuple, list)) else (kernel_size,)
         self.dilation = dilation
         self.stride = stride
         self.padding = padding
         self.groups = groups
+        self.quantizable = quantizable
         self.compute_dtype = compute_dtype
         self._conv = F.conv2d if len(kernel) == 2 else F.conv1d
         self.weight = nn.Parameter(torch.zeros(features, in_channels // groups, *kernel))
         self.bias = nn.Parameter(torch.zeros(features)) if bias else None
+        self._int8_ops = {}  # () -> (key, Int8Operands)
+
+    def int8(self, x: torch.Tensor) -> bool:
+        """Whether a call on ``x`` takes the int8 path."""
+        return self.quantizable and precision_policy.enabled("int8_trunk", x.device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.int8(x):
+            params = [p for p in (self.weight, self.bias) if p is not None]
+            ops = None
+            if x.is_cuda and not trained(params):
+                ops = held_operands(self._int8_ops, (), params,
+                                    lambda: prepare_int8_operands(self.weight, self.bias))
+            return int8_conv(x, self.weight, self.bias, self.stride, self.padding, self.dilation,
+                             dt, operands=ops)
         y = self._conv(x.to(dt), self.weight.to(dt), stride=self.stride, padding=self.padding,
                        dilation=self.dilation, groups=self.groups)
         if self.bias is None:

@@ -52,7 +52,8 @@ class _TDNNBlock(nn.Module):
         self.bn = InferenceBatchNorm(features, channel_dim=-1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.kernel == 1:  # a pointwise conv is a product on the channels axis
+        if self.kernel == 1 and not self.conv.int8(x):
+            # a pointwise conv is a product on the channels axis
             dt = self.conv.compute_dtype
             y = F.linear(x.to(dt), self.conv.weight[:, :, 0].to(dt))
             y = y + self.conv.bias.to(y.dtype)

@@ -72,7 +72,8 @@ class ResNet34(nn.Module):
         self.num_mels = num_mels
         self.sample_rate = sample_rate
         self.compute_dtype = compute_dtype
-        self.conv1 = QuantizableConv(1, c, (3, 3), compute_dtype=compute_dtype, bias=False, padding=1)
+        self.conv1 = QuantizableConv(1, c, (3, 3), compute_dtype=compute_dtype, bias=False, padding=1,
+                                     quantizable=False)
         self.bn1 = InferenceBatchNorm(c)
         self.blocks = []
         in_ch = c

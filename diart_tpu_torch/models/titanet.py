@@ -39,7 +39,8 @@ class _SeparableConvBnRelu(nn.Module):
         super().__init__()
         self.relu = relu
         self.dw = QuantizableConv(in_channels, in_channels, kernel, compute_dtype=compute_dtype,
-                                  bias=False, padding=(kernel - 1) // 2, groups=in_channels)
+                                  bias=False, padding=(kernel - 1) // 2, groups=in_channels,
+                                  quantizable=False)
         self.pw = QuantizableConv(in_channels, features, 1, compute_dtype=compute_dtype, bias=False)
         self.bn = InferenceBatchNorm(features)
 

@@ -1,6 +1,7 @@
 from .attn_stats import AttnStatsFunction, attentive_stats_reference, fused_attentive_stats
 from .linear_stats import LinearStatsFunction, fused_linear_stats, linear_stats_reference
 from .lstm_sweep import SweepFunction, SweepWeights, lstm_sweep_reference, lstm_sweep_tm, pack_w_hh
+from .quant import Int8ConvFunction, int8_conv, quantize_per_sample, quantize_weight
 from .se_res2 import (
     Res2Operands,
     SERes2Function,
@@ -13,6 +14,7 @@ from .se_res2 import (
 
 __all__ = [
     "AttnStatsFunction",
+    "Int8ConvFunction",
     "LinearStatsFunction",
     "Res2Operands",
     "SERes2Function",
@@ -22,11 +24,14 @@ __all__ = [
     "fused_attentive_stats",
     "fused_linear_stats",
     "fused_se_res2_block",
+    "int8_conv",
     "kernel_operands",
     "linear_stats_reference",
     "lstm_sweep_reference",
     "lstm_sweep_tm",
     "pack_w_hh",
+    "quantize_per_sample",
+    "quantize_weight",
     "se_res2_block_reference",
     "se_res2_stage_reference",
     "se_res2_staged",

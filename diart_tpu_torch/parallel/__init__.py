@@ -1,5 +1,6 @@
 from .cohort import CohortScheduler, HopTiming
-from .engine import MultiStreamEngine, StepOutput, StreamState
+from .engine import MultiStreamEngine, Sharded, StepOutput, StreamState
+from .mesh import StreamsMesh, initialize_distributed, provision_devices, streams_mesh
 from .session import MultiStreamSession
 
 __all__ = [
@@ -7,6 +8,11 @@ __all__ = [
     "HopTiming",
     "MultiStreamEngine",
     "MultiStreamSession",
+    "Sharded",
     "StepOutput",
     "StreamState",
+    "StreamsMesh",
+    "initialize_distributed",
+    "provision_devices",
+    "streams_mesh",
 ]

@@ -24,20 +24,30 @@ window-edge frames, and the model's ``trunk_from_raw_fbank`` takes the
 assembled window. The ring advances by a static slice + concat, and a
 paused stream's ring freezes by a masked select, like the waveform window.
 
-Differences from the JAX engine: no mesh (one device), no phase-major
-audio ring (a TPU layout trick — the window is the plain (B, samples)
-array it describes), no stacked SincNet frontend.
+Stream sharding (``mesh``, a :class:`~.mesh.StreamsMesh`): where JAX
+shards one global array along a ``streams`` mesh axis, the port holds one
+unsharded engine a shard slot, each with its own replica of the models
+(copied once a distinct device; slots on one device share it) and its own
+state. The state is the :class:`StreamState` of the whole axis with every
+leaf a :class:`Sharded` tuple of the shards' tensors, in stream order; a
+step cuts the host inputs by rows and queues every shard's step on its
+device with no host wait. Streams are independent, so the step has no
+collective, as XLA inserts none.
+
+Differences from the JAX engine: no phase-major audio ring (a TPU layout
+trick — the window is the plain (B, samples) array it describes), no
+stacked SincNet frontend.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .. import precision as precision_policy
-from ..models.base import EmbeddingModel, SegmentationModel
+from ..models.base import EmbeddingModel, SegmentationModel, same_device
 from ..models.fbank import (
     FbankRingSpec,
     fbank_block_raw,
@@ -54,7 +64,9 @@ from ..ops.functional import (
     overlapped_speech_penalty,
 )
 
-__all__ = ["MultiStreamEngine", "StepOutput", "StreamState", "to_device"]
+from .mesh import StreamsMesh
+
+__all__ = ["MultiStreamEngine", "Sharded", "StepOutput", "StreamState", "to_device"]
 
 
 def to_device(value, device: torch.device, dtype=None) -> torch.Tensor:
@@ -104,6 +116,49 @@ class StepOutput(NamedTuple):
     chunk_index: torch.Tensor  # (B,) 0-based index of the chunk just emitted
 
 
+class Sharded(tuple):
+    """One array of the streams axis held as its shards' tensors, in stream
+    order, each on its shard's device: a leaf of a sharded engine's state
+    and outputs. ``shape`` and ``dtype`` are the whole array's; ``cpu()``
+    assembles it on the host."""
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size((sum(t.shape[0] for t in self),) + tuple(self[0].shape[1:]))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self[0].dtype
+
+    def cpu(self) -> torch.Tensor:
+        return torch.cat([t.cpu() for t in self])
+
+
+def _map(tree, fn: Callable):
+    """``fn`` on every tensor leaf of a state, an output or a dict of them."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map(v, fn) for v in tree))
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _join(parts: list):
+    """The shards' states (or outputs) as one whose leaves are
+    :class:`Sharded`."""
+    first = parts[0]
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(_join([p[i] for p in parts]) for i in range(len(first))))
+    if isinstance(first, dict):
+        return {k: _join([p[k] for p in parts]) for k in first}
+    return Sharded(parts)
+
+
+def _rows(value, lo: int, hi: int):
+    """Rows ``lo:hi`` of a host or device input (None stays None)."""
+    return None if value is None else value[lo:hi]
+
+
 class MultiStreamEngine:
     """Drives B concurrent streams through one batched step.
 
@@ -111,6 +166,13 @@ class MultiStreamEngine:
     runs where they live). ``embedding=None`` is VAD mode: segmentation +
     aggregation, no clustering. The remaining arguments mirror the JAX
     engine's.
+
+    mesh: optional :class:`~.mesh.StreamsMesh`; ``batch_size`` is then the
+    whole axis's (divisible by ``mesh.size``), and this engine drives
+    ``mesh.local_slice(batch_size)`` of it: ``batch_size`` becomes this
+    process's count (``global_batch_size`` keeps the axis's), and
+    ``shard_bounds`` lists each local shard's rows. Its states and outputs
+    have :class:`Sharded` leaves.
     """
 
     def __init__(
@@ -130,6 +192,7 @@ class MultiStreamEngine:
         normalize_embedding_weights: bool = False,
         batch_size: int = 1,
         precision: Optional[precision_policy.Precision] = None,
+        mesh: Optional[StreamsMesh] = None,
     ):
         self.duration = duration
         self.step_duration = step
@@ -149,6 +212,7 @@ class MultiStreamEngine:
         self.max_speakers = max_speakers
         self.precision = precision if precision is not None else precision_policy.active()
         self.normalize_weights = normalize_embedding_weights
+        self._shards: List["MultiStreamEngine"] = []  # one a shard slot, with a mesh
         if segmentation.host_only or (embedding is not None and embedding.host_only):
             raise RuntimeError(
                 "MultiStreamEngine requires device models; host-only (ONNX) models run "
@@ -196,6 +260,29 @@ class MultiStreamEngine:
         )
         self._true_masks: dict = {}
 
+        self.mesh = mesh
+        self.global_batch_size = batch_size
+        self.shard_bounds: List[Tuple[int, int]] = [(0, batch_size)]
+        if mesh is not None:
+            per = mesh.shard_size(batch_size)
+            self.batch_size = per * len(mesh.devices)
+            self.shard_bounds = [(i * per, (i + 1) * per) for i in range(len(mesh.devices))]
+            self.device = mesh.devices[0]
+            replicas: list = []
+            for dev in mesh.devices:
+                held = next((r for d, r in replicas if same_device(d, dev)), None)
+                if held is None:
+                    held = (segmentation.replicate(dev),
+                            None if embedding is None else embedding.replicate(dev))
+                    replicas.append((dev, held))
+                self._shards.append(MultiStreamEngine(
+                    held[0], held[1], duration=duration, step=step, latency=latency,
+                    sample_rate=sample_rate, tau_active=tau_active, rho_update=rho_update,
+                    delta_new=delta_new, gamma=gamma, beta=beta, max_speakers=max_speakers,
+                    normalize_embedding_weights=normalize_embedding_weights, batch_size=per,
+                    precision=self.precision,
+                ))
+
     # ------------------------------------------------------------------ #
     def set_hyperparameters(
         self,
@@ -209,6 +296,8 @@ class MultiStreamEngine:
         the step, so nothing is rebuilt, and the next step queued reads the
         new values. The values go through a pinned copy, so an update
         between hops does not wait for the card."""
+        for shard in self._shards:
+            shard.set_hyperparameters(tau_active, rho_update, delta_new, gamma, beta)
         old = getattr(self, "_hparams", None)
         get = lambda new, i: (
             to_device(np.asarray(float(new), np.float32), self.device)
@@ -251,6 +340,10 @@ class MultiStreamEngine:
         }
 
     def init_state(self, batch_size: Optional[int] = None) -> StreamState:
+        if self._shards:
+            if batch_size not in (None, self.batch_size):
+                raise ValueError(f"a sharded engine holds {self.batch_size} streams; got {batch_size}")
+            return _join([shard.init_state() for shard in self._shards])
         b = batch_size or self.batch_size
         dev = self.device
         return StreamState(
@@ -274,6 +367,9 @@ class MultiStreamEngine:
         """Reset every stream slot where ``mask`` (B,) is True to its initial
         value. The audio state takes :meth:`_audio_init`'s row, not zero: an
         empty slot of the mel frame ring holds the zero-signal constant."""
+        if self._shards:
+            mask = np.asarray(mask.cpu() if isinstance(mask, torch.Tensor) else mask, bool)
+            return self._per_shard(lambda shard, st, lo, hi: shard.reset_streams(st, mask[lo:hi]), state)
         mask = to_device(mask, self.device, torch.bool)
         if self._audio_row is None:
             init = self._audio_init(1)
@@ -427,10 +523,36 @@ class MultiStreamEngine:
         run_mask: (B,) bool — streams whose window is full and should be
             processed (False while warming up or idle).
         """
+        if self._shards:
+            states, outs = zip(*self._per_shard(lambda shard, st, lo, hi: shard.step(
+                st, _rows(blocks, lo, hi), _rows(audio_mask, lo, hi), _rows(run_mask, lo, hi)
+            ), state, join=False))
+            return _join(list(states)), _join(list(outs))
         blocks = to_device(blocks, self.device)
         audio_mask, run_mask = self._masks(blocks.shape[0], audio_mask, run_mask)
         with precision_policy.use(self.precision):
             return self._step_impl(state, blocks, audio_mask, run_mask)
+
+    def _per_shard(self, fn: Callable, state: StreamState, join: bool = True):
+        """``fn(shard, its state, lo, hi)`` for every local shard, in order;
+        the results joined into :class:`Sharded` leaves unless ``join`` is
+        False."""
+        out = [
+            fn(shard, _map(state, lambda leaf, k=k: leaf[k]), lo, hi)
+            for k, (shard, (lo, hi)) in enumerate(zip(self._shards, self.shard_bounds))
+        ]
+        return _join(out) if join else out
+
+    def place_state(self, state: StreamState) -> StreamState:
+        """A state of this engine's streams with plain tensors (a restored
+        checkpoint, on any device) laid out the way the engine holds it: on
+        its device, or cut into its shards on theirs."""
+        if not self._shards:
+            return _map(state, lambda t: t.to(self.device))
+        return _join([
+            _map(state, lambda t, lo=lo, hi=hi, d=shard.device: t[lo:hi].to(d))
+            for shard, (lo, hi) in zip(self._shards, self.shard_bounds)
+        ])
 
     # ------------------------------------------------------------------ #
     # Output timestamps (host side)
@@ -451,6 +573,11 @@ class MultiStreamEngine:
         """The (segmentation (B, F, K), embeddings (B, K, E)) the next step
         WOULD compute after ingesting ``blocks``, without changing
         ``state``; embeddings are L2-normalized, as the step uses them."""
+        if self._shards:
+            return tuple(_join(list(p)) for p in zip(*self._per_shard(
+                lambda shard, st, lo, hi: shard.probe_frame_scores(
+                    st, _rows(blocks, lo, hi), _rows(audio_mask, lo, hi)),
+                state, join=False)))
         blocks = to_device(blocks, self.device)
         audio_mask, _ = self._masks(blocks.shape[0], audio_mask, None)
         with precision_policy.use(self.precision):

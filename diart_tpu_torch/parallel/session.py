@@ -11,9 +11,14 @@ the serving routes, one RTTM text per stream.
 Dispatch and harvest are split (:meth:`MultiStreamSession.push_begin` /
 ``push_finish*``): the dispatch queues the step, the device-side
 binarize-and-pack and the device-to-host copies (``non_blocking``, into
-pinned memory) and records one CUDA event; it never waits for the card.
-The harvest waits on that event before it reads any fetched byte, then
-assembles the text on the host.
+pinned memory) and records one CUDA event a device; it never waits for the
+card. The harvest waits on those events before it reads any fetched byte,
+then assembles the text on the host.
+
+A sharded engine (``mesh``) hands back :class:`~.engine.Sharded` outputs:
+each shard is packed and fetched on its own device, and the harvest joins
+the fetched pieces in stream order, so the host sees the bytes an
+unsharded engine's hop gives.
 """
 
 from __future__ import annotations
@@ -34,20 +39,26 @@ from ..core.segment import SlidingWindow, SlidingWindowFeature
 from ..ops import _build
 from ..ops.binarize import binarize, binarize_rttm, pack_binarized_bits
 from ..utils import Chronometer
-from .engine import MultiStreamEngine, StreamState, to_device
+from .engine import MultiStreamEngine, Sharded, StreamState, to_device
 
 __all__ = ["MultiStreamSession"]
+
+
+def _parts(value) -> tuple:
+    """The shards of an engine output: one for an unsharded engine."""
+    return tuple(value) if isinstance(value, Sharded) else (value,)
 
 
 @dataclass
 class _PendingHop:
     """A dispatched-but-not-harvested hop (see ``push_begin``): the host
-    tensors its device-to-host copies fill, the event that says they have
-    landed, and host snapshots of everything the assembly needs, so slot
+    tensors its device-to-host copies fill (a list of pieces, one a shard,
+    for each fetched array), the events that say they have landed (one a
+    device), and host snapshots of everything the assembly needs, so slot
     churn between dispatch and harvest cannot corrupt it."""
 
     fetch: list
-    event: Optional[torch.cuda.Event]
+    events: list
     run_mask: np.ndarray
     chunk_index: np.ndarray
     first_rows: np.ndarray
@@ -164,15 +175,16 @@ class MultiStreamSession:
         out = None
         for k in range(self.warmup_blocks + 1):
             state, out = eng.step(state, blocks, present, present & (k + 1 >= self.warmup_blocks))
-        idx = to_device(np.arange(b), eng.device)
+        aggs, news = _parts(out.aggregated), _parts(out.newest)
+        rows = lambda t: t.index_select(0, to_device(np.arange(t.shape[0]), t.device))
         fetch = [
-            out.aggregated,
-            pack_binarized_bits(out.aggregated, float(self.tau_active)),
-            out.newest.index_select(0, idx),
-            out.aggregated.index_select(0, idx),
+            list(aggs),
+            [pack_binarized_bits(a, float(self.tau_active)) for a in aggs],
+            [rows(n) for n in news],
+            [rows(a) for a in aggs],
         ]
-        _, event = self._fetch(fetch)
-        if event is not None:
+        _, events = self._fetch(fetch)
+        for event in events:
             event.synchronize()
         eng.reset_streams(state, present)
 
@@ -206,9 +218,10 @@ class MultiStreamSession:
 
     def restore(self, path) -> None:
         """Resume a saved session (same engine geometry) on the engine's
-        device."""
+        device, or its shards' (a checkpoint holds the whole stream axis,
+        so it restores on a sharded or an unsharded engine alike)."""
         path = Path(path)
-        loaded = torch.load(path, map_location=self.engine.device, weights_only=True)
+        loaded = torch.load(path, map_location="cpu", weights_only=True)
         fresh = self.engine.init_state()._asdict()
         for name, want in fresh.items():
             got = loaded[name]
@@ -221,7 +234,7 @@ class MultiStreamSession:
                         f"checkpoint field {name!r}: {tuple(g.shape)} {g.dtype}; "
                         f"this engine needs {tuple(w.shape)} {w.dtype}"
                     )
-        self.state = StreamState(**{name: loaded[name] for name in fresh})
+        self.state = self.engine.place_state(StreamState(**{name: loaded[name] for name in fresh}))
         meta = json.loads(path.with_suffix(".json").read_text())
         self.uris = list(meta["uris"])
         self.shifts = list(meta["shifts"])
@@ -302,19 +315,27 @@ class MultiStreamSession:
         # prepend, so only those streams' rows are gathered and fetched
         first_rows = np.flatnonzero(run_mask & (chunk_index == 0))
         bits = self.binarize_on_device and rttm
-        fetch = [self._pack(out.aggregated) if bits else out.aggregated]
+        aggs = _parts(out.aggregated)
+        fetch = [[self._pack(a) for a in aggs] if bits else list(aggs)]
         if first_rows.size:
-            idx = to_device(first_rows, self.engine.device)
-            fetch.append(out.newest.index_select(0, idx))
+            newest, agg_rows = [], []
+            for (lo, hi), new, agg in zip(self.engine.shard_bounds, _parts(out.newest), aggs):
+                rows = first_rows[(first_rows >= lo) & (first_rows < hi)] - lo
+                if rows.size:
+                    idx = to_device(rows, new.device)
+                    newest.append(new.index_select(0, idx))
+                    if bits:
+                        # the prepend needs those streams' aggregated rows too
+                        agg_rows.append(agg.index_select(0, idx))
+            fetch.append(newest)
             if bits:
-                # the prepend needs those streams' aggregated rows too
-                fetch.append(out.aggregated.index_select(0, idx))
-        host, event = self._fetch(fetch)
+                fetch.append(agg_rows)
+        host, events = self._fetch(fetch)
         with self._inflight_lock:
             self._inflight_hops += 1
         return _PendingHop(
             fetch=host,
-            event=event,
+            events=events,
             run_mask=run_mask,
             chunk_index=chunk_index.copy(),
             first_rows=first_rows,
@@ -340,17 +361,22 @@ class MultiStreamSession:
         return np.clip(blocks * 32768.0, -32768, 32767).astype(np.int16)
 
     @staticmethod
-    def _fetch(tensors) -> Tuple[list, Optional[torch.cuda.Event]]:
-        """Queue device-to-host copies of ``tensors`` (into pinned memory,
-        no host wait) and an event after them; on the CPU, the tensors as
-        they are and no event. Read the host tensors only after the event
-        has completed: before it they hold stale bytes."""
-        if not tensors[0].is_cuda:
-            return list(tensors), None
-        host = [t.to("cpu", non_blocking=True) for t in tensors]
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
+    def _fetch(groups) -> Tuple[list, list]:
+        """Queue device-to-host copies of ``groups`` (lists of pieces, into
+        pinned memory, no host wait) and one event after them on each
+        device; on the CPU, the tensors as they are and no event. Read the
+        host tensors only after the events have completed: before them they
+        hold stale bytes."""
+        if not groups[0][0].is_cuda:
+            return [list(g) for g in groups], []
+        host = [[t.to("cpu", non_blocking=True) for t in g] for g in groups]
+        devices = list(dict.fromkeys(t.device for g in groups for t in g))
+        events = []
+        for device in devices:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+            events.append(event)
+        return host, events
 
     def _pack(self, aggregated: torch.Tensor) -> torch.Tensor:
         """This hop's aggregated scores thresholded and bit-packed on their
@@ -362,9 +388,10 @@ class MultiStreamSession:
         agg_rows)``: ``main`` is the aggregated scores, or the packed bits
         in ``binarize_on_device`` mode (where ``agg_rows`` carries the
         aggregated rows of first-chunk streams)."""
-        if pending.event is not None:
-            pending.event.synchronize()
-        fetch = [t.numpy() for t in pending.fetch]
+        for event in pending.events:
+            event.synchronize()
+        fetch = [g[0].numpy() if len(g) == 1 else np.concatenate([t.numpy() for t in g])
+                 for g in pending.fetch]
         main = fetch[0]
         newest_rows, agg_rows = {}, {}
         if pending.first_rows.size:

@@ -12,11 +12,15 @@ tensor always runs its kernel, a CPU tensor its plain version.
 * ``fbank_ring``: the engine keeps a mel embedding's raw per-frame log-mel
   features in a rolling ring across hops and computes only the new block's
   frames and the window-edge frames (``parallel/engine.py``).
+* ``int8_trunk``: dynamic int8 quantization of the embedding trunks'
+  ``QuantizableConv`` convolutions (``ops/quant.py``): per-sample activation
+  scales, per-output-channel weight scales, s8 x s8 -> s32 products.
+  Quality-affecting, so off by default, as in the JAX package.
 
-All default on, as in the JAX package. The two bf16 switches resolve to off
-for CPU tensors, the way the JAX package's TPU-only switches resolve to off
-off the TPU; ``fbank_ring`` is not TPU-only there and applies on every
-device here too.
+The first three default on, as in the JAX package. The two bf16 switches
+resolve to off for CPU tensors, the way the JAX package's TPU-only
+switches resolve to off off the TPU; ``fbank_ring`` and ``int8_trunk`` are
+not TPU-only there and apply on every device here too.
 
 ``Precision.parse`` reads the CLIs' ``--precision`` spec and
 ``set_default`` installs a policy for every thread (a :func:`use` scope is
@@ -40,6 +44,7 @@ class Precision:
     bf16_lstm: bool = True
     bf16_frontend: bool = True
     fbank_ring: bool = True
+    int8_trunk: bool = False
 
     @staticmethod
     def from_dict(d: Dict[str, bool]) -> "Precision":
@@ -55,7 +60,7 @@ class Precision:
         (the CLIs' ``--precision``). A bare name means on; ``0``,
         ``false``, ``off`` and an empty value mean off. A switch the port
         does not have raises ``ValueError``, the JAX-only ones
-        (``pallas_lstm``, ``int8_trunk``, ...) too."""
+        (``pallas_lstm``, ``lstm_block``, ...) too."""
         overrides: Dict[str, bool] = {}
         known = {f.name for f in dataclasses.fields(Precision)}
         for item in spec.split(","):

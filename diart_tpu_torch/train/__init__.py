@@ -1,4 +1,5 @@
 from .segmentation import (
+    DataParallel,
     TrainState,
     make_train_state,
     pit_bce_loss,
@@ -12,6 +13,7 @@ from .embedding import (
 from .checkpoint import latest_checkpoint, restore_train_state, save_train_state
 
 __all__ = [
+    "DataParallel",
     "TrainState",
     "make_train_state",
     "pit_bce_loss",

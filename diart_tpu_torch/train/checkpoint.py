@@ -16,6 +16,7 @@ from pathlib import Path
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from .segmentation import TrainState
 
@@ -24,11 +25,15 @@ __all__ = ["save_train_state", "restore_train_state", "latest_checkpoint"]
 
 def save_train_state(directory: Union[str, Path], state: TrainState, keep: int = 3) -> Path:
     """Write ``<dir>/step_<n>.pt`` atomically and mark it in ``latest.json``;
-    prune to the ``keep`` highest steps, never the file just written."""
+    prune to the ``keep`` highest steps, never the file just written. In a
+    process group only rank 0 writes (data-parallel ranks hold the same
+    state); every rank gets the path."""
     directory = Path(directory)
-    directory.mkdir(parents=True, exist_ok=True)
     step = int(state.step)
     path = directory / f"step_{step:08d}.pt"
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return path
+    directory.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(".tmp")
     payload = {
         "module": state.module.state_dict(),

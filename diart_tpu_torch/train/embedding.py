@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .segmentation import ADAMW_DEFAULTS, TrainState, trainable
+from .segmentation import ADAMW_DEFAULTS, TrainState, _step, trainable
 
 __all__ = ["aam_softmax_loss", "make_embedding_train_state", "embedding_train_step"]
 
@@ -81,14 +81,14 @@ def embedding_train_step(
     labels: torch.Tensor,
     margin: float = 0.2,
     scale: float = 30.0,
+    dp=None,
 ) -> Tuple[TrainState, torch.Tensor]:
     """One AdamW step. ``embed_fn(module, waveforms (B, 1, S))`` -> (B, dim),
     e.g. ``lambda m, w: m(w)`` (uniform pooling weights); ``labels``: (B,)
     speaker ids. Returns the new state and the loss before the step (0-d,
-    detached)."""
-    optimizer.zero_grad(set_to_none=True)
-    emb = embed_fn(state.module, waveforms)
-    loss = aam_softmax_loss(emb, labels, state.prototypes, margin=margin, scale=scale)
-    loss.backward()
-    optimizer.step()
-    return state._replace(step=state.step + 1), loss.detach()
+    detached). With ``dp`` (a StreamsMesh or a process group) the batch is
+    the global one: each rank takes its slice and the gradients and the
+    loss are averaged over the group (``train/segmentation.py``)."""
+    return _step(optimizer, state, lambda w, y: aam_softmax_loss(
+        embed_fn(state.module, w), y, state.prototypes, margin=margin, scale=scale
+    ), (waveforms, labels), dp)

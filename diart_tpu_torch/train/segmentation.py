@@ -7,6 +7,16 @@ minimized over output-channel permutations. The state holds the module, its
 ``torch.optim.AdamW`` (optax's ``adamw`` defaults) and the step count. On
 the card the forward goes through the hand-written kernels and the backward
 through their plain versions (``diart_tpu_torch.ops``).
+
+Data parallelism (``dp``: a :class:`~diart_tpu_torch.parallel.StreamsMesh`
+of one device a process, or a ``torch.distributed`` process group), the
+counterpart of the JAX trainers jitted with the batch sharded over a ``dp``
+axis: every rank is handed the global batch and takes its contiguous slice
+(rank-major), and the gradients and the reported loss are all-reduced and
+divided by the world size before the update, so every rank takes the same
+step. The models' batch norms hold running statistics as parameters, so a
+slice's forward is the global batch's rows: the step equals one process's
+up to the order of the sums.
 """
 
 from __future__ import annotations
@@ -16,6 +26,7 @@ from itertools import permutations
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -84,19 +95,79 @@ def make_train_state(model, learning_rate: float = 1e-4) -> Tuple[TrainState, to
     return TrainState(module, optimizer, 0), optimizer
 
 
+class DataParallel(NamedTuple):
+    """A data-parallel step's group, this process's rank and the world size."""
+
+    group: Optional[object]
+    rank: int
+    world_size: int
+
+    @staticmethod
+    def of(dp) -> "DataParallel":
+        """``dp``: a StreamsMesh (one device a process) or a process group."""
+        if hasattr(dp, "devices"):
+            if len(dp.devices) != 1:
+                raise ValueError(
+                    f"data-parallel training takes one device a process; the mesh gives this "
+                    f"process {len(dp.devices)}"
+                )
+            return DataParallel(dp.group, dp.rank, dp.world_size)
+        return DataParallel(dp, dist.get_rank(dp), dist.get_world_size(dp))
+
+    def local(self, *batch: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """This rank's contiguous slice of each global batch tensor."""
+        n = batch[0].shape[0]
+        if n % self.world_size:
+            raise ValueError(f"the batch ({n}) must be divisible by the world size ({self.world_size})")
+        per = n // self.world_size
+        return tuple(t[self.rank * per:(self.rank + 1) * per] for t in batch)
+
+    def average(self, tensors) -> None:
+        """All-reduce ``tensors`` (f32, on one device) in place to their mean
+        over the group, as one flat buffer: one collective a step."""
+        if self.world_size == 1:
+            return
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat, group=self.group)
+        flat.div_(self.world_size)
+        offset = 0
+        for t in tensors:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+
+
+def _step(optimizer, state, loss_of: Callable, batch: tuple, dp) -> Tuple[TrainState, torch.Tensor]:
+    """One AdamW step on ``loss_of(*batch)``. With ``dp`` (see the module
+    docstring) ``batch`` is the global one: this rank trains on its slice,
+    and the gradients and the loss are averaged over the group before the
+    update."""
+    dp = None if dp is None else DataParallel.of(dp)
+    if dp is not None:
+        batch = dp.local(*batch)
+    optimizer.zero_grad(set_to_none=True)
+    loss = loss_of(*batch)
+    loss.backward()
+    loss = loss.detach()
+    if dp is not None:
+        params = [p for group in optimizer.param_groups for p in group["params"]]
+        dp.average([p.grad for p in params if p.grad is not None] + [loss])
+    optimizer.step()
+    return state._replace(step=state.step + 1), loss
+
+
 def train_step(
     apply_fn: Callable,
     optimizer: torch.optim.Optimizer,
     state: TrainState,
     waveforms: torch.Tensor,
     targets: torch.Tensor,
+    dp=None,
 ) -> Tuple[TrainState, torch.Tensor]:
     """One AdamW step. ``apply_fn(module, waveforms)`` -> (batch, frames,
     speakers); ``waveforms``: (batch, 1, samples); ``targets``: (batch,
     frames, speakers). Returns the new state and the loss before the step
-    (0-d, detached; reading it is the caller's host sync)."""
-    optimizer.zero_grad(set_to_none=True)
-    loss = pit_bce_loss(apply_fn(state.module, waveforms), targets)
-    loss.backward()
-    optimizer.step()
-    return state._replace(step=state.step + 1), loss.detach()
+    (0-d, detached; reading it is the caller's host sync). With ``dp`` (see
+    the module docstring) the batch is the global one and the step data
+    parallel."""
+    return _step(optimizer, state, lambda w, t: pit_bce_loss(apply_fn(state.module, w), t),
+                 (waveforms, targets), dp)

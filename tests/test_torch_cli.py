@@ -6,9 +6,9 @@ fixed seeds) and synthetic audio: the subprocess CLI tests of
 ``tests/test_cli.py``, ported, each held to the same run made in process
 (RTTM text string-equal: same code, same weights, same audio). Without
 ``--cpu`` a CLI needs a GPU and fails here; ``--powerset`` passes a
-declared powerset checkpoint through and ``--mesh`` (not ported yet)
-raises; the runtime and the CLIs import without jax, diart_tpu, pandas
-and websockets.
+declared powerset checkpoint through and ``serve --mesh 2`` (two CPU
+shard slots) serves the text of the unsharded run; the runtime and the
+CLIs import without jax, diart_tpu, pandas and websockets.
 """
 
 import os
@@ -153,17 +153,15 @@ def _wait_listening(port, proc, timeout=120):
     pytest.fail("server never listened")
 
 
-def test_serve_client_cli_end_to_end(wav_file):
-    """serve --cpu + client as real subprocesses: the client streams the
-    wav over the websocket and prints the RTTM lines it gets back, which
-    equal a MultiStreamSession of the same models pushed the file's blocks
-    in process (slot 0, uri client0)."""
+def _serve_and_stream(wav_file, *flags):
+    """serve --cpu ``flags`` + client as real subprocesses: the client's
+    result after streaming the wav (2 streams, the client in slot 0)."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     server = subprocess.Popen(
         [sys.executable, "-m", "diart_tpu_torch.console.serve", "--cpu", "--port", str(port),
-         "--num-streams", "2", *GEOMETRY],
+         "--num-streams", "2", *flags, *GEOMETRY],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=_env(), cwd=REPO)
     try:
         _wait_listening(port, server)
@@ -175,10 +173,12 @@ def test_serve_client_cli_end_to_end(wav_file):
             server.wait(timeout=10)
         except subprocess.TimeoutExpired:
             server.kill()
-    assert result.returncode == 0, result.stderr[-2000:]
-    lines = [l for l in result.stdout.splitlines() if l.strip()]
-    assert lines and all(l.split()[:2] == ["SPEAKER", "client0"] for l in lines)
+    return result
 
+
+def _session_text(wav_file) -> str:
+    """The client's text from a MultiStreamSession of the same models pushed
+    the file's blocks in process (slot 0, uri client0)."""
     seg, emb = models()
     engine = MultiStreamEngine(seg, emb, batch_size=2, sample_rate=SAMPLE_RATE, **CONFIG)
     session = MultiStreamSession(engine, uris=["client0", "client1"], tau_active=0.5,
@@ -192,7 +192,19 @@ def test_serve_client_cli_end_to_end(wav_file):
         batch = np.zeros((2, block.shape[1]), np.float32)
         batch[0] = block[0]
         want += session.push_rttm(batch, np.array([True, False]))[0] or ""
-    assert result.stdout == want
+    return want
+
+
+def test_serve_client_cli_end_to_end(wav_file):
+    """serve --cpu + client as real subprocesses: the client streams the
+    wav over the websocket and prints the RTTM lines it gets back, which
+    equal a MultiStreamSession of the same models pushed the file's blocks
+    in process (slot 0, uri client0)."""
+    result = _serve_and_stream(wav_file)
+    assert result.returncode == 0, result.stderr[-2000:]
+    lines = [l for l in result.stdout.splitlines() if l.strip()]
+    assert lines and all(l.split()[:2] == ["SPEAKER", "client0"] for l in lines)
+    assert result.stdout == _session_text(wav_file)
 
 
 @pytest.mark.parametrize("module", ["stream", "serve"])
@@ -213,18 +225,23 @@ def test_cli_without_card_raises(wav_file, tmp_path, module):
     ("serve", ["--mesh", "2"], "item 6"),
 ])
 def test_unported_flags_raise(monkeypatch, wav_file, tmp_path, module, flags, item):
-    """--mesh is kept so the command lines match, and raises
-    NotImplementedError naming its ROADMAP.md item. --powerset (its item,
-    4, is done) is ported: stream and benchmark with a torch checkpoint
-    declared powerset (3, 2) write the text of the same run made in
-    process."""
+    """The flags of the JAX package's CLIs that earlier slices of the port
+    left out, each now ported (ROADMAP.md Queue 1 ``item``, done):
+    --powerset, where stream and benchmark with a torch checkpoint declared
+    powerset (3, 2) write the text of the same run made in process, and
+    --mesh, where serve --cpu --mesh 2 (two CPU shard slots of one stream
+    each) serves the client the text of the unsharded session, and refuses
+    a stream count the mesh does not divide, as JAX's serve does."""
     import importlib
 
     cli = importlib.import_module(f"diart_tpu_torch.console.{module}")
     if flags[0] == "--mesh":
-        monkeypatch.setattr(sys, "argv", [module, "--cpu", *flags])
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
+        monkeypatch.setattr(sys, "argv", [module, "--cpu", "--num-streams", "3", *flags])
+        with pytest.raises(SystemExit):
             cli.run()
+        result = _serve_and_stream(wav_file, *flags)
+        assert result.returncode == 0, result.stderr[-2000:]
+        assert result.stdout.strip() and result.stdout == _session_text(wav_file)
         return
     from torch_replicas import TorchPyanNet
 

@@ -525,7 +525,7 @@ def test_score_rttm_matches_jax(corpus, tmp_path):
 # precision
 # --------------------------------------------------------------------- #
 SHARED_SPECS = ["bf16_lstm=0", "fbank_ring=off,bf16_frontend", "bf16_lstm=false, fbank_ring=1", "",
-                "bf16_frontend="]
+                "bf16_frontend=", "int8_trunk", "int8_trunk=1,bf16_lstm=0"]
 
 
 @pytest.mark.parametrize("spec", SHARED_SPECS)
@@ -535,7 +535,7 @@ def test_precision_parse_matches_jax(spec):
     assert got.as_dict() == {k: v for k, v in want.as_dict().items() if k in got.as_dict()}
 
 
-@pytest.mark.parametrize("spec", ["pallas_lstm=1", "int8_trunk", "bf16_lstm=1,nope=0"])
+@pytest.mark.parametrize("spec", ["pallas_lstm=1", "lstm_block", "bf16_lstm=1,nope=0"])
 def test_precision_parse_rejects_unknown(spec):
     """A switch the port does not have raises ValueError, the JAX-only ones
     too (JAX raises on names it does not know)."""
@@ -553,7 +553,8 @@ def test_precision_from_dict_and_set_default():
 
     jax_policy = jax_precision.Precision.parse("bf16_lstm=0,fbank_ring=0,int8_trunk=1")
     got = precision.Precision.from_dict(jax_policy.as_dict())
-    assert got == precision.Precision(bf16_lstm=False, bf16_frontend=True, fbank_ring=False)
+    assert got == precision.Precision(bf16_lstm=False, bf16_frontend=True, fbank_ring=False,
+                                      int8_trunk=True)
     assert precision.Precision.from_dict(got.as_dict()) == got
     seen = []
     policy = precision.Precision.portable()
