@@ -8,6 +8,13 @@ Phases (any failure exits non-zero):
 
 1. Build the five hand-written kernels (``diart_tpu_torch/csrc/*.cu``, one
    ``nvcc`` each, in parallel) and print the card's name and power limit.
+   Then, with torch's TF32 switches as a process gets them (no
+   ``NVIDIA_TF32_OVERRIDE``; the script turns both off for every later
+   phase): the f32 x-vector engine against the CPU (phase 3's f32 probe
+   and its tolerances), the same probe on the card bitwise the one with
+   both switches off, the stream CLI in a subprocess with the text of its
+   run with TF32 off, and the sinc filterbank's time in true f32 and in
+   TF32 (``drive_tf32_default``).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes of the main paths with 64 streams: the LSTM sweep at T=293,
    H=128 (f32 and bf16 streams, raw and packed ``w_hh``), with other batch
@@ -128,12 +135,19 @@ Phases (any failure exits non-zero):
    trial, every ``set_hyperparameters`` under the sync check, each trial's
    value 100 x |DER| of its RTTM files; ms a trial.
 9. Scale-out and int8 (``drive_scaleout_int8``): ``int8_conv`` at every
-   quantizable site of the five embedding families at full width, B=64,
+   quantizable site (``check_int8``; in a whole run with phase 2's kernel
+   checks) of the five embedding families at full width, B=64,
    bf16, on the inputs one forward hands each site (one check a distinct
    geometry): ``quantize_rows`` and the int32 sums bitwise against the
    plain version on the card, the dequantized output too; its ms beside
    its bound, the plain version's, cuDNN's bf16 convolution of the shape
-   and ``torch._int_mm`` over the unfolded input where the shape allows;
+   and ``torch._int_mm`` over the unfolded input where the shape allows,
+   the device time of its three launches apart (``absmax_rows``,
+   ``quantize_rows`` beside its byte bound, ``int8_conv_wgmma``) and the
+   launch plan, and one geometry no family has (stride 2, padding 1,
+   dilation 3, 7 output columns: the kernel's general epilogue); the built
+   library's SASS (``cuobjdump``): every convolution kernel holds
+   ``IGMMA`` and none ``IMMA``;
    each family's engine (``tpu/pyannet`` beside the seeded registry model)
    at B=64 with ``Precision(int8_trunk=True)``: 12 hops under the sync
    check with every kernel's launches a step held (``int8_conv``: the
@@ -144,7 +158,9 @@ Phases (any failure exits non-zero):
    x-vector and ECAPA engines at B=64 cut into 2 shards of one card
    (``streams_mesh(devices=["cuda:0"] * 2)``) against the unsharded ones
    (every sharded step under the sync check, each kernel on every shard,
-   scores within 1e-5, the same session text) and the server of
+   scores within 1e-5, the same session text; the gap to the 64-stream
+   engine hop by hop, segmentation and embeddings apart, a record) and
+   the server of
    ``serve --mesh 2`` driven by ``_tick`` with stub clients (the unsharded
    session's text); two processes in a gloo group with CUDA tensors (each
    owning half the streams: their rows equal one process's engine; one
@@ -158,7 +174,9 @@ Phases (any failure exits non-zero):
 
 ``--families`` runs only the build and phase 7; ``--training`` only the
 build and phase 8; ``--scaleout`` only the build and phase 9
-(``--rank-child`` is phase 9's own way to start its processes).
+(``--rank-child`` is phase 9's own way to start its processes);
+``--tf32-default [--root TREE]`` only the build and phase 1's TF32
+checks (with ``TREE``'s ``diart_tpu_torch``, its subprocess too).
 ``--step-timing [--root TREE]`` runs only the step timing of phase 4 (its
 sync check recorded, not fatal), importing ``diart_tpu_torch`` from
 ``TREE``: run it on two trees in the order A B B A to compare commits.
@@ -179,6 +197,8 @@ import time
 
 import numpy as np
 
+# the tree whose diart_tpu_torch the subprocesses import (``--root``)
+PKG_ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # tensor cores (int8: operations); f32 outside them
 PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12, "int8": 1979e12}
@@ -895,15 +915,17 @@ def drive_engine(emb, audio, out_dir):
     return run
 
 
-def compare_cpu(emb, audio):
+def compare_cpu(emb, audio, which=("f32", "serving"), strict=True):
     """The engine with embedding ``emb`` for 2 streams on the card against
     the same engine on the CPU (the kernels' plain versions): the frame
     scores that ``probe_frame_scores`` gives after 10 hops, in f32 and in
-    the serving configuration, and 12 f32 hops with clustering active."""
+    the serving configuration, and 12 f32 hops with clustering active.
+    ``which``: the cases to run. With ``strict`` off a disagreement is
+    recorded (``failures``) instead of raised."""
     import torch
     from diart_tpu_torch.precision import Precision
 
-    results = {}
+    results, failures = {}, []
     cases = [
         # f32 everywhere: the kernels' f32 paths against plain f32 on the CPU
         ("f32", dict(seg_dtype="f32", emb_dtype="f32",
@@ -917,6 +939,7 @@ def compare_cpu(emb, audio):
         ("serving", dict(), 1e-3, 1e-3),
     ]
     hops, agg_tol = 12, 1e-3
+    cases = [c for c in cases if c[0] in which]
     for name, kw, seg_tol, emb_tol in cases:
         probes, aggs, centres = [], [], []
         steps = hops if name == "f32" else WARMUP_HOPS
@@ -944,7 +967,7 @@ def compare_cpu(emb, audio):
         if not (torch.isfinite(sg).all() and torch.isfinite(eg).all()):
             raise AssertionError(f"probe [{emb}, {name}] produced non-finite values")
         if not (seg_err <= seg_tol and emb_err <= emb_tol):
-            raise AssertionError(f"probe [{emb}, {name}] disagrees with the CPU engine")
+            failures.append(f"probe [{emb}, {name}] disagrees with the CPU engine")
         results[name] = dict(seg_err=seg_err, seg_tol=seg_tol, emb_err=emb_err, emb_tol=emb_tol)
         if name != "f32":
             continue
@@ -952,9 +975,12 @@ def compare_cpu(emb, audio):
         log(f"steps vs CPU [{emb}, f32, {hops} hops, 2 streams]: aggregated max_abs_err={agg_err:.3e} "
             f"(tol {agg_tol:.0e}); active centres card/CPU {centres[0]}/{centres[1]}")
         if not (agg_err <= agg_tol and centres[0] == centres[1] and centres[0] > 0):
-            raise AssertionError(f"engine[{emb}] steps on the card disagree with the CPU engine")
-        results["steps_f32"] = dict(agg_err=agg_err, tol=agg_tol, active_centres=centres[0])
-    return results
+            failures.append(f"engine[{emb}] steps on the card disagree with the CPU engine")
+        results["steps_f32"] = dict(agg_err=agg_err, tol=agg_tol, active_centres=centres[0],
+                                    active_centres_cpu=centres[1])
+    if failures and strict:
+        raise AssertionError("; ".join(failures))
+    return dict(results, failures=failures) if failures else results
 
 
 # --------------------------------------------------------------------- #
@@ -1732,19 +1758,23 @@ def check_rttm(text, uri, what):
     return len(lines)
 
 
-def stream_cli(wav, out_dir, *extra):
+def stream_cli(wav, out_dir, *extra, tf32_override=True):
     """``python -m diart_tpu_torch.console.stream <wav> --no-plot --output
     <dir>`` in a subprocess on the card, with the default models and
     RUNTIME_CLI_ARGS. ``NVIDIA_TF32_OVERRIDE=0`` keeps TF32 out of its
     cuDNN convolutions, as this script's ``allow_tf32 = False`` does here,
-    so both processes round alike. The RTTM text, the wall and the CLI's
-    own profile line. ``extra``: more arguments."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
+    so both processes round alike; ``tf32_override=False`` runs the CLI as
+    a user's shell does, with no override and torch's default switches.
+    The RTTM text, the wall and the CLI's own profile line. ``extra``: more
+    arguments."""
+    env = dict(os.environ)
+    env.pop("NVIDIA_TF32_OVERRIDE", None)
+    if tf32_override:
+        env["NVIDIA_TF32_OVERRIDE"] = "0"
     cmd = [sys.executable, "-m", "diart_tpu_torch.console.stream", wav, "--no-plot", "--output",
            out_dir, *RUNTIME_CLI_ARGS, *extra]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=root, env=env)
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=PKG_ROOT, env=env)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"stream CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
@@ -2056,6 +2086,122 @@ def drive_runtime(out_dir):
         return rec
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------- #
+# torch's default TF32 switches: the port's f32 convolutions stay true f32
+# --------------------------------------------------------------------- #
+def sinc_times():
+    """The sinc filterbank of ``tpu/pyannet`` at B windows of 5 s: the
+    port's call as the caller's switches stand, and the same convolution
+    with cuDNN's TF32 on and off (``allow_tf32``), its TF32 error against
+    true f32 beside it; for the TF32 policy question (a record)."""
+    import torch
+    import torch.nn.functional as F
+    from diart_tpu_torch import SegmentationModel
+    from diart_tpu_torch.models.sincnet import SincConv
+
+    seg = SegmentationModel.from_registry("tpu/pyannet", device="cuda", seed=0)
+    sinc = next(m for m in seg.module.modules() if isinstance(m, SincConv))
+    x = torch.randn(B, 1, 80000, device="cuda", generator=torch.Generator("cuda").manual_seed(7))
+    rec = {}
+    with torch.no_grad():
+        filters = sinc.filters()[:, None, :]
+        rec["port_ms"] = time_ms(lambda: sinc(x), 20)
+        port = sinc(x)
+        prev = torch.backends.cudnn.allow_tf32
+        try:
+            for name, flag in (("tf32_ms", True), ("true_f32_ms", False)):
+                torch.backends.cudnn.allow_tf32 = flag
+                rec[name] = time_ms(lambda: F.conv1d(x, filters, stride=sinc.stride), 20)
+                rec[name.replace("_ms", "_out")] = F.conv1d(x, filters, stride=sinc.stride)
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+    exact = rec.pop("true_f32_out")
+    scale = exact.abs().max().item()
+    rec["tf32_max_abs_err"] = (rec.pop("tf32_out") - exact).abs().max().item()
+    rec["port_max_abs_err"] = (port - exact).abs().max().item()
+    rec["out_max_abs"] = scale
+    log(f"sinc convolution {tuple(x.shape)} -> {tuple(exact.shape)}: the port's call {rec['port_ms']:.3f} ms "
+        f"(max_abs_err against true f32 {rec['port_max_abs_err']:.3e}); cuDNN TF32 {rec['tf32_ms']:.3f} ms "
+        f"(max_abs_err {rec['tf32_max_abs_err']:.3e} of max |y| {scale:.3e}), true f32 {rec['true_f32_ms']:.3f} ms")
+    return rec
+
+
+def tf32_invariance(audio):
+    """The f32 x-vector engine for 2 streams on the card: the scores of
+    ``probe_frame_scores`` after WARMUP_HOPS steps with torch's TF32
+    switches as they stand, then with both off. The port's f32
+    convolutions and products run in true f32 whatever the switches say,
+    so the two must agree bit for bit."""
+    import torch
+
+    engine = build_engine("cuda", 2, "xvector", emb_dtype="f32", precision=f32_policy())
+    state = engine.init_state()
+    for i in range(WARMUP_HOPS):
+        state, _ = engine.step(state, audio[i, :2])
+    as_is = [t.float().cpu() for t in engine.probe_frame_scores(state, audio[WARMUP_HOPS, :2])]
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        off = [t.float().cpu() for t in engine.probe_frame_scores(state, audio[WARMUP_HOPS, :2])]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    rec = dict(bitwise=all(torch.equal(a, b) for a, b in zip(as_is, off)),
+               seg_gap=(as_is[0] - off[0]).abs().max().item(), emb_gap=(as_is[1] - off[1]).abs().max().item())
+    log(f"the card's f32 scores with TF32 as it comes against TF32 off: bitwise {rec['bitwise']} (segmentation "
+        f"{rec['seg_gap']:.3e}, embeddings {rec['emb_gap']:.3e})")
+    return rec
+
+
+def drive_tf32_default(out_dir):
+    """Torch's TF32 switches as a process gets them (run before this script
+    turns them off; no ``NVIDIA_TF32_OVERRIDE``): the x-vector engine's f32
+    probe and 12 f32 hops against the CPU (``compare_cpu``'s f32 case, its
+    tolerances), the same probe on the card bitwise the one with TF32 off
+    (``tf32_invariance``), and the stream CLI in a subprocess without the
+    override, whose RTTM text must equal the same CLI's run with TF32 off;
+    the sinc filterbank's times (``sinc_times``, a record). Every gap is
+    logged before the phase fails."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    switches = dict(cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+                    matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+                    NVIDIA_TF32_OVERRIDE=os.environ.get("NVIDIA_TF32_OVERRIDE"))
+    log(f"TF32 as a process gets it: {switches}")
+    t0 = time.perf_counter()
+    audio = make_audio(np.random.default_rng(0), HOPS + 20, B, 8000)
+    probe = compare_cpu("xvector", audio, ("f32",), strict=False)
+    invariance = tf32_invariance(audio)
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(scratch, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=scratch)
+    try:
+        wav = os.path.join(tmp, "meeting.wav")
+        write_seconds(wav, np.random.default_rng(4), RUNTIME_SECONDS)
+        off, _, _ = stream_cli(wav, os.path.join(tmp, "off"))
+        default, wall, _ = stream_cli(wav, os.path.join(tmp, "default"), tf32_override=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a, b = off.splitlines(), default.splitlines()
+    differ = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+    sinc = sinc_times()
+    rec = dict(switches=switches, probe=probe, card_invariance=invariance, cli_text_equal=off == default,
+               cli_lines=[len(a), len(b)],
+               cli_lines_differing=differ, sinc=sinc, seconds=time.perf_counter() - t0)
+    log(f"stream CLI with TF32 as it comes against TF32 off: text equal {rec['cli_text_equal']} "
+        f"({len(b)} / {len(a)} lines, {differ} differ); {wall:.2f} s wall")
+    if out_dir:
+        with open(os.path.join(out_dir, "tf32_default.json"), "w") as f:
+            json.dump(rec, f, indent=1)
+    failures = probe.get("failures", []) + ([] if rec["cli_text_equal"] else ["the stream CLI's text"]) \
+        + ([] if invariance["bitwise"] else ["the card's f32 scores depend on the TF32 switches"])
+    if failures:
+        raise AssertionError(f"under torch's default TF32 switches: {'; '.join(failures)}")
+    return rec
 
 
 # --------------------------------------------------------------------- #
@@ -2976,9 +3122,11 @@ def check_int8_site(tag, conv, x):
     w, b = conv.weight, conv.bias
     st, pad, dil, dt = conv.stride, conv.padding, conv.dilation, conv.compute_dtype
     ops = quant.prepare_int8_operands(w, b)
+    c_out, c_in = w.shape[:2]
+    c_pad = quant.padded_channels(c_in)
     q, s = quant.quantize_rows(x)
     qp, sp = quant.quantize_per_sample(x)
-    quant_ok = torch.equal(q, qp.flatten(2).transpose(1, 2)) and torch.equal(s, sp.view(-1))
+    quant_ok = torch.equal(q, F.pad(qp.flatten(2).transpose(1, 2), (0, c_pad - c_in))) and torch.equal(s, sp.view(-1))
     acc = quant.int8_conv_accumulators(x, w, st, pad, dil, operands=ops)
     acc_p = quant.int8_accumulate(qp, quant.quantize_weight(w)[0], st, pad, dil)
     acc_ok = torch.equal(acc, acc_p)
@@ -2987,48 +3135,91 @@ def check_int8_site(tag, conv, x):
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     out_ok = torch.equal(got, want)
-    ms = time_ms(lambda: quant.int8_conv(x, w, b, st, pad, dil, dt, operands=ops), 10)
+    call = lambda: quant.int8_conv(x, w, b, st, pad, dil, dt, operands=ops)
+    ms = time_ms(call, 10)
+    # the three launches apart (profiler device time a call)
+    by_launch = {name: t for name, t, _ in device_times(call, f"int8_conv[{tag}]", calls=5)}
+    launch_ms = {k: sum(t for name, t in by_launch.items() if name.startswith(k))
+                 for k in ("absmax_rows", "quantize_rows", "int8_conv_wgmma")}
     plain_ms = time_ms(lambda: quant.int8_conv_reference(x, w, b, st, pad, dil, dt), 2, warmup=1)
     conv_fn = F.conv2d if w.dim() == 4 else F.conv1d
     xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
     cudnn_ms = time_ms(lambda: conv_fn(xb, wb, stride=st, padding=pad, dilation=dil), 10)
-    c_out, c_in = w.shape[:2]
     window = tuple(w.shape[2:])
     k = c_in * int(np.prod(window))
     n = got.numel() // c_out
     int_mm_ms = None
     if k % 8 == 0 and c_out % 8 == 0 and (w.dim() == 3 or window == (1, 1)):
         if w.dim() == 3:  # (B, T, C) int8 unfolded to (B * O, k * C_in)
-            cols = q.unfold(1, (window[0] - 1) * dil + 1, 1)[..., ::dil].permute(0, 1, 3, 2)
+            cols = q[..., :c_in].unfold(1, (window[0] - 1) * dil + 1, 1)[..., ::dil].permute(0, 1, 3, 2)
         else:  # a 1x1 window of stride s: a strided view
             cols = qp[:, :, ::st, ::st].permute(0, 2, 3, 1)
         a = cols.reshape(-1, k).contiguous()
-        bw = ops.q_w[:, :k].contiguous().t()  # (K, N), column-major as _int_mm takes it
+        # (K, N), column-major as _int_mm takes it: the taps' unpadded channels
+        bw = ops.q_w.view(c_out, -1, c_pad)[:, :, :c_in].reshape(c_out, k).contiguous().t()
         if a.shape[0] > 16:
             int_mm_ms = time_ms(lambda: torch._int_mm(a, bw), 10)
     nbytes = x.numel() * x.element_size() + got.numel() * got.element_size() + ops.q_w.numel()
     bnd, by = bound_ms(nbytes, 2.0 * c_out * n * k, "int8")
+    # the quantizer's own byte bound: x read once, q_x written once
+    q_bound = (x.numel() * x.element_size() + q.numel()) / HBM_BYTES_PER_S * 1e3
+    o1, o2 = tuple(got.shape[2:]) + (1,) * (4 - got.dim())
+    s1, s2 = quant._pairs(st, w.dim() - 2) + (1,) * (4 - w.dim())
+    plan = quant.conv_plan(c_out, o1, o2, s1, s2, c_pad)
     rec = dict(site=tag, x=list(x.shape), x_dtype=str(x.dtype).replace("torch.", ""),
                weight=list(w.shape), stride=st, padding=pad, dilation=dil, quantize_bitwise=quant_ok,
                accumulators_bitwise=acc_ok, output_bitwise=out_ok, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                bound_ms=bnd, bound_by=by, library_ms=cudnn_ms, int_mm_ms=int_mm_ms,
-               tops=2.0 * c_out * n * k / ms / 1e9)
+               tops=2.0 * c_out * n * k / ms / 1e9, launch_ms=launch_ms, quantize_bound_ms=q_bound,
+               conv_tops=2.0 * c_out * n * k / launch_ms["int8_conv_wgmma"] / 1e9
+               if launch_ms["int8_conv_wgmma"] else None,
+               plan=plan._asdict())
     log(f"int8_conv[{tag}] x {tuple(x.shape)} {rec['x_dtype']}, w {tuple(w.shape)}, stride {st}, padding {pad}, "
         f"dilation {dil}: quantize_rows bitwise {quant_ok}, int32 sums bitwise {acc_ok}, output bitwise {out_ok} "
         f"(max_abs_err={err:.3e}); {ms:.3f} ms ({rec['tops']:.1f} TOP/s; bound {bnd:.3f} ms by {by}), plain "
         f"{plain_ms:.3f} ms, cuDNN bf16 conv {cudnn_ms:.3f} ms"
-        + (f", _int_mm of the unfolded input {int_mm_ms:.3f} ms" if int_mm_ms is not None else ""))
+        + (f", _int_mm of the unfolded input {int_mm_ms:.3f} ms" if int_mm_ms is not None else "")
+        + f"; launches absmax_rows {launch_ms['absmax_rows']:.4f} / quantize_rows {launch_ms['quantize_rows']:.4f} "
+        f"(byte bound {q_bound:.4f}) / int8_conv_wgmma {launch_ms['int8_conv_wgmma']:.4f} ms "
+        f"({rec['conv_tops'] or 0:.1f} TOP/s); plan n={plan.n} mw={plan.mw} box {plan.box1}x{plan.box2} "
+        f"bk={plan.bk} tiles {plan.tiles}")
     if not (quant_ok and acc_ok and out_ok):
         raise AssertionError(f"int8_conv[{tag}] disagrees with its plain version")
+    return rec
+
+
+def int8_sass():
+    """The built ``int8_conv`` library's SASS (``cuobjdump --dump-sass``):
+    every convolution kernel (``int8_conv_wgmma``) holds a warpgroup MMA on
+    8-bit integers (``IGMMA``) and no ``mma.sync`` one (``IMMA``)."""
+    from diart_tpu_torch.ops import _build
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    so = str(_build.BUILD_DIR / "libint8_conv.so")
+    text = subprocess.run([tool, "--dump-sass", so], capture_output=True, text=True, timeout=120).stdout
+    funcs = re.split(r"\n\s*Function : ", text)[1:]
+    conv = [f for f in funcs if "int8_conv_wgmma" in f.split("\n", 1)[0]]
+    rec = dict(functions=len(funcs), conv_kernels=len(conv),
+               with_igmma=sum(bool(re.search(r"\bIGMMA", f)) for f in conv),
+               with_imma=sum(bool(re.search(r"\bIMMA\b", f)) for f in conv),
+               igmma_instructions=sum(len(re.findall(r"\bIGMMA\S*", f)) for f in conv))
+    log(f"int8_conv SASS ({tool}): {rec['conv_kernels']} convolution kernels, {rec['with_igmma']} with IGMMA "
+        f"({rec['igmma_instructions']} instructions), {rec['with_imma']} with IMMA")
+    if not (conv and rec["with_igmma"] == len(conv) and rec["with_imma"] == 0):
+        raise AssertionError(f"int8_conv's SASS: every convolution kernel must use IGMMA and none IMMA: {rec}")
     return rec
 
 
 def check_int8_sites():
     """Every quantizable site of the five families at full width, B=64 and
     their serving dtype (bf16 trunks), at the inputs one forward hands it:
-    one check for each distinct geometry."""
+    one check for each distinct geometry. Then one geometry no family has:
+    a 3x3 convolution of stride 2, padding 1 and dilation 3 whose 7 output
+    columns divide no tile of the kernel (its general epilogue, positions
+    not contiguous), 40 input channels (C_pad 64), 24 output channels."""
     import torch
     from diart_tpu_torch import EmbeddingModel, precision
+    from diart_tpu_torch.models.common import QuantizableConv
 
     recs, done = [], set()
     wave = torch.from_numpy(make_audio(np.random.default_rng(9), 10, B, 8000).transpose(1, 0, 2)
@@ -3046,6 +3237,13 @@ def check_int8_sites():
             recs.append(check_int8_site(f"{family}.{name}", conv, x))
         del model, seen
         torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    conv = QuantizableConv(40, 24, (3, 3), dilation=3, stride=2, padding=1, compute_dtype=torch.bfloat16).cuda()
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, device="cuda", generator=gen) * 0.1)
+        conv.bias.copy_(torch.randn(24, device="cuda", generator=gen))
+    x = torch.randn(B, 40, 23, 17, device="cuda", generator=gen).to(torch.bfloat16)
+    recs.append(check_int8_site("extra.3x3-s2-p1-d3", conv, x))
     return recs
 
 
@@ -3218,6 +3416,8 @@ def drive_mesh_engine(emb, audio):
     sh = [h.init_state() for h in halves]
     paused, reset_slot = 1, B - 2
     err = cerr = full_err = full_cerr = 0.0
+    curve = []  # the gap to the 64-stream engine, hop by hop
+    gap = lambda a, b: (a.cpu().float() - b.cpu().float()).abs().max().item()
     for i in range(MESH_HOPS):
         audio_mask = np.ones(B, bool)
         run_mask = np.full(B, i + 1 >= WARMUP_HOPS)
@@ -3225,6 +3425,11 @@ def drive_mesh_engine(emb, audio):
             audio_mask[paused] = run_mask[paused] = False
         if i == MESH_HOPS - 1:
             run_mask[reset_slot] = False
+        # the scores this hop's step computes before clustering: segmentation
+        # and embeddings apart
+        (seg2, emb2), (seg1, emb1) = (e.probe_frame_scores(st, audio[i], audio_mask)
+                                      for e, st in ((sharded, s2), (single, s1)))
+        curve.append(dict(hop=i + 1, seg=gap(seg2, seg1), emb=gap(emb2, emb1)))
         before = {k: fn.launches for k, fn in counters.items()}
         with no_host_sync():
             s2, o2 = sharded.step(s2, audio[i], audio_mask, run_mask)
@@ -3242,8 +3447,10 @@ def drive_mesh_engine(emb, audio):
             cerr = max(cerr, (s2.centers[k] - sh[k].centers).abs().max().item())
         if i == MESH_HOPS - 2:
             s1 = single.reset_stream(s1, reset_slot)
-        full_err = max(full_err, (o2.aggregated.cpu() - o1.aggregated.cpu()).abs().max().item())
-        full_cerr = max(full_cerr, (s2.centers.cpu() - s1.centers.cpu()).abs().max().item())
+        curve[-1].update(aggregated=gap(o2.aggregated, o1.aggregated), centres=gap(s2.centers, s1.centers),
+                         active_differ=int((s2.center_active.cpu() != s1.center_active.cpu()).sum()))
+        full_err = max(full_err, curve[-1]["aggregated"])
+        full_cerr = max(full_cerr, curve[-1]["centres"])
     torch.cuda.synchronize()
     per_hop = path_launches(emb, 4)
     want = {k: v * MESH_HOPS * MESH_SLOTS for k, v in per_hop.items()}
@@ -3267,7 +3474,8 @@ def drive_mesh_engine(emb, audio):
     lines = sum(t.count("\n") for hop in texts[0] for t in hop if t)
     rec = dict(shards=MESH_SLOTS, launches=launches, agg_err_f32=err, centres_err_f32=cerr, tol=1e-5,
                bitwise=err == 0.0 and cerr == 0.0, active_centres_f32=active, agg_err_vs_all_streams=full_err,
-               centres_err_vs_all_streams=full_cerr, session_text_equal=texts[0] == texts[1], rttm_lines=lines,
+               centres_err_vs_all_streams=full_cerr, gap_by_hop=curve,
+               session_text_equal=texts[0] == texts[1], rttm_lines=lines,
                timing_sharded=quick_timing(sharded, audio), timing_single=quick_timing(single, audio))
     log(f"mesh[{emb}] B={B} as {MESH_SLOTS} x {per} on one card, f32, {MESH_HOPS} hops (sharded steps under the "
         f"sync check): launches of the sharded steps {launches} (every kernel on every shard); each shard against "
@@ -3279,6 +3487,10 @@ def drive_mesh_engine(emb, audio):
         f"{rec['timing_single']['back_to_back_wall_ms']:.3f} ms, device busy "
         f"{rec['timing_sharded']['device_busy_ms']:.3f} / {rec['timing_single']['device_busy_ms']:.3f} ms "
         f"(a record)")
+    fmt = lambda key: " ".join(f"{h[key]:.1e}" for h in curve)
+    log(f"mesh[{emb}] gap to the {B}-stream engine by hop 1..{MESH_HOPS} (f32): segmentation {fmt('seg')}; "
+        f"embeddings {fmt('emb')}; aggregated {fmt('aggregated')}; centres {fmt('centres')}; active centres "
+        f"differing {' '.join(str(h['active_differ']) for h in curve)}")
     if not (err <= 1e-5 and cerr <= 1e-5 and active and rec["session_text_equal"] and lines):
         raise AssertionError(f"mesh[{emb}]: the sharded engine disagrees with the unsharded one")
     return rec
@@ -3496,18 +3708,28 @@ def drive_process_groups(tmp):
                 worst_grad=worst_name, wall_s=wall, nccl="initialized, all-reduced once (one process)")
 
 
-def drive_scaleout_int8(out_dir):
-    """Phase 9: int8_conv at every quantizable site, the five families with
-    the int8 trunk, the sharded engines and server on one card, process
-    groups on one card."""
+def check_int8():
+    """``int8_conv``'s SASS and every site (run with the other kernel checks
+    of phase 2 in a whole run: late in a long process the profiler that
+    times its launches apart sees no device time)."""
+    t0 = time.perf_counter()
+    rec = dict(sass=int8_sass(), sites=check_int8_sites())
+    log(f"int8 site checks in {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
+def drive_scaleout_int8(out_dir, int8=None):
+    """Phase 9: int8_conv at every quantizable site (``int8``: the record
+    of ``check_int8`` where it ran already), the five families with the
+    int8 trunk, the sharded engines and server on one card, process groups
+    on one card."""
     import shutil
     import tempfile
 
     import torch
 
     t0 = time.perf_counter()
-    sites = check_int8_sites()
-    log(f"int8 site checks in {time.perf_counter() - t0:.1f} s")
+    int8 = int8 or check_int8()
     families = {}
     for family in INT8_FAMILIES:
         t1 = time.perf_counter()
@@ -3525,7 +3747,7 @@ def drive_scaleout_int8(out_dir):
         groups = drive_process_groups(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return dict(sites=sites, families=families, mesh=mesh, process_groups=groups,
+    return dict(int8, families=families, mesh=mesh, process_groups=groups,
                 seconds=time.perf_counter() - t0)
 
 
@@ -3559,18 +3781,22 @@ def main() -> int:
     parser.add_argument("--step-timing", action="store_true",
                         help="only time the step with host inputs (and its sync check), both engines")
     parser.add_argument("--root", default=None,
-                        help="with --step-timing: import diart_tpu_torch from this tree (to compare two trees)")
+                        help="with --step-timing or --tf32-default: import diart_tpu_torch from this tree (to compare two trees)")
     parser.add_argument("--families", action="store_true",
                         help="only build the kernels and run the families phase (7)")
     parser.add_argument("--training", action="store_true",
                         help="only build the kernels and run the training and tuning phase (8)")
     parser.add_argument("--scaleout", action="store_true",
                         help="only build the kernels and run the scale-out and int8 phase (9)")
+    parser.add_argument("--tf32-default", action="store_true",
+                        help="only build the kernels and run phase 1's TF32-default checks")
     parser.add_argument("--rank-child", nargs=4, metavar=("KIND", "RANK", "PORT", "DIR"),
                         help="one process of phase 9's process groups (started by the script itself)")
     args = parser.parse_args()
     if args.root:
-        sys.path.insert(0, os.path.abspath(args.root))
+        global PKG_ROOT
+        PKG_ROOT = os.path.abspath(args.root)
+        sys.path.insert(0, PKG_ROOT)
 
     import torch
 
@@ -3582,11 +3808,13 @@ def main() -> int:
     if args.rank_child:
         kind, rank, port, out = args.rank_child
         return rank_child(kind, int(rank), int(port), out)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    def tf32_off():
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        log(f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+            f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    log(f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-        f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     smi = smi_line()
     log(f"gpu: {smi}")
     if args.out:
@@ -3595,6 +3823,7 @@ def main() -> int:
     if args.step_timing:
         import diart_tpu_torch
 
+        tf32_off()
         log(f"step timing of {os.path.dirname(diart_tpu_torch.__file__)}")
         _build.build()
         timing = {}
@@ -3618,8 +3847,30 @@ def main() -> int:
     log(f"built {', '.join(_build.KERNELS)} and the native RTTM assembler in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(w in line for w in ("registers", "spill", "rror", "wgmma", "Performance")):
                 log(f"  [{name}] {line.strip()}")
+
+    if args.tf32_default:
+        import diart_tpu_torch
+
+        log(f"TF32-default check of {os.path.dirname(diart_tpu_torch.__file__)}")
+        try:
+            tf32 = drive_tf32_default(args.out)
+        except AssertionError as e:
+            log(f"TF32-default check failed: {e}")
+            return 1
+        log(f"gpu: {smi}")
+        log(json.dumps({"tf32_default": {k: v for k, v in tf32.items() if k != "switches"}}))
+        return 0
+
+    # phase 1's TF32 checks: torch's switches as they come; every later
+    # phase runs with both off
+    tf32 = None
+    if not (args.families or args.scaleout or args.training):
+        t0 = time.perf_counter()
+        tf32 = drive_tf32_default(args.out)
+        log(f"TF32-default phase in {time.perf_counter() - t0:.1f} s")
+    tf32_off()
 
     if args.families:
         families = drive_families(args.out)
@@ -3656,8 +3907,9 @@ def main() -> int:
     stats = {k: check_stats(dt, cgen) for k, dt in bf16_f32}
     attn = {k: check_attn(dt, cgen) for k, dt in bf16_f32}
     res2 = {k: check_res2(dt, gen) for k, dt in bf16_f32}
+    int8 = check_int8()
     log(f"kernel checks in {time.perf_counter() - t0:.1f} s")
-    result = dict(gpu=smi, lstm=lstm, stats=stats, attn=attn, res2=res2)
+    result = dict(gpu=smi, tf32_default=tf32, lstm=lstm, stats=stats, attn=attn, res2=res2)
 
     runs, probes = {}, {}
     for emb in ("xvector", "ecapa"):
@@ -3710,7 +3962,7 @@ def main() -> int:
     # scale-out and int8: the int8 convolution and the five families with the
     # int8 trunk, the sharded engines and server on one card, process groups
     t0 = time.perf_counter()
-    scaleout = drive_scaleout_int8(args.out)
+    scaleout = drive_scaleout_int8(args.out, int8)
     log(f"scale-out and int8 phase in {time.perf_counter() - t0:.1f} s")
 
     # the main paths run the bf16 LSTM stream and bf16 embedding trunks

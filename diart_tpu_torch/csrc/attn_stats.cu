@@ -113,20 +113,6 @@ __device__ __forceinline__ float tf32_rna(float v) {
   return __uint_as_float(r);
 }
 
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nwait_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra wait_%=;\n}\n" ::"r"(bar), "r"(parity)
-      : "memory");
-}
 // TMA: the (32 H x 64 frames) box at (h0, t0, b) of the hidden map into a
 // 128-byte-swizzled tile; completion is counted on `bar`
 __device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap* map, int h0, int t0,
@@ -404,27 +390,6 @@ __global__ void __launch_bounds__(ANT, 1) attn_stats_tc(
     }
     reset();
   }
-}
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    if (status == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // hidden (B, T, H) f32 as a TMA map of (32 H x 64 frames) boxes, 128-byte

@@ -10,6 +10,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import precision as precision_policy
+from ..ops import _numerics
 from ..ops.attn_stats import AttnOperands, fused_attentive_stats
 from ..ops.functional import reflect_index
 from ..ops.quant import int8_conv, prepare_int8_operands
@@ -75,7 +76,9 @@ class QuantizableConv(nn.Module):
     with its weights quantized once and held. ``quantizable=False`` marks
     the convolutions that are a plain ``nn.Conv`` in the JAX package
     (TitaNet's depthwise one, ResNet34's stem), which stay in
-    ``compute_dtype`` under the switch."""
+    ``compute_dtype`` under the switch. In f32 the plain route is true f32
+    on the card whatever torch's TF32 switches say
+    (:func:`diart_tpu_torch.ops._numerics.conv_scope`)."""
 
     def __init__(
         self,
@@ -119,8 +122,9 @@ class QuantizableConv(nn.Module):
                                     lambda: prepare_int8_operands(self.weight, self.bias))
             return int8_conv(x, self.weight, self.bias, self.stride, self.padding, self.dilation,
                              dt, operands=ops)
-        y = self._conv(x.to(dt), self.weight.to(dt), stride=self.stride, padding=self.padding,
-                       dilation=self.dilation, groups=self.groups)
+        with _numerics.conv_scope(x.device, dt):
+            y = self._conv(x.to(dt), self.weight.to(dt), stride=self.stride, padding=self.padding,
+                           dilation=self.dilation, groups=self.groups)
         if self.bias is None:
             return y
         return y + self.bias.to(y.dtype).view((1, -1) + (1,) * (y.dim() - 2))

@@ -6,8 +6,9 @@ Framing, windowing and the DFT run as one strided convolution whose basis
 such as kaldi's DC removal and pre-emphasis folded in) is a numpy float64
 constant cast to f32, as in the JAX package. The DFT product and the mel
 contraction run in true f32 whatever the caller's TF32 flags say
-(:func:`_true_f32`): TF32 keeps about three decimal digits, and the JAX
-package asks for ``precision=HIGHEST`` here off the TPU.
+(``ops/_numerics.py`` :func:`true_f32`): TF32 keeps about three decimal
+digits, and the JAX package asks for ``precision=HIGHEST`` here off the
+TPU.
 
 The incremental pieces (``FbankRingSpec`` ... ``fbank_edge_right``) are
 what the engine's ``fbank_ring`` uses: every stage up to the window-level
@@ -26,13 +27,14 @@ per kind:
 
 from __future__ import annotations
 
-import contextlib
 from functools import lru_cache
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..ops._numerics import true_f32
 
 __all__ = [
     "FbankRingSpec",
@@ -52,22 +54,6 @@ __all__ = [
 _F32_EPS = float(np.finfo(np.float32).eps)
 _NEMO_GUARD = 2.0**-24
 _NEMO_FFT = 512
-
-
-@contextlib.contextmanager
-def _true_f32(device: torch.device):
-    """Run f32 convolutions and matrix products without TF32 on CUDA,
-    restoring the caller's flags afterwards."""
-    if device.type != "cuda":
-        yield
-        return
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    prev = (cudnn.allow_tf32, matmul.allow_tf32)
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = prev
 
 
 def _hz_to_mel(hz):
@@ -255,7 +241,7 @@ def _dft_power(signal: torch.Tensor, basis: np.ndarray, hop: int) -> torch.Tenso
         x = F.pad(x, (0, needed - samples))
     x = x.reshape(batch, -1, hop).transpose(1, 2)  # (B, hop, hops)
     w = _constant(_phase_basis(basis, hop), signal.device)
-    with _true_f32(signal.device):
+    with true_f32(signal.device):
         y = F.conv1d(x, w)  # (B, 2 * bins, frames)
     power = y[:, :bins] ** 2 + y[:, bins:] ** 2
     return power.transpose(1, 2)
@@ -263,7 +249,7 @@ def _dft_power(signal: torch.Tensor, basis: np.ndarray, hop: int) -> torch.Tenso
 
 def _mel(power: torch.Tensor, mel: np.ndarray) -> torch.Tensor:
     """Mel energies of ``power`` (B, frames, bins) in true f32."""
-    with _true_f32(power.device):
+    with true_f32(power.device):
         return torch.matmul(power, _constant(mel, power.device).t())
 
 

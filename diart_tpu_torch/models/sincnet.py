@@ -15,6 +15,11 @@ The filters are synthesized in f32 from the learnable cutoffs, as the JAX
 package does. Their sin/cos arguments reach ~400 rad, where one f32 ulp of
 the argument is ~3e-5 rad, so filter taps agree with the JAX synthesis to
 ~1e-5 relative, not bit for bit (stated in tests/test_torch_models.py).
+
+Every convolution computed in f32 (the sinc filterbank always, the k=5
+ones at ``compute_dtype=float32``) runs in true f32 on the card, whatever
+torch's TF32 switches say (``ops/_numerics.py``), as JAX's does off the
+TPU.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import precision
+from ..ops import _numerics
 
 __all__ = [
     "SincConv",
@@ -149,7 +155,9 @@ class SincConv(nn.Module):
         """x: (batch, 1, samples) -> (batch, num_filters, frames)"""
         if x.shape[1] != 1:
             raise ValueError(f"SincConv expects mono (B, 1, samples); got {tuple(x.shape)}")
-        return F.conv1d(x.float(), self.filters()[:, None, :], stride=self.stride)
+        filters = self.filters()[:, None, :]
+        with _numerics.true_f32(x.device):
+            return F.conv1d(x.float(), filters, stride=self.stride)
 
 
 class SincNet(nn.Module):
@@ -182,7 +190,8 @@ class SincNet(nn.Module):
         cd = self.compute_dtype
         for i in (2, 3):
             conv = getattr(self, f"conv{i}")
-            x = F.conv1d(x.to(cd), conv.weight.to(cd), conv.bias.to(cd)).float()
+            with _numerics.conv_scope(x.device, cd):
+                x = F.conv1d(x.to(cd), conv.weight.to(cd), conv.bias.to(cd)).float()
             x = F.max_pool1d(x, 3)
             x = _instance_norm(
                 x, getattr(self, f"norm{i}_scale"), getattr(self, f"norm{i}_bias")

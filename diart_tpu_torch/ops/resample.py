@@ -17,7 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..models.fbank import _constant, _true_f32
+from ..models.fbank import _constant
+from ._numerics import true_f32
 
 __all__ = ["resample", "resample_kernel"]
 
@@ -58,7 +59,7 @@ def resample(waveform: torch.Tensor, orig_freq: int, new_freq: int) -> torch.Ten
     length = shape[-1]
     x = F.pad(waveform.reshape(-1, 1, length).float(), (width, width + orig))
     weight = _constant(kernel, waveform.device)  # held per device
-    with _true_f32(waveform.device):
+    with true_f32(waveform.device):
         y = F.conv1d(x, weight, stride=orig)  # (batch, new, frames)
     y = y.transpose(1, 2).reshape(x.shape[0], -1)
     target_length = int(math.ceil(new * length / orig))

@@ -92,9 +92,13 @@ def test_quantize_per_sample_bitwise_jax(shape, dtype):
     assert q.dtype == torch.int8 and s.shape == (shape[0],) + (1,) * (len(shape) - 1)
     np.testing.assert_array_equal(_nhwc(q.numpy()), np.asarray(jq))
     np.testing.assert_array_equal(s.numpy().reshape(-1), np.asarray(js).reshape(-1))
-    # the kernel's channels-last layout of the same values (plain version here)
+    # the kernel's channels-last layout of the same values (plain version
+    # here), its channels padded to a multiple of 32 with zeros
     rows, scale = quant.quantize_rows(xt)
-    np.testing.assert_array_equal(rows.numpy(), q.flatten(2).transpose(1, 2).numpy())
+    c = shape[1]
+    assert rows.shape == (shape[0], int(np.prod(shape[2:])), quant.padded_channels(c))
+    np.testing.assert_array_equal(rows[..., :c].numpy(), q.flatten(2).transpose(1, 2).numpy())
+    assert not rows[..., c:].any()
     np.testing.assert_array_equal(scale.numpy(), s.numpy().reshape(-1))
 
 
@@ -179,21 +183,145 @@ def test_int8_conv_matches_jax_within_an_ulp(case, dtype):
 
 
 def test_int8_operands_layout():
-    """The kernel's weight rows: (k1, k2, c_in) order, zero-padded to 32,
-    the quantized values and scales of :func:`quantize_weight`."""
+    """The kernel's weight rows: taps (k1, k2) x C_pad channels, each tap's
+    channels zero-padded to a multiple of 32, the quantized values and
+    scales of :func:`quantize_weight`."""
     rng = np.random.default_rng(4)
     w = torch.from_numpy(rng.normal(size=(24, 60, 5)).astype(np.float32))
     ops = quant.prepare_int8_operands(w, torch.ones(24))
     q, s = quant.quantize_weight(w)
-    assert ops.q_w.shape == (24, 320) and ops.kernel == (5, 1) and ops.in_channels == 60
-    np.testing.assert_array_equal(ops.q_w[:, :300].numpy(), q.permute(0, 2, 1).reshape(24, 300).numpy())
-    assert not ops.q_w[:, 300:].any()
+    assert ops.q_w.shape == (24, 5 * 64) and ops.kernel == (5, 1) and ops.in_channels == 60
+    taps = ops.q_w.view(24, 5, 64)
+    np.testing.assert_array_equal(taps[..., :60].numpy(), q.permute(0, 2, 1).numpy())
+    assert not taps[..., 60:].any()
     assert torch.equal(ops.s_w, s) and ops.bias.dtype == torch.float32
     w2 = torch.from_numpy(rng.normal(size=(8, 4, 3, 3)).astype(np.float32))
     ops2 = quant.prepare_int8_operands(w2)
     q2, _ = quant.quantize_weight(w2)
-    assert ops2.q_w.shape == (8, 64) and ops2.bias is None
-    np.testing.assert_array_equal(ops2.q_w[:, :36].numpy(), q2.permute(0, 2, 3, 1).reshape(8, 36).numpy())
+    assert ops2.q_w.shape == (8, 9 * 32) and ops2.bias is None
+    taps2 = ops2.q_w.view(8, 3, 3, 32)
+    np.testing.assert_array_equal(taps2[..., :4].numpy(), q2.permute(0, 2, 3, 1).numpy())
+    assert not taps2[..., 4:].any()
+    assert quant.padded_channels(32) == 32 and quant.padded_channels(33) == 64
+
+
+def _layout_sums(q_x, q_w, size, kernel, stride, pad, dil):
+    """The int32 sums the kernel computes from its operands, replayed in
+    float64 on the CPU: ``q_x`` (B, S1 * S2, C_pad) channels-last, ``q_w``
+    (C_out, k1 * k2 * C_pad); for each tap (i, j) and output position (o1,
+    o2) the input row at o * stride + tap * dilation - padding on each axis
+    (zeros outside), as the tensor map's boxes read it. -> (B, C_out, O1,
+    O2) int32."""
+    (s1, s2), (k1, k2) = size, kernel
+    (st1, st2), (p1, p2), (d1, d2) = stride, pad, dil
+    batch, _, c_pad = q_x.shape
+    c_out = q_w.shape[0]
+    o1 = (s1 + 2 * p1 - d1 * (k1 - 1) - 1) // st1 + 1
+    o2 = (s2 + 2 * p2 - d2 * (k2 - 1) - 1) // st2 + 1
+    x = q_x.double().view(batch, s1, s2, c_pad)
+    w = q_w.double().view(c_out, k1, k2, c_pad)
+    acc = torch.zeros(batch, o1, o2, c_out, dtype=torch.float64)
+    for i in range(k1):
+        for j in range(k2):
+            r1 = torch.arange(o1) * st1 + i * d1 - p1
+            r2 = torch.arange(o2) * st2 + j * d2 - p2
+            ok = ((r1 >= 0) & (r1 < s1))[:, None] & ((r2 >= 0) & (r2 < s2))[None, :]
+            rows = x[:, r1.clamp(0, s1 - 1)][:, :, r2.clamp(0, s2 - 1)] * ok[None, :, :, None]
+            acc += rows @ w[:, i, j].T
+    return acc.permute(0, 3, 1, 2).to(torch.int32)
+
+
+# CONV_CASES and a strided, padded, dilated case in both ranks
+LAYOUT_CASES = CONV_CASES + [
+    ("3x3-s2-p1-d3", (2, 40, 23, 17), 24, (3, 3), 2, 1, 3),
+    ("k3-s2-p1-d3", (3, 33, 41), 16, (3,), 2, 1, 3),
+]
+
+
+@pytest.mark.parametrize("case", LAYOUT_CASES, ids=[c[0] for c in LAYOUT_CASES])
+def test_layout_sums_bitwise_jax(case):
+    """The kernel's operand layouts, made by the wrapper's CPU-side helpers
+    (:func:`quantize_rows` (B, S, C_pad), :func:`prepare_int8_operands`
+    (C_out, taps x C_pad)), give JAX's int32 accumulators bit for bit when
+    summed tap by tap as the kernel reads them."""
+    _, shape, c_out, kernel, stride, pad, dil = case
+    dims = len(kernel)
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=shape).astype(np.float32)
+    w = (rng.normal(size=(c_out, shape[1], *kernel)) * 0.1).astype(np.float32)
+    q_x, _ = quant.quantize_rows(torch.from_numpy(x))
+    ops = quant.prepare_int8_operands(torch.from_numpy(w))
+    c_pad = quant.padded_channels(shape[1])
+    assert q_x.shape == (shape[0], int(np.prod(shape[2:])), c_pad)
+    assert ops.q_w.shape == (c_out, int(np.prod(kernel)) * c_pad)
+    pair = lambda v, rest: (v,) * dims + (rest,) * (2 - dims)
+    size = tuple(shape[2:]) + (1,) * (2 - dims)
+    got = _layout_sums(q_x, ops.q_w, size, ops.kernel, pair(stride, 1), pair(pad, 0), pair(dil, 1))
+    jq_x, _ = jax_quant.quantize_per_sample(jnp.asarray(_nhwc(x)))
+    jq_w, _ = jax_quant.quantize_weight(jnp.asarray(_hwio(w)))
+    want = np.asarray(_jax_conv(jq_x, jq_w, stride, pad, dil, preferred_element_type=jnp.int32))
+    got = _nhwc(got.numpy())
+    np.testing.assert_array_equal(got.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("scale", [1e-9, 3e-3, 0.7, 11.0, 4e5])
+def test_kernel_rounding_equals_the_division(scale):
+    """``quantize_rows``' rounding in the kernel (``csrc/int8_conv.cu``
+    ``quantize``), replayed in numpy f32: rint(v * (1 / s_x)), and the
+    exact division where v * (1 / s_x) lies within 1e-4 of a half-integer,
+    gives rint(v / s_x) for every value, ties of the scale included."""
+    rng = np.random.default_rng(10)
+    amax = np.float32(scale)
+    sx = np.float32(amax / np.float32(127))
+    rx = np.float32(np.float32(1) / sx)
+    ties = ((rng.integers(-127, 127, 20000) + 0.5) * sx).astype(np.float32)
+    v = np.concatenate([rng.uniform(-1, 1, 200000).astype(np.float32) * amax, ties,
+                        np.nextafter(ties, np.float32(np.inf)), np.nextafter(ties, np.float32(-np.inf)),
+                        np.float32([amax, -amax, 0.0])]).astype(np.float32)
+    v = np.clip(v, -amax, amax)
+    y = (v * rx).astype(np.float32)
+    r = np.rint(y)
+    near = np.abs(y - r) > np.float32(0.5) - np.float32(1e-4)
+    got = np.clip(np.where(near, np.rint(v / sx), r), -127, 127)
+    want = quant.quantize_per_sample(torch.from_numpy(v)[None, None])[0].numpy().reshape(-1)
+    np.testing.assert_array_equal(got.astype(np.int8), want)
+    assert near.mean() < 0.3  # the division stays the exception
+
+
+# (C_out, O1, O2, stride, C_pad) of the quantizable sites of the five
+# families at full width (B = 64; chip_smoke.py's phase 9) and of CONV_CASES
+PLAN_SITES = [
+    (512, 289, 1, 1, 64), (512, 285, 1, 1, 512), (512, 279, 1, 1, 512), (512, 501, 1, 1, 96),
+    (1536, 501, 1, 1, 1536), (32, 498, 80, 1, 32), (64, 249, 40, 2, 32), (64, 249, 40, 1, 64),
+    (128, 125, 20, 2, 64), (128, 125, 20, 1, 128), (256, 63, 10, 2, 128), (256, 63, 10, 1, 256),
+    (1024, 501, 1, 1, 96), (1024, 501, 1, 1, 1024), (3072, 501, 1, 1, 1024), (512, 501, 1, 1, 32),
+    (512, 497, 1, 1, 512), (512, 495, 1, 1, 512), (32, 20, 12, 1, 32), (32, 9, 5, 2, 32),
+    (32, 11, 7, 2, 32), (24, 36, 1, 1, 64), (24, 36, 1, 1, 32), (24, 40, 1, 1, 64),
+]
+
+
+@pytest.mark.parametrize("site", PLAN_SITES, ids=[str(s) for s in PLAN_SITES])
+def test_conv_plan_covers_the_output(site):
+    """The launch plan at every site: a wgmma N the kernel has, a box of
+    box1 x box2 == N positions within the tensor memory's 256 elements an
+    axis at the stride, a K slice that divides C_pad, and tiles that cover
+    every output channel and position (with less than one tile of padding
+    along each axis)."""
+    c_out, o1, o2, stride, c_pad = site
+    s2 = stride if o2 > 1 else 1
+    plan = quant.conv_plan(c_out, o1, o2, stride, s2, c_pad)
+    nw = 2 // plan.mw
+    assert plan.n in quant.TILE_N and plan.box1 * plan.box2 == plan.n
+    assert plan.box1 * stride <= quant.BOX_MAX and plan.box2 * s2 <= quant.BOX_MAX
+    assert plan.mw == (1 if c_out <= 64 else 2)
+    assert plan.bk in (32, 64, 128) and c_pad % plan.bk == 0
+    assert plan.bk == max(b for b in (32, 64, 128) if c_pad % b == 0)
+    mt, t1, t2 = plan.tiles
+    rows, cols = plan.box1 * nw, plan.box2
+    assert mt * 64 * plan.mw >= c_out > (mt - 1) * 64 * plan.mw
+    assert t1 * rows >= o1 > (t1 - 1) * rows and t2 * cols >= o2 > (t2 - 1) * cols
+    if o2 == 1:
+        assert plan.box2 == 1
 
 
 def test_int8_conv_checks_its_inputs():
