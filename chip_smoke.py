@@ -167,14 +167,32 @@ Phases (any failure exits non-zero):
    data-parallel AAM step of 32 as 2 x 16: every gradient within 1e-5 of
    one process's) and a one-process NCCL group that all-reduces once
    (NCCL cannot put two ranks on one GPU).
-10. Print ``{"kernels": [...]}`` (with each kernel's launches on the
-   pipelines', the runtime's, the families' and the training runs, and its
-   gradient's error and times; ``int8_conv``'s at every site) and, last,
-   ``{"ok": true, "device": ...}``.
+10. What diart_tpu writes, and the stacked SincNet frontend
+   (``drive_jax_files``): the six committed model files of
+   ``tests/golden/jax_files/`` (flax msgpack, read by ``from_pretrained``)
+   on the card in f32 against diart_tpu's stored outputs, each with the
+   kernels it launches (PyanNet: the LSTM sweep; the x-vector and
+   XVector-SB: the stats head; ECAPA: attention statistics and the
+   SE-Res2Block; TitaNet: attention statistics); diart_tpu's session file
+   restored onto the engine of two of them and 4 more hops against its
+   stored scores and RTTM text; its trainer directory restored and 2 more
+   AdamW steps against its stored parameters; the registry PyanNet (4 x
+   128) and x-vector (512 x 4 / 1500) written in diart_tpu's format
+   (``flaxio.dumps``) and read back, their B=64 engine over 12 hops bitwise
+   the engine of the modules; then ``stack_frontend``: one 160-channel sinc
+   convolution against two 80-channel ones at (64, 1, 80000) in true f32,
+   the x-vector engine with distinct filterbanks with the switch off and
+   on (wall, device busy, idle share; (off on on off) x 2) and the stacked
+   engine against the unstacked one in f32.
+11. Print ``{"kernels": [...]}`` (with each kernel's launches on the
+   pipelines', the runtime's, the families', the training and phase 10's
+   runs, and its gradient's error and times; ``int8_conv``'s at every
+   site) and, last, ``{"ok": true, "device": ...}``.
 
 ``--families`` runs only the build and phase 7; ``--training`` only the
 build and phase 8; ``--scaleout`` only the build and phase 9
 (``--rank-child`` is phase 9's own way to start its processes);
+``--jax-files`` only the build and phase 10;
 ``--tf32-default [--root TREE]`` only the build and phase 1's TF32
 checks (with ``TREE``'s ``diart_tpu_torch``, its subprocess too).
 ``--step-timing [--root TREE]`` runs only the step timing of phase 4 (its
@@ -3751,6 +3769,364 @@ def drive_scaleout_int8(out_dir, int8=None):
                 seconds=time.perf_counter() - t0)
 
 
+# --------------------------------------------------------------------- #
+# phase 10: the files diart_tpu writes, and the stacked SincNet frontend
+
+JAX_FILES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "jax_files")
+# the card (its kernels in f32, TF32 off) against diart_tpu in f32 on the
+# CPU, relative to the outputs' largest (floor 1): the engines' agreement
+JAX_FILES_TOL = 1e-4
+# each committed model file -> the kernels its forward launches on the card
+JAX_FILE_KERNELS = {
+    "pyannet.msgpack": ("lstm_sweep",), "xvector.npz": ("linear_stats",),
+    "ecapa.msgpack": ("attn_stats", "se_res2"), "titanet.msgpack": ("attn_stats",),
+    "xvect_sb.msgpack": ("linear_stats",), "resnet34.msgpack": (),
+}
+FULL_WIDTH_HOPS = 12
+
+
+def zeroed_counters() -> dict:
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def read_counters(counters) -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def require_launches(what, launches, kernels):
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{what}: {missing} never launched ({launches})")
+
+
+def jax_file_models(stored) -> dict:
+    """Every committed model file through ``from_pretrained`` on the card
+    (f32 policy): its output on the stored input against diart_tpu's, and
+    the kernels its forward launched."""
+    import torch
+    from diart_tpu_torch import EmbeddingModel, SegmentationModel, precision
+
+    wave = torch.from_numpy(stored["wave"]).to("cuda")
+    weights = torch.from_numpy(stored["weights"]).to("cuda")
+    rec = {}
+    for name, kernels in JAX_FILE_KERNELS.items():
+        cls = SegmentationModel if name.startswith("pyannet") else EmbeddingModel
+        model = cls.from_pretrained(os.path.join(JAX_FILES, "models", name), device="cuda")
+        counters = zeroed_counters()
+        with torch.no_grad(), precision.use(f32_policy()):
+            out = model(wave) if cls is SegmentationModel else model.head(model.trunk(wave), weights)
+        launches = read_counters(counters)
+        err, tol = held_to((out.cpu(),), (torch.from_numpy(stored[f"{name}:out"]),), JAX_FILES_TOL, 1.0)
+        log(f"jax_files[{name}]: {type(model.module).__name__} {tuple(out.shape)} max_abs_err {err:.3e} "
+            f"(tol {tol:.1e}) against diart_tpu's, launches {launches}")
+        if not (err <= tol and torch.isfinite(out).all()):
+            raise AssertionError(f"jax_files[{name}]: max_abs_err {err} > {tol}")
+        require_launches(f"jax_files[{name}]", launches, kernels)
+        rec[name] = dict(max_abs_err=err, tol=tol, launches=launches)
+    return rec
+
+
+def jax_file_session(stored) -> dict:
+    """diart_tpu's session file restored onto the card's engine of the two
+    committed model files (f32 policy): the next hops' aggregated scores
+    against diart_tpu's and the same RTTM text."""
+    import torch
+    from diart_tpu_torch import EmbeddingModel, MultiStreamEngine, MultiStreamSession, SegmentationModel
+
+    kw = json.loads(bytes(stored["session:engine"]).decode())
+    seg = SegmentationModel.from_pretrained(os.path.join(JAX_FILES, "models", "pyannet.msgpack"), device="cuda")
+    emb = EmbeddingModel.from_pretrained(os.path.join(JAX_FILES, "models", "xvector.npz"), device="cuda")
+    engine = MultiStreamEngine(seg, emb, precision=f32_policy(), **kw)
+    record, step = [], engine.step
+
+    def spy(state, blocks, audio_mask=None, run_mask=None):
+        state, out = step(state, blocks, audio_mask, run_mask)
+        record.append(out.aggregated)
+        return state, out
+
+    engine.step = spy
+    session = MultiStreamSession(engine, tau_active=kw["tau_active"], collect_audio=False)
+    session.restore(os.path.join(JAX_FILES, "session.msgpack"))
+    counters = zeroed_counters()
+    texts = [session.push_rttm(b) for b in stored["session:blocks"]]
+    launches = read_counters(counters)
+    got = torch.stack([a.cpu() for a in record])
+    err, tol = held_to((got,), (torch.from_numpy(stored["session:aggregated"]),), JAX_FILES_TOL, 1.0)
+    same_text = ["\x00".join(t or "" for t in hop).encode() for hop in texts] == list(stored["session:rttm"])
+    log(f"jax_files[session]: {len(texts)} hops after restore, aggregated max_abs_err {err:.3e} (tol {tol:.1e}), "
+        f"RTTM text {'equal' if same_text else 'DIFFERENT'}, launches {launches}")
+    if not (err <= tol and same_text):
+        raise AssertionError("jax_files[session]: the resumed session is not diart_tpu's")
+    require_launches("jax_files[session]", launches, ("lstm_sweep", "linear_stats"))
+    return dict(max_abs_err=err, tol=tol, hops=len(texts), launches=launches)
+
+
+def jax_file_training(stored) -> dict:
+    """diart_tpu's trainer directory restored into a template from the
+    committed PyanNet file on the card, 2 AdamW steps (f32 policy): every
+    parameter within 2 x lr a step of diart_tpu's after its 2 more."""
+    import torch
+    from diart_tpu_torch import SegmentationModel, flaxio, precision
+    from diart_tpu_torch.train import latest_checkpoint, make_train_state, restore_train_state, train_step
+    from diart_tpu_torch.weights import flatten_flax
+
+    lr = float(stored["train:lr"])
+    directory = os.path.join(JAX_FILES, "train")
+    assert os.path.basename(str(latest_checkpoint(directory))) == "step_00000002.msgpack"
+    model = SegmentationModel.from_pretrained(os.path.join(JAX_FILES, "models", "pyannet.msgpack"), device="cuda")
+    state, opt = make_train_state(model, learning_rate=lr)
+    state = restore_train_state(directory, state)
+    assert state.step == 2, state.step
+    waves, targets = (torch.from_numpy(stored[k]).to("cuda") for k in ("train:waves", "train:targets"))
+    counters = zeroed_counters()
+    with precision.use(f32_policy()):
+        for _ in range(2):
+            state, loss = train_step(lambda m, x: m(x), opt, state, waves, targets)
+    launches = read_counters(counters)
+    with open(os.path.join(JAX_FILES, "train_after.msgpack"), "rb") as f:
+        after = flatten_flax(state.module, flaxio.loads(f.read()))
+    err = max(float(np.abs(p.detach().cpu().numpy() - after[n]).max()) for n, p in state.module.named_parameters())
+    bound = 2 * lr * 2
+    log(f"jax_files[training]: restored step 2, 2 more steps: max |param - diart_tpu's| {err:.3e} "
+        f"(bound {bound:.1e}), loss {float(loss):.5f}, launches {launches}")
+    if not err <= bound:
+        raise AssertionError(f"jax_files[training]: {err} > {bound}")
+    require_launches("jax_files[training]", launches, ("lstm_sweep",))
+    return dict(max_abs_param_err=err, bound=bound, launches=launches)
+
+
+def write_jax_file(path, module):
+    """``module`` as diart_tpu's ``save`` writes it: flax msgpack of its
+    parameter tree (``flaxio.dumps``) and the ``.json`` config."""
+    from diart_tpu_torch import flaxio
+    from diart_tpu_torch.models.base import module_config
+    from diart_tpu_torch.weights import flax_params
+
+    with open(path, "wb") as f:
+        f.write(flaxio.dumps(flax_params(module)))
+    with open(f"{path}.json", "w") as f:
+        json.dump({"module": module_config(module), "module_class": type(module).__name__,
+                   "init_samples": 80000}, f)
+
+
+def jax_file_full_width(tmp, audio) -> dict:
+    """The registry PyanNet (4 x 128) and XVectorSincNet (512 x 4 / 1500,
+    bf16 trunk) written in diart_tpu's format and read back with
+    ``from_pretrained``: the B=64 engine of the read models over
+    FULL_WIDTH_HOPS hops bitwise the engine of the modules themselves,
+    with its launches."""
+    import torch
+    from diart_tpu_torch import EmbeddingModel, MultiStreamEngine, SegmentationModel
+
+    seg = SegmentationModel.from_registry("tpu/pyannet", device="cuda", seed=0)
+    emb = EmbeddingModel.from_registry("tpu/xvector", device="cuda", seed=1, dtype="bf16")
+    write_jax_file(os.path.join(tmp, "pyannet.msgpack"), seg.module)
+    write_jax_file(os.path.join(tmp, "xvector.npz"), emb.module)
+    read = (SegmentationModel.from_pretrained(os.path.join(tmp, "pyannet.msgpack"), device="cuda"),
+            EmbeddingModel.from_pretrained(os.path.join(tmp, "xvector.npz"), device="cuda"))
+    kw = dict(duration=5.0, step=0.5, latency=0.5, sample_rate=16000, max_speakers=20, batch_size=B,
+              tau_active=SESSION_TAU, rho_update=0.05)
+    runs = {}
+    for tag, (s, e) in (("modules", (seg, emb)), ("files", read)):
+        engine = MultiStreamEngine(s, e, **kw)
+        state, outs = engine.init_state(), []
+        counters = zeroed_counters()
+        for i in range(FULL_WIDTH_HOPS):
+            state, out = engine.step(state, audio[i], run_mask=np.full(B, i + 1 >= WARMUP_HOPS))
+            outs.append(out)
+        runs[tag] = (outs, read_counters(counters))
+    launches = runs["files"][1]
+    bitwise = all(torch.equal(a.aggregated, b.aggregated) and torch.equal(a.newest, b.newest)
+                  for a, b in zip(runs["modules"][0], runs["files"][0]))
+    want = {"lstm_sweep": 4 * FULL_WIDTH_HOPS, "linear_stats": FULL_WIDTH_HOPS}
+    log(f"jax_files[full width]: the engine of the files read back over {FULL_WIDTH_HOPS} hops x {B} streams "
+        f"{'bitwise' if bitwise else 'NOT bitwise'} the modules' engine, launches {launches}")
+    if not bitwise:
+        raise AssertionError("jax_files[full width]: the models read from diart_tpu's format differ")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"jax_files[full width]: expected {want} launches; got {launches}")
+    return dict(bitwise=bitwise, hops=FULL_WIDTH_HOPS, launches=launches)
+
+
+def perturb_sincnet(sincnet):
+    """A distinct filterbank and waveform norm (tests/test_engine.py's
+    stacked test), in place."""
+    import torch
+
+    with torch.no_grad():
+        sincnet.sinc.low_hz.mul_(1.03).add_(2.0)
+        sincnet.sinc.band_hz.mul_(0.97).add_(1.0)
+        sincnet.wav_norm_scale.mul_(1.5)
+        sincnet.wav_norm_bias.add_(0.1)
+
+
+def dispatch_ms(engine, audio, steps=10) -> float:
+    """Median host ms to enqueue one step with the card idle (a
+    synchronize before each), after the warm-up hops."""
+    import torch
+
+    b = audio.shape[1]
+    ones = np.ones(b, bool)
+    state = engine.init_state()
+    for i in range(WARMUP_HOPS + 1):
+        state, _ = engine.step(state, audio[i], ones, np.full(b, i + 1 >= WARMUP_HOPS))
+    times = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = engine.step(state, audio[i % audio.shape[0]], ones, ones)
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def stacked_frontend(audio) -> dict:
+    """``stack_frontend`` on the card: the 160-channel sinc convolution
+    against two 80-channel ones at (B, 1, 80000) in true f32, in the order
+    two, one, one, two; the x-vector engine (registry models, the
+    embedding's SincNet perturbed so the filterbanks differ) with the
+    switch off and on, (off on on off) x 2: back-to-back wall, device busy,
+    idle share and the host's dispatch of a step, then the host's time by
+    op (profiler); the stacked engine against the unstacked one in
+    f32 for 2 streams."""
+    import torch
+    import torch.nn.functional as F
+    from diart_tpu_torch import EmbeddingModel, MultiStreamEngine, SegmentationModel
+    from diart_tpu_torch.ops import _numerics
+    from diart_tpu_torch.precision import Precision
+
+    seg = SegmentationModel.from_registry("tpu/pyannet", device="cuda", seed=0)
+    emb = EmbeddingModel.from_registry("tpu/xvector", device="cuda", seed=1, dtype="bf16")
+    perturb_sincnet(emb.module.sincnet)
+    rec = {}
+    x = torch.randn(B, 1, 80000, device="cuda", generator=torch.Generator("cuda").manual_seed(9))
+    with torch.no_grad():
+        fs, fe = seg.module.sincnet.sinc.filters(), emb.module.sincnet.sinc.filters()
+        f160 = torch.cat([fs, fe])[:, None, :]
+        stride = seg.module.sincnet.sinc.stride
+        with _numerics.true_f32(x.device):
+            one = lambda: F.conv1d(x, f160, stride=stride)
+            two = lambda: (F.conv1d(x, fs[:, None, :], stride=stride), F.conv1d(x, fe[:, None, :], stride=stride))
+            order = (("two_80_ms", two), ("one_160_ms", one), ("one_160_ms", one), ("two_80_ms", two))
+            for name, fn in order:
+                rec.setdefault(name + "_runs", []).append(time_ms(fn, 20))
+            y = one()
+            err = (y - torch.cat(two(), dim=1)).abs().max().item()
+    out_frames = y.shape[-1]
+    nbytes = x.numel() * 4 + f160.numel() * 4 + y.numel() * 4
+    flops = 2.0 * B * 160 * out_frames * f160.shape[-1]
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, "f32")
+    for name in ("two_80_ms", "one_160_ms"):
+        rec[name] = float(np.median(rec[name + "_runs"]))
+    rec["max_abs_err_160_vs_two_80"] = err
+    log(f"stacked sinc convolution {tuple(x.shape)} -> {tuple(y.shape)} in true f32: one 160-channel "
+        f"{rec['one_160_ms']:.3f} ms (runs {['%.3f' % t for t in rec['one_160_ms_runs']]}), two 80-channel "
+        f"{rec['two_80_ms']:.3f} ms (runs {['%.3f' % t for t in rec['two_80_ms_runs']]}), bound "
+        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), max |160 - two 80| {err:.3e}")
+
+    kw = dict(duration=5.0, step=0.5, latency=0.5, sample_rate=16000, max_speakers=20,
+              tau_active=SESSION_TAU, rho_update=0.05)
+    engines = {on: MultiStreamEngine(seg, emb, batch_size=B, precision=Precision(stack_frontend=on), **kw)
+               for on in (False, True)}
+    assert engines[True]._stacked is not None and engines[False]._stacked is None
+    steps = {}
+    for on in (False, True, True, False) * 2:
+        steps.setdefault(on, []).append(
+            dict(quick_timing(engines[on], audio, steps=10), dispatch_ms=dispatch_ms(engines[on], audio)))
+    for on, tag in ((False, "off"), (True, "on")):
+        runs = steps[on]
+        rec[f"engine_{tag}"] = dict(
+            wall_ms=[r["back_to_back_wall_ms"] for r in runs], busy_ms=[r["device_busy_ms"] for r in runs],
+            idle_share=[r["idle_share"] for r in runs], launches_per_step=[r["kernels_per_step"] for r in runs],
+            dispatch_ms=[r["dispatch_ms"] for r in runs])
+        log(f"x-vector engine B={B}, stack_frontend {tag}: wall {rec[f'engine_{tag}']['wall_ms']} ms, "
+            f"busy {rec[f'engine_{tag}']['busy_ms']} ms, idle {rec[f'engine_{tag}']['idle_share']}, "
+            f"device launches {rec[f'engine_{tag}']['launches_per_step']}, "
+            f"dispatch with the card idle {rec[f'engine_{tag}']['dispatch_ms']} ms")
+
+    # where the host's time a step goes, off and on: the ops' self CPU ms
+    # of 3 profiled steps, the largest differences first
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    host = {}
+    for on in (False, True):
+        engine, b = engines[on], audio.shape[1]
+        state = engine.init_state()
+        for i in range(WARMUP_HOPS + 1):
+            state, _ = engine.step(state, audio[i], run_mask=np.full(b, i + 1 >= WARMUP_HOPS))
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU]) as prof:
+            for i in range(3):
+                state, _ = engine.step(state, audio[i])
+            torch.cuda.synchronize()
+        host[on] = {e.key: (e.self_cpu_time_total / 1e3 / 3, e.count / 3) for e in prof.key_averages()}
+    keys = set(host[False]) | set(host[True])
+    diff = sorted(keys, key=lambda k: -abs(host[True].get(k, (0, 0))[0] - host[False].get(k, (0, 0))[0]))
+    rec["host_ops"] = [dict(op=k[:60], off_ms=host[False].get(k, (0, 0))[0], on_ms=host[True].get(k, (0, 0))[0],
+                            off_calls=host[False].get(k, (0, 0))[1], on_calls=host[True].get(k, (0, 0))[1])
+                       for k in diff[:8]]
+    rec["host_ms"] = {tag: sum(v[0] for v in host[on].values()) for on, tag in ((False, "off"), (True, "on"))}
+    log(f"host self CPU ms a step (profiled): off {rec['host_ms']['off']:.3f}, on {rec['host_ms']['on']:.3f}; "
+        f"largest differences:")
+    for item in rec["host_ops"]:
+        log(f"  {item['op']:60s} off {item['off_ms']:7.3f} ms x{item['off_calls']:5.1f}  "
+            f"on {item['on_ms']:7.3f} ms x{item['on_calls']:5.1f}")
+
+    # the check in f32 throughout (a bf16 trunk rounds the fold's last-bit
+    # differences to its own ulp)
+    emb32 = EmbeddingModel.from_registry("tpu/xvector", device="cuda", seed=1)
+    perturb_sincnet(emb32.module.sincnet)
+    small = audio[:, :2]
+    probes = []
+    for on in (False, True):
+        engine = MultiStreamEngine(seg, emb32, batch_size=2, precision=Precision(
+            bf16_lstm=False, bf16_frontend=False, stack_frontend=on), **kw)
+        state = engine.init_state()
+        for i in range(WARMUP_HOPS):
+            state, _ = engine.step(state, small[i], run_mask=np.full(2, i + 1 >= WARMUP_HOPS))
+        probes.append(engine.probe_frame_scores(state, small[WARMUP_HOPS]))
+    err, tol = held_to(probes[1], probes[0], 1e-5, 1.0)
+    rec.update(stacked_vs_unstacked_f32=err, stacked_tol=tol)
+    log(f"stacked against unstacked engine, f32, 2 streams: max_abs_err {err:.3e} (tol {tol:.1e})")
+    if not err <= tol:
+        raise AssertionError(f"stacked frontend: {err} > {tol}")
+    return rec
+
+
+def drive_jax_files(out_dir) -> dict:
+    """Phase 10 (see the module docstring)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with np.load(os.path.join(JAX_FILES, "outputs.npz")) as data:
+        stored = {k: data[k] for k in data.files}
+    rec = dict(models=jax_file_models(stored), session=jax_file_session(stored),
+               training=jax_file_training(stored))
+    audio = make_audio(np.random.default_rng(4), WARMUP_HOPS + 8, B, 8000)
+    with tempfile.TemporaryDirectory() as tmp:
+        rec["full_width"] = jax_file_full_width(tmp, audio)
+    rec["stacked_frontend"] = stacked_frontend(audio)
+    rec["seconds"] = time.perf_counter() - t0
+    if out_dir:
+        with open(os.path.join(out_dir, "chip_smoke_jax_files.json"), "w") as f:
+            json.dump(rec, f, indent=1)
+    log(f"jax_files phase in {rec['seconds']:.1f} s")
+    return rec
+
+
+def jax_files_launches(rec, name) -> dict:
+    """A kernel's launches on each of phase 10's paths."""
+    return dict(**{f"model_{m}": r["launches"][name] for m, r in rec["models"].items()},
+                session=rec["session"]["launches"][name], training=rec["training"]["launches"][name],
+                full_width=rec["full_width"]["launches"][name])
+
+
 def int8_entry(scaleout) -> dict:
     """The kernel line's entry for int8_conv: the numbers at the main
     engine's site (the x-vector's TDNN 1, bf16), its launches in the int8
@@ -3790,6 +4166,8 @@ def main() -> int:
                         help="only build the kernels and run the scale-out and int8 phase (9)")
     parser.add_argument("--tf32-default", action="store_true",
                         help="only build the kernels and run phase 1's TF32-default checks")
+    parser.add_argument("--jax-files", action="store_true",
+                        help="only build the kernels and run the diart_tpu files and stacked frontend phase (10)")
     parser.add_argument("--rank-child", nargs=4, metavar=("KIND", "RANK", "PORT", "DIR"),
                         help="one process of phase 9's process groups (started by the script itself)")
     args = parser.parse_args()
@@ -3866,7 +4244,7 @@ def main() -> int:
     # phase 1's TF32 checks: torch's switches as they come; every later
     # phase runs with both off
     tf32 = None
-    if not (args.families or args.scaleout or args.training):
+    if not (args.families or args.scaleout or args.training or args.jax_files):
         t0 = time.perf_counter()
         tf32 = drive_tf32_default(args.out)
         log(f"TF32-default phase in {time.perf_counter() - t0:.1f} s")
@@ -3888,6 +4266,13 @@ def main() -> int:
                 json.dump(dict(gpu=smi, scaleout=scaleout), f, indent=1)
         log(f"total {time.perf_counter() - t_start:.1f} s after start-up")
         log(f"gpu: {smi}")
+        return 0
+
+    if args.jax_files:
+        jax_files = drive_jax_files(args.out)
+        log(f"total {time.perf_counter() - t_start:.1f} s after start-up")
+        log(f"gpu: {smi}")
+        log(json.dumps({"jax_files": {k: v for k, v in jax_files.items() if k != "models"}}))
         return 0
 
     if args.training:
@@ -3965,6 +4350,10 @@ def main() -> int:
     scaleout = drive_scaleout_int8(args.out, int8)
     log(f"scale-out and int8 phase in {time.perf_counter() - t0:.1f} s")
 
+    # what diart_tpu writes (model files, a session, a trainer's directory)
+    # on the card, and the stacked SincNet frontend
+    jax_files = drive_jax_files(args.out)
+
     # the main paths run the bf16 LSTM stream and bf16 embedding trunks
     xv, ec = runs["xvector"]["launches"], runs["ecapa"]["launches"]
     on_session = lambda name: {e: sessions[e]["session"]["launches"][name] for e in sessions}
@@ -3981,6 +4370,7 @@ def main() -> int:
     with_grad = lambda name: dict(**{k: grads[name]["bf16"][k] for k in grad_keys},
                                   grad_f32={k: grads[name]["f32"][k] for k in grad_keys},
                                   launches_training_step=on_training(name))
+    on_jax_files = lambda name: jax_files_launches(jax_files, name)
     on_runtime = lambda name: dict(
         **{f"inference_{k}": r["launches"][name] for k, r in runtime["inference"].items()},
         benchmark_multi_stream=runtime["benchmark"]["launches"][name],
@@ -3990,7 +4380,7 @@ def main() -> int:
              replaces="diart_tpu/ops/pallas_lstm.py:494", launches=ec["lstm_sweep"],
              launches_xvector_path=xv["lstm_sweep"], launches_session_paths=on_session("lstm_sweep"),
              launches_pipeline_paths=on_pipeline("lstm_sweep"), launches_runtime_paths=on_runtime("lstm_sweep"),
-             launches_family_paths=on_family("lstm_sweep"),
+             launches_family_paths=on_family("lstm_sweep"), launches_jax_files_paths=on_jax_files("lstm_sweep"),
              **{k: lstm["bf16"][k] for k in KEYS},
              ms_b256=lstm["bf16"]["ms_b256"], ms_b528=lstm["bf16"]["ms_b528"],
              ms_f32=lstm["f32"]["ms"], plan=lstm["bf16"]["plan"], **with_grad("lstm_sweep")),
@@ -3998,7 +4388,7 @@ def main() -> int:
              replaces="diart_tpu/ops/pallas_stats.py:163", launches=xv["linear_stats"],
              launches_session_paths=on_session("linear_stats"),
              launches_pipeline_paths=on_pipeline("linear_stats"), launches_runtime_paths=on_runtime("linear_stats"),
-             launches_family_paths=on_family("linear_stats"),
+             launches_family_paths=on_family("linear_stats"), launches_jax_files_paths=on_jax_files("linear_stats"),
              at_xvect_sb=dict(at_shape(families["kernels"]["linear_stats_xvect_sb"]),
                               ms_f32=families["kernels"]["linear_stats_xvect_sb"]["f32"]["ms"]),
              **{k: stats["bf16"][k] for k in KEYS + STATS_KEYS}, ms_f32=stats["f32"]["ms"],
@@ -4007,7 +4397,7 @@ def main() -> int:
              replaces="diart_tpu/ops/pallas_attn_stats.py:170", launches=ec["attn_stats"],
              launches_session_paths=on_session("attn_stats"),
              launches_pipeline_paths=on_pipeline("attn_stats"), launches_runtime_paths=on_runtime("attn_stats"),
-             launches_family_paths=on_family("attn_stats"),
+             launches_family_paths=on_family("attn_stats"), launches_jax_files_paths=on_jax_files("attn_stats"),
              at_titanet=dict(at_shape(families["kernels"]["attn_stats_titanet"]),
                              ms_f32=families["kernels"]["attn_stats_titanet"]["f32"]["ms"]),
              **{k: attn["bf16"][k] for k in KEYS + STATS_KEYS}, ms_f32=attn["f32"]["ms"],
@@ -4016,7 +4406,7 @@ def main() -> int:
              replaces="diart_tpu/ops/pallas_res2.py:294", launches=ec["se_res2"],
              launches_session_paths=on_session("se_res2"),
              launches_pipeline_paths=on_pipeline("se_res2"), launches_runtime_paths=on_runtime("se_res2"),
-             launches_family_paths=on_family("se_res2"),
+             launches_family_paths=on_family("se_res2"), launches_jax_files_paths=on_jax_files("se_res2"),
              **{k: res2["bf16"][k] for k in KEYS}, ms_b8=res2["bf16"]["ms_b8"],
              device_ms=res2["bf16"]["device_ms"],
              ms_f32=res2["f32"]["ms"], by_launch=res2["bf16"]["by_launch"], **with_grad("se_res2"),
@@ -4034,7 +4424,7 @@ def main() -> int:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(result, engines=runs, probes=probes, sessions=sessions, pipelines=pipelines,
                            pipelines_vs_cpu=pipe_cpu, session_tensor_blocks=session_tensors, runtime=runtime,
-                           families=families, training=training, scaleout=scaleout,
+                           families=families, training=training, scaleout=scaleout, jax_files=jax_files,
                            kernels=kernels), f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s after start-up")
     log(f"gpu: {smi}")

@@ -2,23 +2,30 @@
 ``diart_tpu/models/base.py``).
 
 ``from_pretrained`` resolves, in order: ``.onnx`` files (host-only models,
-through ``onnxruntime``), flax ``.msgpack``/``.npz`` files (refused: see
-below), the port's native files and torch checkpoints
-(``.bin``/``.pt``/``.ckpt``/``.safetensors``: a native file has its
-``<path>.json`` config beside it, anything else is a torch checkpoint
-converted by :mod:`diart_tpu_torch.models.convert`), the ``tpu/...``
-registry under the JAX package's names and size arguments, and else
-pyannote model names (which need ``pyannote.audio``).
+through ``onnxruntime``), model files with a ``<path>.json`` config beside
+them (any ``.msgpack``/``.npz`` file, and a torch suffix with the config),
+torch checkpoints (``.bin``/``.pt``/``.ckpt``/``.safetensors`` without a
+config: converted by :mod:`diart_tpu_torch.models.convert`), the
+``tpu/...`` registry under the JAX package's names and size arguments, and
+else pyannote model names (which need ``pyannote.audio``).
+
+A model file is one of two formats, told apart by its bytes, not its
+suffix: the port's native file (``torch.save`` of the module's state
+dict, a zip: ``PK\x03\x04``, read back with ``weights_only=True``) or
+the file ``diart_tpu``'s ``save`` writes (flax msgpack bytes whatever the
+suffix, ``.npz`` included, read by :mod:`diart_tpu_torch.flaxio` and
+mapped by :func:`diart_tpu_torch.weights.load_flax_params`, which is
+strict). Both carry the JAX package's ``.json`` config schema:
+``module_class`` (the role's default class when it is missing, as in the
+JAX package), ``module`` (the constructor's arguments, dtypes as
+``"bf16"``/``"f32"``, tuples as lists), ``powerset`` and, from
+``diart_tpu``, ``init_samples`` (not needed here). A file that is neither
+format raises and names both.
 
 Registry weights come from a seeded ``torch.Generator`` (the seed defaults
 to a CRC of the registry name) or, with ``flax_params=``, from the JAX
 package's parameter tree through
-:func:`diart_tpu_torch.weights.load_flax_params`. The port's native file is
-``torch.save`` of the module's state dict (read back with
-``weights_only=True``) plus the JAX package's ``.json`` config schema
-(``module_class``, ``module``, ``powerset``). A flax ``.msgpack`` file
-written by the JAX package is not read: convert the torch source with
-``python -m diart_tpu_torch.console.convert`` instead.
+:func:`diart_tpu_torch.weights.load_flax_params`.
 
 The wrappers default to ``device="cuda"`` and raise without a GPU. A
 host-only model (its module has ``host_only = True``: the ONNX wrapper's
@@ -38,6 +45,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from .. import flaxio
 from ..ops._build import require_cuda
 from .common import QuantizableConv
 from .ecapa import EcapaTDNN
@@ -52,6 +60,8 @@ from .xvect import XVectorFbank
 __all__ = ["EmbeddingModel", "SegmentationModel", "init_weights", "same_device"]
 
 TORCH_SUFFIXES = (".bin", ".pt", ".ckpt", ".safetensors")
+FLAX_SUFFIXES = (".msgpack", ".npz")
+ZIP_MAGIC = b"PK\x03\x04"  # the first bytes of a torch.save file
 MODULE_CLASSES: Dict[str, type] = {
     cls.__name__: cls for cls in (PyanNet, XVectorSincNet, EcapaTDNN, ResNet34, TitaNet, XVectorFbank)
 }
@@ -100,16 +110,10 @@ def init_weights(module: nn.Module, gen: torch.Generator) -> nn.Module:
     return module
 
 
-def _refuse_flax_file(name: str) -> None:
-    raise ValueError(
-        f"{name}: flax .msgpack/.npz files written by diart_tpu are not read by the port; "
-        "convert the torch checkpoint it came from with `python -m diart_tpu_torch.console.convert` "
-        "and pass the converted file"
-    )
-
-
-def _is_native(path: Path) -> bool:
-    return Path(f"{path}.json").exists()
+def _is_model_file(name: str) -> bool:
+    """A model file of either format: a flax suffix, or a torch suffix with
+    its ``<path>.json`` config beside it (a torch checkpoint has none)."""
+    return name.endswith(FLAX_SUFFIXES) or (name.endswith(TORCH_SUFFIXES) and Path(f"{name}.json").exists())
 
 
 def module_config(module: nn.Module) -> dict:
@@ -158,15 +162,33 @@ def _save_native(path, module: nn.Module, powerset=None) -> None:
     Path(f"{path}.json").write_text(json.dumps(config))
 
 
-def _load_native(path) -> Tuple[nn.Module, dict]:
-    """A native file -> (module on the CPU, config)."""
+def _load_file(path, default_cls: type) -> Tuple[nn.Module, dict]:
+    """A model file of either format (see the module docstring) -> (module
+    on the CPU, config). ``default_cls``: the class when the config names
+    none."""
     path = Path(path)
-    config = json.loads(Path(f"{path}.json").read_text())
-    cls_name = config.get("module_class")
+    config_path = Path(f"{path}.json")
+    if not config_path.exists():
+        raise FileNotFoundError(f"{path}: a model file needs its config at {config_path}")
+    config = json.loads(config_path.read_text())
+    cls_name = config.get("module_class", default_cls.__name__)
     if cls_name not in MODULE_CLASSES:
         raise ValueError(f"unknown serialized module class {cls_name!r}; known: {sorted(MODULE_CLASSES)}")
     module = MODULE_CLASSES[cls_name](**restore_module_config(config.get("module", {})))
-    module.load_state_dict(torch.load(str(path), map_location="cpu", weights_only=True), strict=True)
+    data = path.read_bytes()
+    if data[:4] == ZIP_MAGIC:
+        module.load_state_dict(torch.load(str(path), map_location="cpu", weights_only=True), strict=True)
+        return module, config
+    try:
+        tree = flaxio.loads(data)
+    except ValueError as exc:
+        raise ValueError(
+            f"{path}: neither the port's native file (a torch.save zip) nor a diart_tpu file "
+            f"(flax msgpack): {exc}"
+        ) from exc
+    from ..weights import load_flax_params
+
+    load_flax_params(module, tree)
     return module, config
 
 
@@ -295,13 +317,11 @@ class SegmentationModel:
         powerset = kwargs.pop("powerset", None)
         if name.endswith(".onnx"):
             return SegmentationModel.from_onnx(model)
-        if name.endswith((".msgpack", ".npz")):
-            _refuse_flax_file(name)
+        if _is_model_file(name):
+            device = require_cuda(device)
+            module, config = _load_file(name, PyanNet)
+            return SegmentationModel(_ready(module, device), name, device, config.get("powerset"))
         if name.endswith(TORCH_SUFFIXES):
-            if _is_native(Path(name)):
-                module, config = _load_native(name)
-                device = require_cuda(device)
-                return SegmentationModel(_ready(module, device), name, device, config.get("powerset"))
             return SegmentationModel.from_torch(model, powerset=powerset, device=device)
         if name.startswith("tpu/"):
             return SegmentationModel.from_registry(name, device=device, **kwargs)
@@ -401,8 +421,10 @@ class SegmentationModel:
         return self.module.num_frames(num_samples)
 
     @torch.no_grad()
-    def __call__(self, waveform):
-        out = self.module(waveform)
+    def __call__(self, waveform, **kwargs):
+        """waveform (B, 1, samples) -> (B, frames, speakers); ``kwargs`` go
+        to the module (the engine's ``sinc_pooled``)."""
+        out = self.module(waveform, **kwargs)
         if self._powerset is not None:
             out = to_multilabel(out, self._mapping)
         return out
@@ -435,20 +457,18 @@ class EmbeddingModel:
     def from_pretrained(model, use_hf_token=True, device="cuda", **kwargs) -> "EmbeddingModel":
         """A file, a registry name (``tpu/...``, with :meth:`from_registry`'s
         arguments) or a pyannote name (see the module docstring); ``dtype``
-        also sets the compute dtype of a converted checkpoint or a native
+        also sets the compute dtype of a converted checkpoint or a model
         file (the parameters stay f32)."""
         name = str(model)
         if name.endswith(".onnx"):
             return EmbeddingModel.from_onnx(model)
-        if name.endswith((".msgpack", ".npz")):
-            _refuse_flax_file(name)
+        if _is_model_file(name):
+            device = require_cuda(device)
+            module = _load_file(name, XVectorSincNet)[0]
+            if kwargs.get("dtype") is not None:
+                module = _with_dtype(module, kwargs["dtype"])
+            return EmbeddingModel(_ready(module, device), name, device)
         if name.endswith(TORCH_SUFFIXES):
-            if _is_native(Path(name)):
-                device = require_cuda(device)
-                module = _load_native(name)[0]
-                if kwargs.get("dtype") is not None:
-                    module = _with_dtype(module, kwargs["dtype"])
-                return EmbeddingModel(_ready(module, device), name, device)
             return EmbeddingModel.from_torch(model, dtype=kwargs.get("dtype"), device=device)
         if name.startswith("tpu/"):
             return EmbeddingModel.from_registry(name, device=device, **kwargs)
@@ -564,8 +584,9 @@ class EmbeddingModel:
         return self.head(frames, weights[:, None, :])[:, 0]
 
     @torch.no_grad()
-    def trunk(self, waveform: torch.Tensor) -> torch.Tensor:
-        return self.module.trunk(waveform)
+    def trunk(self, waveform: torch.Tensor, **kwargs) -> torch.Tensor:
+        """``kwargs`` go to the module's trunk (the engine's ``sinc_pooled``)."""
+        return self.module.trunk(waveform, **kwargs)
 
     @torch.no_grad()
     def trunk_from_raw_fbank(self, raw: torch.Tensor) -> torch.Tensor:

@@ -133,12 +133,16 @@ class XVectorSincNet(FusedStatsHead, nn.Module):
     def forward(self, waveform, weights=None):
         return self.head(self.trunk(waveform), weights)
 
-    def trunk(self, waveform: torch.Tensor, fused_head: Optional[bool] = None) -> torch.Tensor:
+    def trunk(
+        self, waveform: torch.Tensor, fused_head: Optional[bool] = None,
+        sinc_pooled: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
         """waveform (B, 1, samples) -> frames (B, T, C). With the fused head
         the last TDNN is left to :meth:`head` and the frames stay in the
-        compute dtype; otherwise they are the full stack's output in f32."""
+        compute dtype; otherwise they are the full stack's output in f32.
+        ``sinc_pooled``: see ``SincNet``."""
         fused = self.fused_head if fused_head is None else fused_head
-        x = self.sincnet(waveform).to(self.compute_dtype)  # (B, 60, T)
+        x = self.sincnet(waveform, sinc_pooled).to(self.compute_dtype)  # (B, 60, T)
         layers = len(self.tdnn_specs) - (1 if fused else 0)
         for i in range(layers):
             if x.shape[-1] < 1:

@@ -6,6 +6,8 @@ wrapper)."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -53,8 +55,10 @@ class PyanNet(nn.Module):
     def num_frames(num_samples: int) -> int:
         return num_sincnet_frames(num_samples)
 
-    def forward(self, waveform: torch.Tensor) -> torch.Tensor:
-        x = self.sincnet(waveform).permute(2, 0, 1)  # (frames, batch, 60)
+    def forward(self, waveform: torch.Tensor, sinc_pooled: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """waveform (batch, 1, samples) -> (batch, frames, speakers), or
+        powerset log-probabilities; ``sinc_pooled``: see ``SincNet``."""
+        x = self.sincnet(waveform, sinc_pooled).permute(2, 0, 1)  # (frames, batch, 60)
         # the stack stays time-major through the per-frame linear layers;
         # only the K-wide output is transposed back
         x = self.lstm(x).float()

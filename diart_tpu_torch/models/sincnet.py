@@ -25,6 +25,7 @@ TPU.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -183,9 +184,16 @@ class SincNet(nn.Module):
         self.norm3_scale = nn.Parameter(torch.ones(60))
         self.norm3_bias = nn.Parameter(torch.zeros(60))
 
-    def forward(self, waveform: torch.Tensor) -> torch.Tensor:
-        x = _instance_norm(waveform.float(), self.wav_norm_scale, self.wav_norm_bias)
-        x = frontend_pool(self.sinc(x))
+    def forward(self, waveform: torch.Tensor, pooled: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """waveform (batch, 1, samples) -> (batch, 60, frames). ``pooled``
+        (batch, 80, pooled frames): the max-pooled ``|sinc conv|`` with the
+        waveform-norm affine folded in, from the engine's stacked frontend
+        (``parallel/engine.py``); the waveform, its norm and the sinc
+        convolution are then skipped."""
+        if pooled is None:
+            x = _instance_norm(waveform.float(), self.wav_norm_scale, self.wav_norm_bias)
+            pooled = frontend_pool(self.sinc(x))
+        x = pooled
         x = F.leaky_relu(_instance_norm(x, self.norm1_scale, self.norm1_bias), 0.01)
         cd = self.compute_dtype
         for i in (2, 3):

@@ -34,9 +34,19 @@ step cuts the host inputs by rows and queues every shard's step on its
 device with no host wait. Streams are independent, so the step has no
 collective, as XLA inserts none.
 
-Differences from the JAX engine: no phase-major audio ring (a TPU layout
-trick — the window is the plain (B, samples) array it describes), no
-stacked SincNet frontend.
+Stacked SincNet frontend (``stack_frontend``, off by default as in the JAX
+engine): when the segmentation and the embedding carry distinct SincNet
+filterbanks of one geometry (real checkpoint pairs; the registry's share
+their mel init, and identical filterbanks do not stack), the engine folds
+each model's waveform-norm affine into its filters and bias
+(``conv(z s + b) = s conv(z) + b sum(filters)``) and runs one 160-channel
+sinc convolution, in true f32, on the shared standardized waveform; the
+models take the pooled halves (``sinc_pooled``), as JAX's do.
+
+Difference from the JAX engine: no phase-major audio ring (a TPU layout
+trick — the window is the plain (B, samples) array it describes). A JAX
+session file's phase-major window is laid out flat on restore
+(``parallel/session.py``).
 """
 
 from __future__ import annotations
@@ -56,6 +66,8 @@ from ..models.fbank import (
     fbank_ring_fill,
     fbank_ring_spec,
 )
+from ..models.sincnet import SincNet, frontend_pool
+from ..ops import _numerics
 from ..ops.aggregation import AggregationGeometry, aggregate, build_geometry
 from ..ops.clustering import ClusteringParams, ClusteringState, cluster_step
 from ..ops.functional import (
@@ -154,6 +166,28 @@ def _join(parts: list):
     return Sharded(parts)
 
 
+def _sincnet(model) -> Optional[SincNet]:
+    """A model's SincNet frontend, or None."""
+    sincnet = getattr(getattr(model, "module", None), "sincnet", None)
+    return sincnet if isinstance(sincnet, SincNet) else None
+
+
+def _sinc_geometry(sincnet: SincNet) -> tuple:
+    """What one stacked convolution must share: (stride, kernel size,
+    min low Hz, min band Hz, sample rate)."""
+    sinc = sincnet.sinc
+    return sinc.stride, sinc.kernel_size, sinc.min_low_hz, sinc.min_band_hz, sinc.sample_rate
+
+
+def _stackable(seg: Optional[SincNet], emb: Optional[SincNet]) -> bool:
+    """Whether two SincNets stack: both there, one geometry, distinct
+    filterbanks or waveform norms (identical ones would double the work)."""
+    if seg is None or emb is None or _sinc_geometry(seg) != _sinc_geometry(emb):
+        return False
+    names = ("sinc.low_hz", "sinc.band_hz", "wav_norm_scale", "wav_norm_bias")
+    return not all(torch.equal(seg.get_parameter(n), emb.get_parameter(n)) for n in names)
+
+
 def _rows(value, lo: int, hi: int):
     """Rows ``lo:hi`` of a host or device input (None stays None)."""
     return None if value is None else value[lo:hi]
@@ -247,6 +281,13 @@ class MultiStreamEngine:
                 embedding.fbank_ring_kind, int(embedding.num_mels),
                 int(embedding.sample_rate), self.chunk_samples, self.step_samples,
             )
+        # (segmentation's SincNet, embedding's SincNet) when the stacked
+        # frontend runs (see the module docstring), else None
+        self._stacked: Optional[Tuple[SincNet, SincNet]] = None
+        with precision_policy.use(self.precision):
+            stack_on = precision_policy.enabled("stack_frontend", self.device)
+        if stack_on and not self.is_vad and _stackable(_sincnet(segmentation), _sincnet(embedding)):
+            self._stacked = (_sincnet(segmentation), _sincnet(embedding))
         self._audio_row = None
         self.num_frames = segmentation.num_frames(self.chunk_samples)
         self.num_local = segmentation.num_speakers
@@ -451,7 +492,11 @@ class MultiStreamEngine:
         ``emb_raw``: the frame ring's raw log-mel frames, which the
         embedding then takes instead of the waveform."""
         wave = window[:, None, :]
-        seg = self._seg(wave)
+        seg_kw, emb_kw = {}, {}
+        if self._stacked is not None:
+            seg_pooled, emb_pooled = self._stacked_frontend(wave)
+            seg_kw, emb_kw = {"sinc_pooled": seg_pooled}, {"sinc_pooled": emb_pooled}
+        seg = self._seg(wave, **seg_kw)
         if self.is_vad:
             return seg, torch.zeros(seg.shape[0], 1, 1, dtype=seg.dtype, device=seg.device)
         weights = overlapped_speech_penalty(seg, gamma, beta)
@@ -460,9 +505,26 @@ class MultiStreamEngine:
         if emb_raw is not None:
             frames = self._emb.trunk_from_raw_fbank(emb_raw)
         else:
-            frames = self._emb.trunk(wave)
+            frames = self._emb.trunk(wave, **emb_kw)
         emb = self._emb.head(frames, weights.transpose(1, 2))
         return seg, normalize_embeddings(emb, 1.0)
+
+    def _stacked_frontend(self, wave: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Both models' ``|sinc conv|`` max-pooled, from one convolution of
+        the stacked filterbanks on the standardized waveform: wave (B, 1,
+        samples) -> (segmentation's, embedding's), each (B, 80, pooled
+        frames)."""
+        seg, emb = self._stacked
+        mean = wave.mean(dim=-1, keepdim=True)
+        var = wave.var(dim=-1, keepdim=True, correction=0)
+        z = (wave - mean) * torch.rsqrt(var + 1e-5)
+        fs, fe = seg.sinc.filters(), emb.sinc.filters()
+        filters = torch.cat([fs * seg.wav_norm_scale, fe * emb.wav_norm_scale])
+        bias = torch.cat([seg.wav_norm_bias * fs.sum(dim=1), emb.wav_norm_bias * fe.sum(dim=1)])
+        with _numerics.true_f32(z.device):
+            y = torch.nn.functional.conv1d(z, filters[:, None, :], bias, stride=seg.sinc.stride)
+        pooled = frontend_pool(y)
+        return pooled[:, : fs.shape[0]], pooled[:, fs.shape[0] :]
 
     def _step_impl(
         self, state: StreamState, blocks: torch.Tensor, audio_mask, run_mask

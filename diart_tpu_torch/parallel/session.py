@@ -33,15 +33,49 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import native
+from .. import flaxio, native
 from ..core.annotation import Annotation
 from ..core.segment import SlidingWindow, SlidingWindowFeature
+from ..models.base import ZIP_MAGIC
 from ..ops import _build
 from ..ops.binarize import binarize, binarize_rttm, pack_binarized_bits
 from ..utils import Chronometer
 from .engine import MultiStreamEngine, Sharded, StreamState, to_device
 
 __all__ = ["MultiStreamSession"]
+
+
+def _from_flax(tree, path) -> dict:
+    """A JAX session file's state (flax's map of the StreamState fields,
+    numpy leaves) as CPU tensors."""
+    if not isinstance(tree, dict):
+        raise ValueError(f"{path}: not a session state (a map of StreamState fields)")
+
+    def tensor(leaf):
+        if isinstance(leaf, dict):
+            return {k: tensor(v) for k, v in leaf.items()}
+        if isinstance(leaf, torch.Tensor):
+            return leaf
+        if not isinstance(leaf, np.ndarray):
+            raise ValueError(f"{path}: a state leaf is a {type(leaf).__name__}, not an array")
+        return torch.from_numpy(leaf)
+
+    return {k: tensor(v) for k, v in tree.items()}
+
+
+def _fit(name: str, got: torch.Tensor, want) -> torch.Tensor:
+    """A checkpoint leaf checked against the leaf ``want`` of this engine's
+    state. A JAX engine's phase-major window (B, s, n / s) is laid out as
+    the flat (B, n) ``want`` holds (sample i at [b, i % s, i // s])."""
+    if got.dim() == 3 and len(want.shape) == 2 and got.shape[0] == want.shape[0] \
+            and got.shape[1] * got.shape[2] == want.shape[1]:
+        got = got.transpose(1, 2).reshape(got.shape[0], -1)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise ValueError(
+            f"checkpoint field {name!r}: {tuple(got.shape)} {got.dtype}; "
+            f"this engine needs {tuple(want.shape)} {want.dtype}"
+        )
+    return got
 
 
 def _parts(value) -> tuple:
@@ -219,21 +253,33 @@ class MultiStreamSession:
     def restore(self, path) -> None:
         """Resume a saved session (same engine geometry) on the engine's
         device, or its shards' (a checkpoint holds the whole stream axis,
-        so it restores on a sharded or an unsharded engine alike)."""
+        so it restores on a sharded or an unsharded engine alike).
+
+        ``path`` is this class's file or the one ``diart_tpu``'s session
+        writes (flax msgpack of its state, told apart by the bytes: a
+        ``torch.save`` file is a zip), with the same ``.json`` bookkeeping
+        and ``.audio.npy`` window. The JAX engine may hold a SincNet
+        model's waveform window phase-major, ``(B, s, samples / s)`` with
+        sample ``i`` at ``[b, i % s, i // s]``; it is laid out flat here.
+        The meta's JAX-only precision switches are not read. A field whose
+        shape or dtype this engine does not hold raises."""
         path = Path(path)
-        loaded = torch.load(path, map_location="cpu", weights_only=True)
+        data = path.read_bytes()
+        if data[:4] == ZIP_MAGIC:
+            loaded = torch.load(path, map_location="cpu", weights_only=True)
+        else:
+            loaded = _from_flax(flaxio.loads(data), path)
         fresh = self.engine.init_state()._asdict()
         for name, want in fresh.items():
-            got = loaded[name]
-            pairs = (
-                [(want[k], got[k]) for k in want] if isinstance(want, dict) else [(want, got)]
-            )
-            for w, g in pairs:
-                if g.shape != w.shape or g.dtype != w.dtype:
-                    raise ValueError(
-                        f"checkpoint field {name!r}: {tuple(g.shape)} {g.dtype}; "
-                        f"this engine needs {tuple(w.shape)} {w.dtype}"
-                    )
+            got = loaded.get(name)
+            if got is None or isinstance(want, dict) != isinstance(got, dict) or (
+                    isinstance(want, dict) and set(got) != set(want)):
+                layout = lambda v: sorted(v) if isinstance(v, dict) else "an array" if v is not None else "nothing"
+                raise ValueError(f"checkpoint field {name!r}: {layout(got)}; this engine needs {layout(want)}")
+            if isinstance(want, dict):
+                loaded[name] = {k: _fit(name, got[k], want[k]) for k in want}
+            else:
+                loaded[name] = _fit(name, got, want)
         self.state = self.engine.place_state(StreamState(**{name: loaded[name] for name in fresh}))
         meta = json.loads(path.with_suffix(".json").read_text())
         self.uris = list(meta["uris"])

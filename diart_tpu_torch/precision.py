@@ -16,11 +16,17 @@ tensor always runs its kernel, a CPU tensor its plain version.
   ``QuantizableConv`` convolutions (``ops/quant.py``): per-sample activation
   scales, per-output-channel weight scales, s8 x s8 -> s32 products.
   Quality-affecting, so off by default, as in the JAX package.
+* ``stack_frontend``: when the segmentation and the embedding carry
+  distinct SincNet filterbanks of one geometry, the engine folds each
+  model's waveform-norm affine into its filters and runs one 160-channel
+  sinc convolution for both (``parallel/engine.py``). Off by default, as
+  in the JAX package.
 
 The first three default on, as in the JAX package. The two bf16 switches
 resolve to off for CPU tensors, the way the JAX package's TPU-only
-switches resolve to off off the TPU; ``fbank_ring`` and ``int8_trunk`` are
-not TPU-only there and apply on every device here too.
+switches resolve to off off the TPU; ``fbank_ring``, ``int8_trunk`` and
+``stack_frontend`` are not TPU-only there and apply on every device here
+too.
 
 ``Precision.parse`` reads the CLIs' ``--precision`` spec and
 ``set_default`` installs a policy for every thread (a :func:`use` scope is
@@ -45,6 +51,7 @@ class Precision:
     bf16_frontend: bool = True
     fbank_ring: bool = True
     int8_trunk: bool = False
+    stack_frontend: bool = False
 
     @staticmethod
     def from_dict(d: Dict[str, bool]) -> "Precision":

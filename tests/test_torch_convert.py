@@ -315,15 +315,27 @@ def test_native_round_trip_segmentation(tmp_path, name, kwargs):
 
 
 def test_flax_files_are_refused(tmp_path):
-    """A flax .msgpack (or .npz) file written by diart_tpu is not read: the
-    error names the route (the port's convert CLI)."""
-    jseg = JaxSegmentationModel.from_registry("tpu/pyannet", lstm_hidden=16, lstm_layers=1,
-                                              linear_dims=(16,), init_samples=8000)
-    path = tmp_path / "seg.msgpack"
-    jseg.save(path)
-    for cls, name in ((SegmentationModel, path), (EmbeddingModel, tmp_path / "emb.npz")):
-        with pytest.raises(ValueError, match="diart_tpu_torch.console.convert"):
-            cls.from_pretrained(str(name), device="cpu")
+    """The flax .msgpack and .npz files diart_tpu writes load (they were
+    refused before the port read flax msgpack): a segmentation and an
+    embedding file, each equal to the JAX model on a seeded input within
+    1e-5 (f32, sums in another order). A torn one is refused, its error
+    naming both formats."""
+    seg_kw = dict(lstm_hidden=16, lstm_layers=1, linear_dims=(16,))
+    jseg = JaxSegmentationModel.from_registry("tpu/pyannet", init_samples=8000, **seg_kw)
+    jemb = JaxEmbeddingModel.from_registry(
+        "tpu/xvect-sb", init_samples=8000, embedding_dim=32,
+        tdnn_specs=((5, 1, 16), (3, 2, 16), (3, 3, 16), (1, 1, 16), (1, 1, 48)))
+    jseg.save(tmp_path / "seg.msgpack")
+    jemb.save(tmp_path / "emb.npz")
+    wave = np.random.default_rng(5).normal(scale=0.1, size=(2, 1, 8000)).astype(np.float32)
+    seg = SegmentationModel.from_pretrained(str(tmp_path / "seg.msgpack"), device="cpu")
+    emb = EmbeddingModel.from_pretrained(str(tmp_path / "emb.npz"), device="cpu")
+    np.testing.assert_allclose(seg(torch.from_numpy(wave)).numpy(), np.asarray(jseg(wave)), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(emb(torch.from_numpy(wave)).numpy(), np.asarray(jemb(wave)), rtol=1e-5, atol=1e-5)
+    data = (tmp_path / "seg.msgpack").read_bytes()
+    (tmp_path / "seg.msgpack").write_bytes(data[: len(data) // 2])
+    with pytest.raises(ValueError, match="torch.save zip.*flax msgpack"):
+        SegmentationModel.from_pretrained(str(tmp_path / "seg.msgpack"), device="cpu")
 
 
 def test_save_refuses_callables():
@@ -361,20 +373,25 @@ def test_convert_cli(tmp_path, checkpoints, monkeypatch, capsys):
 
 
 def test_model_layer_imports_without_jax():
-    """The converters, the ONNX stub, the convert CLI and the new families
-    import with jax and diart_tpu blocked (the port keeps its own copies of
-    the JAX package's numpy mapping helpers)."""
+    """The converters, the ONNX stub, the convert CLI, the new families and
+    the flax msgpack reader (with the readers of diart_tpu's files: the
+    model files, the trainers' checkpoints, the session) import with jax,
+    flax, msgpack and diart_tpu blocked (the port keeps its own copies of
+    the JAX package's numpy mapping helpers and its own msgpack codec)."""
     import subprocess
     from pathlib import Path
 
     code = (
         "import sys\n"
-        "for m in ('jax', 'diart_tpu', 'flax'):\n"
+        "for m in ('jax', 'diart_tpu', 'flax', 'msgpack'):\n"
         "    sys.modules[m] = None\n"
         "import diart_tpu_torch.models.convert, diart_tpu_torch.models.onnx\n"
         "import diart_tpu_torch.console.convert\n"
         "from diart_tpu_torch.models import ResNet34, TitaNet, XVectorFbank, to_multilabel\n"
-        "assert not [m for m in sys.modules if m.startswith(('jax', 'diart_tpu.', 'flax'))\n"
+        "import diart_tpu_torch.flaxio, diart_tpu_torch.train, diart_tpu_torch.parallel.session\n"
+        "from diart_tpu_torch import flaxio\n"
+        "assert flaxio.loads(flaxio.dumps({'a': {'b': 1}})) == {'a': {'b': 1}}\n"
+        "assert not [m for m in sys.modules if m.startswith(('jax', 'diart_tpu.', 'flax', 'msgpack'))\n"
         "            and sys.modules[m] is not None]\n"
     )
     repo = Path(__file__).parent.parent

@@ -467,9 +467,9 @@ def test_output_timestamps_match_jax(models):
 def test_precision_provenance():
     p = Precision()
     assert p.as_dict() == {"bf16_lstm": True, "bf16_frontend": True, "fbank_ring": True,
-                           "int8_trunk": False}
+                           "int8_trunk": False, "stack_frontend": False}
     assert p.resolved("cpu") == {"bf16_lstm": False, "bf16_frontend": False, "fbank_ring": True,
-                                 "int8_trunk": False}
+                                 "int8_trunk": False, "stack_frontend": False}
     assert p.resolved("cuda") == p.as_dict()
     assert Precision.portable().resolved("cuda") == dict.fromkeys(p.as_dict(), False)
 
