@@ -184,15 +184,36 @@ Phases (any failure exits non-zero):
    the x-vector engine with distinct filterbanks with the switch off and
    on (wall, device busy, idle share; (off on on off) x 2) and the stacked
    engine against the unstacked one in f32.
-11. Print ``{"kernels": [...]}`` (with each kernel's launches on the
-   pipelines', the runtime's, the families', the training and phase 10's
-   runs, and its gradient's error and times; ``int8_conv``'s at every
-   site) and, last, ``{"ok": true, "device": ...}``.
+11. The rest of diart_tpu's surface (``drive_surface``): ``tpu/pyannet``
+   and ``tpu/xvector`` (bf16 trunk) through ``from_pretrained`` are not in
+   memory and place nothing on the card before first use; their B=64
+   engine over 12 hops bitwise the engine of models loaded beforehand,
+   with its sweeps' and stats head's launches; ``with_dtype("f32")`` after
+   the load gives the f32 engine's probe bitwise. Then the ``DIART_TPU_*``
+   variables, each case in a child process with the default policy
+   (started together): ``DIART_TPU_INT8_TRUNK=1`` (x-vector),
+   ``DIART_TPU_FBANK_RING=0`` (ECAPA), ``DIART_TPU_BF16_LSTM=0`` and
+   ``DIART_TPU_PALLAS_LSTM=0`` (x-vector), each bitwise the engine of the
+   matching ``Precision`` run here with no variable, every kernel of the
+   path launched on every hop (``int8_conv`` too; the JAX-only variable
+   keeps nothing from launching), and ``use(Precision(), force=True)``
+   giving the default forward under ``DIART_TPU_BF16_LSTM=0``. Then
+   ``log_mel_filterbank`` at (64, 80000) f32 on the card against the CPU
+   under torch's TF32 switches as the process got them (tolerance 1e-4),
+   timed with CUDA events beside ``speechbrain_log_mel``. Every phase
+   before this one runs with no policy variable in the environment (the
+   script removes them and prints the resolved policy first).
+12. Print ``{"kernels": [...]}`` (with each kernel's launches on the
+   pipelines', the runtime's, the families', the training, phase 10's and
+   phase 11's runs, and its gradient's error and times; ``int8_conv``'s at
+   every site) and, last, ``{"ok": true, "device": ...}``.
 
 ``--families`` runs only the build and phase 7; ``--training`` only the
 build and phase 8; ``--scaleout`` only the build and phase 9
 (``--rank-child`` is phase 9's own way to start its processes);
-``--jax-files`` only the build and phase 10;
+``--jax-files`` only the build and phase 10; ``--surface`` only the
+build and phase 11 (``--env-child`` is its own way to start its
+processes);
 ``--tf32-default [--root TREE]`` only the build and phase 1's TF32
 checks (with ``TREE``'s ``diart_tpu_torch``, its subprocess too).
 ``--step-timing [--root TREE]`` runs only the step timing of phase 4 (its
@@ -634,29 +655,39 @@ def res2_unrounded_gate(x, params, dilation):
     return (x.float() + z2.float() * gate.float()[:, None, :]).to(dt)
 
 
+# profiles a device_times call may take: late in a long process the
+# profiler has now and then returned no device event at all for a call
+# that ran (a failed session of the tracer, not of the kernel)
+PROFILE_ATTEMPTS = 3
+
+
 def device_times(call, what: str, calls: int = 10):
     """Device time of each kernel that ``call`` launches, from a profile of
-    ``calls`` calls, longest first: (name, ms per call, launches per call)."""
+    ``calls`` calls, longest first: (name, ms per call, launches per call).
+    A profile with no device event is taken again, up to PROFILE_ATTEMPTS
+    profiles in all, each logged."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     call()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-        m = re.search(r"([A-Za-z_]\w*)\s*(<[^(]*>)?\s*\(", e.key.replace("(anonymous namespace)::", ""))
-        name = m.group(1) + (m.group(2) or "") if m else e.key[:40]
-        rows.append((name, us / 1e3 / calls, e.count / calls))
-    if not rows:
-        raise AssertionError(f"the profiler saw no device time for {what}")
-    return sorted(rows, key=lambda r: -r[1])
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        rows = []
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+            m = re.search(r"([A-Za-z_]\w*)\s*(<[^(]*>)?\s*\(", e.key.replace("(anonymous namespace)::", ""))
+            name = m.group(1) + (m.group(2) or "") if m else e.key[:40]
+            rows.append((name, us / 1e3 / calls, e.count / calls))
+        if rows:
+            return sorted(rows, key=lambda r: -r[1])
+        log(f"  the profiler saw no device time for {what} (profile {attempt} of {PROFILE_ATTEMPTS})")
+    raise AssertionError(f"the profiler saw no device time for {what} in {PROFILE_ATTEMPTS} profiles")
 
 
 def check_res2(dtype, gen):
@@ -1916,7 +1947,8 @@ def drive_benchmark(corpus, out_root):
     seq_preds = Benchmark(corpus, None, seq_dir, show_progress=False, batch_size=32)(type(pipe), config)
     seq_wall = time.perf_counter() - t0
     ders = {stem: float(DiarizationErrorRate()(s, m)) for stem, s, m in zip(stems, seq_preds, ms_preds)}
-    # Parallelize: 2 spawn workers over 2 files, the models crossing as CUDA IPC handles
+    # Parallelize: 2 spawn workers over 2 files, the models crossing as their loaders
+    # (each worker builds them on the card from the same names and seeds)
     par_in, par_out = os.path.join(out_root, "par_in"), os.path.join(out_root, "par")
     os.makedirs(par_in, exist_ok=True)
     picked = [stems[0], stems[-1]]
@@ -4145,6 +4177,343 @@ def int8_entry(scaleout) -> dict:
                                            "library_ms", "int_mm_ms", "tops")} for r in sites])
 
 
+# --------------------------------------------------------------------- #
+# Phase 11: the rest of diart_tpu's surface on the card: lazy models, the
+# DIART_TPU_* variables of the policy, the generic log-mel frontend
+# --------------------------------------------------------------------- #
+# every variable diart_tpu reads for a switch of its policy: the five the
+# port honours and the JAX-only ones it does not read
+POLICY_VARIABLES = (
+    "DIART_TPU_BF16_LSTM", "DIART_TPU_BF16_FRONTEND", "DIART_TPU_FBANK_RING", "DIART_TPU_INT8_TRUNK",
+    "DIART_TPU_STACK_FRONTEND", "DIART_TPU_PALLAS_LSTM", "DIART_TPU_PALLAS_HEAD", "DIART_TPU_PALLAS_ATTN",
+    "DIART_TPU_PALLAS_RES2", "DIART_TPU_LSTM_BLOCK", "DIART_TPU_LSTM_BLOCK_K", "DIART_TPU_FAST_FBANK",
+    "DIART_TPU_PHASED_RING",
+)
+SURFACE_HOPS = 12
+# each child process's variable and value, the engine it drives with the
+# default policy, and the Precision (no variable) whose bits it must give
+ENV_CASES = {
+    "int8_trunk": ("DIART_TPU_INT8_TRUNK", "1", "xvector", dict(int8_trunk=True)),
+    "fbank_ring": ("DIART_TPU_FBANK_RING", "0", "ecapa", dict(fbank_ring=False)),
+    "bf16_lstm": ("DIART_TPU_BF16_LSTM", "0", "xvector", dict(bf16_lstm=False)),
+    "pallas_lstm": ("DIART_TPU_PALLAS_LSTM", "0", "xvector", {}),
+}
+# each case's kernels a step (the 4-layer PyanNet's sweeps included)
+ENV_CASE_LAUNCHES = {
+    "int8_trunk": {"lstm_sweep": 4, "linear_stats": 1},
+    "fbank_ring": {"lstm_sweep": 4, "attn_stats": 1, "se_res2": 3},
+    "bf16_lstm": {"lstm_sweep": 4, "linear_stats": 1},
+    "pallas_lstm": {"lstm_sweep": 4, "linear_stats": 1},
+}
+# log_mel_filterbank on the card against the CPU, both in true f32: only the
+# order of the f32 sums differs. An f32 DFT's error in a bin is relative to
+# its frame's energy, and white noise leaves some single-bin mel bands far
+# below it (1.5e-7 of the frame's peak at (64, 80000): the CPU's log there
+# is 6.6e-4 off a float64 oracle). So, as tests/test_torch_fbank_generic.py
+# holds diart_tpu: the log features within 1e-4 where the mel energy is at
+# least 1e-3 of its frame's peak (95% of them), and every mel energy within
+# 4 u sqrt(400) = 4.8e-6 of its frame's peak (a 400-tap f32 sum is off by
+# about u sqrt(n) of its size, twice that for a power, on each side; the
+# CPU reads 7.9e-7 off float64; TF32 would read ~1e-2)
+LOG_MEL_TOL, LOG_MEL_FLOOR, LOG_MEL_PEAK_TOL = 1e-4, 1e-3, 4 * 2.0**-24 * 400**0.5
+# torch's TF32 switches as this process got them (phase 11's log-mel check
+# runs under them)
+DEFAULT_TF32 = {}
+
+
+def scrub_policy_variables() -> dict:
+    """Remove every policy variable from this process's environment (the
+    phases before 11 must not see one) and return what was set."""
+    return {name: os.environ.pop(name) for name in POLICY_VARIABLES if name in os.environ}
+
+
+def surface_audio():
+    return make_audio(np.random.default_rng(4), SURFACE_HOPS, B, 8000)
+
+
+def surface_run(engine, audio) -> dict:
+    """SURFACE_HOPS steps of ``engine``: its outputs (aggregated, newest)
+    stacked on the host, the segmentation and embeddings the next step
+    would compute (``probe_frame_scores``), and every kernel's launches
+    over the steps."""
+    import torch
+
+    counters = int8_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    state, aggs, newest = engine.init_state(), [], []
+    for i in range(SURFACE_HOPS):
+        state, out = engine.step(state, audio[i], run_mask=np.full(B, i + 1 >= WARMUP_HOPS))
+        aggs.append(out.aggregated.float().cpu())
+        newest.append(out.newest.float().cpu())
+    launches = read_counters(counters)
+    seg, emb = engine.probe_frame_scores(state, audio[-1])
+    return dict(aggregated=torch.stack(aggs), newest=torch.stack(newest), seg=seg.float().cpu(),
+                emb=emb.float().cpu(), launches=launches)
+
+
+def same_run(a: dict, b: dict) -> bool:
+    """Whether two :func:`surface_run` results hold the same bits."""
+    import torch
+
+    return all(torch.equal(a[k], b[k]) for k in ("aggregated", "newest", "seg", "emb"))
+
+
+def step_kwargs() -> dict:
+    return dict(duration=5.0, step=0.5, latency=0.5, sample_rate=16000, max_speakers=20, batch_size=B,
+                tau_active=SESSION_TAU, rho_update=0.05)
+
+
+def lazy_models(audio) -> dict:
+    """``tpu/pyannet`` and ``tpu/xvector`` (bf16 trunk) through
+    ``from_pretrained``: not in memory, nothing placed on the card, before
+    the engine's first use; the B=64 engine of the lazy models bitwise the
+    one of models loaded beforehand over SURFACE_HOPS hops, with its
+    launches; ``with_dtype("f32")`` after the load: the f32 engine's probe
+    bitwise that of an engine of models made in f32."""
+    import torch
+    from diart_tpu_torch import EmbeddingModel, MultiStreamEngine, SegmentationModel
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    seg = SegmentationModel.from_pretrained("tpu/pyannet", device="cuda", seed=0)
+    emb = EmbeddingModel.from_pretrained("tpu/xvector", device="cuda", seed=1, dtype="bf16")
+    placed = torch.cuda.memory_allocated() - before
+    in_memory = (seg.is_in_memory(), emb.is_in_memory())
+    if any(in_memory) or placed:
+        raise AssertionError(f"lazy models: in memory {in_memory}, {placed} bytes on the card before first use")
+    lazy = surface_run(MultiStreamEngine(seg, emb, **step_kwargs()), audio)
+    loaded = (SegmentationModel.from_registry("tpu/pyannet", device="cuda", seed=0).load(),
+              EmbeddingModel.from_registry("tpu/xvector", device="cuda", seed=1, dtype="bf16").load())
+    eager = surface_run(MultiStreamEngine(*loaded, **step_kwargs()), audio)
+    launches = lazy["launches"]
+    bitwise = same_run(lazy, eager)
+    want = {"lstm_sweep": 4 * SURFACE_HOPS, "linear_stats": SURFACE_HOPS}
+    log(f"surface[lazy]: from_pretrained in memory {in_memory}, {placed} bytes placed before first use; "
+        f"the engine of the lazy models over {SURFACE_HOPS} hops x {B} streams "
+        f"{'bitwise' if bitwise else 'NOT bitwise'} the loaded models' engine; launches {launches}")
+    if not bitwise:
+        raise AssertionError("surface[lazy]: the engine of lazy models differs from the loaded models'")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"surface[lazy]: expected {want} launches; got {launches}")
+    assert seg.to("cuda") is seg and emb.eval() is emb and seg.is_in_memory() and emb.is_in_memory()
+
+    # with_dtype after the load: the f32 engine's probe
+    emb.with_dtype("f32")
+    f32_models = (SegmentationModel.from_registry("tpu/pyannet", device="cuda", seed=0, dtype="f32"),
+                  EmbeddingModel.from_registry("tpu/xvector", device="cuda", seed=1, dtype="f32"))
+    probes = []
+    for models in ((seg, emb), f32_models):
+        engine = MultiStreamEngine(*models, precision=f32_policy(), **step_kwargs())
+        state = engine.init_state()
+        for i in range(WARMUP_HOPS):
+            state, _ = engine.step(state, audio[i], run_mask=np.full(B, i + 1 >= WARMUP_HOPS))
+        probes.append([p.cpu() for p in engine.probe_frame_scores(state, audio[WARMUP_HOPS])])
+    dtype_ok = emb.module.compute_dtype == torch.float32 and all(
+        torch.equal(a, b) for a, b in zip(*probes))
+    log(f"surface[with_dtype]: with_dtype('f32') after the load: the f32 engine's probe "
+        f"{'bitwise' if dtype_ok else 'NOT bitwise'} that of models made in f32")
+    if not dtype_ok:
+        raise AssertionError("surface[with_dtype]: with_dtype('f32') after the load is not the f32 model")
+    return dict(in_memory_before_use=list(in_memory), bytes_placed_before_use=placed, bitwise=bitwise,
+                hops=SURFACE_HOPS, launches=launches, with_dtype_f32_probe_bitwise=dtype_ok)
+
+
+def env_child(case, path) -> int:
+    """One environment case (run by :func:`env_overrides` in a process of
+    its own, the variable set): the engine of ENV_CASES[case] with the
+    default policy over SURFACE_HOPS hops; for ``bf16_lstm`` also the
+    PyanNet forward under ``use(Precision(), force=True)``, which ignores
+    the variable."""
+    import torch
+    from diart_tpu_torch.precision import Precision, use
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    var, value, emb, _ = ENV_CASES[case]
+    assert os.environ.get(var) == value, (var, os.environ.get(var))
+    engine = int8_engine(emb, "cuda", B, precision=Precision())
+    out = surface_run(engine, surface_audio())
+    rec = dict(variable=f"{var}={value}", resolved=Precision().resolved("cuda"), launches=out.pop("launches"))
+    if case == "bf16_lstm":
+        wave = probe_wave()
+        with torch.no_grad(), use(Precision(), force=True):
+            rec["resolved_forced"] = Precision().resolved("cuda")
+            out["forced"] = engine._seg(wave).float().cpu()
+        with torch.no_grad():
+            out["unforced"] = engine._seg(wave).float().cpu()
+    torch.save(out, f"{path}.pt")
+    with open(f"{path}.json", "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def probe_wave():
+    """B windows of 5 s of the surface audio, on the card."""
+    import torch
+
+    audio = surface_audio()
+    return torch.from_numpy(audio[:10].transpose(1, 0, 2).reshape(B, 1, -1).astype(np.float32)).cuda()
+
+
+def env_overrides(tmp) -> dict:
+    """Each ENV_CASES case in a child process with its variable set and the
+    default policy, started together; meanwhile this process (no variable)
+    runs each case's Precision. Each child's scores bitwise those of its
+    Precision, its kernels launched on every hop (``DIART_TPU_PALLAS_LSTM=0``
+    does not keep the sweep from launching), the int8 and bf16 variables
+    changing the scores against the default policy, and ``force=True``
+    giving the default policy's forward whatever the variable says."""
+    import torch
+    from diart_tpu_torch import SegmentationModel
+    from diart_tpu_torch.precision import Precision
+
+    procs = {}
+    for case, (var, value, _, _) in ENV_CASES.items():
+        path = os.path.join(tmp, case)
+        logf = open(f"{path}.log", "w")
+        procs[case] = (path, logf, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--env-child", case, path],
+            env=dict(os.environ, **{var: value}), cwd=PKG_ROOT, stdout=logf, stderr=subprocess.STDOUT))
+    audio = surface_audio()
+    refs = {case: surface_run(int8_engine(emb, "cuda", B, precision=Precision(**policy)), audio)
+            for case, (_, _, emb, policy) in ENV_CASES.items()}
+    seg = SegmentationModel.from_registry("tpu/pyannet", device="cuda", seed=0)
+    with torch.no_grad():
+        default_forward = seg(probe_wave()).float().cpu()
+    rec, failures = {}, []
+    for case, (path, logf, proc) in procs.items():
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            logf.close()
+        if rc != 0:
+            with open(f"{path}.log") as f:
+                log(f.read()[-4000:])
+            raise AssertionError(f"surface[env {case}]: the child exited {rc}")
+        with open(f"{path}.json") as f:
+            child = json.load(f)
+        got = torch.load(f"{path}.pt")
+        ref = refs[case]
+        bitwise = same_run(got, ref)
+        want = {k: v * SURFACE_HOPS for k, v in ENV_CASE_LAUNCHES[case].items()}
+        launches, ref_launches = child["launches"], ref["launches"]
+        if case == "int8_trunk":
+            want["int8_conv"] = ref_launches["int8_conv"]
+        # the int8 trunk changes the embeddings, the f32 LSTM stream the
+        # segmentation (the aggregated scores move only where an
+        # assignment does)
+        changed = not torch.equal(got["emb"], refs["pallas_lstm"]["emb"]) or \
+            not torch.equal(got["seg"], refs["pallas_lstm"]["seg"])
+        entry = dict(variable=child["variable"], resolved=child["resolved"], bitwise=bitwise,
+                     launches=launches, reference_launches=ref_launches, changed_against_default=changed)
+        log(f"surface[env {child['variable']}]: the default policy resolves to {child['resolved']}; "
+            f"scores {'bitwise' if bitwise else 'NOT bitwise'} those of Precision({ENV_CASES[case][3]}) "
+            f"with no variable; {'differ from' if changed else 'equal to'} the default policy's; "
+            f"launches {launches}")
+        if not bitwise:
+            failures.append(f"{case}: not bitwise the matching Precision")
+        if any(launches.get(k) != v for k, v in want.items()):
+            failures.append(f"{case}: expected launches {want}, got {launches}")
+        if case in ("int8_trunk", "bf16_lstm") and not changed:
+            failures.append(f"{case}: the variable changed nothing")
+        if case == "int8_trunk" and not launches["int8_conv"]:
+            failures.append("int8_trunk: int8_conv never launched")
+        if case == "bf16_lstm":
+            forced = torch.equal(got["forced"], default_forward)
+            unforced_differs = not torch.equal(got["unforced"], default_forward)
+            entry.update(force_bitwise_default=forced, resolved_forced=child["resolved_forced"],
+                         unforced_differs=unforced_differs)
+            log(f"surface[env force]: use(Precision(), force=True) under {child['variable']}: resolves to "
+                f"{child['resolved_forced']}, the PyanNet forward {'bitwise' if forced else 'NOT bitwise'} "
+                f"the default policy's with no variable (without force it "
+                f"{'differs' if unforced_differs else 'does NOT differ'})")
+            if not (forced and unforced_differs and child["resolved_forced"] == Precision().as_dict()):
+                failures.append("force: use(..., force=True) does not ignore the variable")
+        rec[case] = entry
+    if failures:
+        raise AssertionError("surface[env]: " + "; ".join(failures))
+    return rec
+
+
+def log_mel_check(smi) -> dict:
+    """``log_mel_filterbank`` at (64, 80000) f32 on the card against the
+    CPU, under torch's TF32 switches as this process got them; its time
+    with CUDA events beside ``speechbrain_log_mel`` of the same input."""
+    import torch
+    from diart_tpu_torch.models.fbank import log_mel_filterbank, num_fbank_frames, speechbrain_log_mel
+
+    rng = np.random.default_rng(9)
+    gains = 10.0 ** (-np.linspace(0.0, 60.0, B) / 20.0)  # 64 streams over 60 dB
+    wave = (rng.normal(scale=0.1, size=(B, 80000)) * gains[:, None]).astype(np.float32)
+    host = torch.from_numpy(wave)
+    card = host.cuda()
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = DEFAULT_TF32.get("matmul", False)
+        torch.backends.cudnn.allow_tf32 = DEFAULT_TF32.get("cudnn", True)
+        flags = dict(matmul=torch.backends.cuda.matmul.allow_tf32, cudnn=torch.backends.cudnn.allow_tf32)
+        with torch.no_grad():
+            got = log_mel_filterbank(card)
+            want = log_mel_filterbank(host)
+            ms = time_ms(lambda: log_mel_filterbank(card), 20)
+            sb_ms = time_ms(lambda: speechbrain_log_mel(card), 20)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    frames = num_fbank_frames(80000)
+    got = got.cpu()
+    err = (got - want).abs().max().item()
+    energy = lambda x: torch.exp(x.double()) - 1e-10
+    peak = energy(want).amax(dim=-1, keepdim=True)
+    strong = energy(want) >= LOG_MEL_FLOOR * peak
+    strong_err = (got - want).abs()[strong].max().item()
+    peak_err = ((energy(got) - energy(want)).abs() / peak).max().item()
+    ok = (got.shape == (B, frames, 80) and bool(torch.isfinite(got).all()) and strong_err <= LOG_MEL_TOL
+          and peak_err <= LOG_MEL_PEAK_TOL)
+    # the DFT product (402 rows x 400 taps a frame) and the mel product, f32
+    flops = 2.0 * B * frames * (402 * 400 + 201 * 80)
+    bound, bound_by = bound_ms(4.0 * B * (80000 + frames * 80), flops, "f32")
+    log(f"surface[log_mel_filterbank]: {tuple(wave.shape)} -> {tuple(got.shape)} on the card against the CPU "
+        f"under TF32 switches {flags}: log max_abs_err {strong_err:.3e} where the energy is >= "
+        f"{LOG_MEL_FLOOR:.0e} of its frame's peak ({strong.double().mean().item():.3f} of them; tol "
+        f"{LOG_MEL_TOL:.0e}), everywhere {err:.3e}; energy error {peak_err:.3e} of the frame's peak (tol "
+        f"{LOG_MEL_PEAK_TOL:.0e}); {ms:.3f} ms "
+        f"(bound {bound:.3f} ms, {bound_by}), speechbrain_log_mel {sb_ms:.3f} ms ({smi})")
+    if not ok:
+        raise AssertionError(f"surface[log_mel_filterbank]: {strong_err} > {LOG_MEL_TOL} or {peak_err} > "
+                             f"{LOG_MEL_PEAK_TOL} of the peak, or a bad output")
+    return dict(shape=list(got.shape), max_abs_err=err, strong_max_abs_err=strong_err, tol=LOG_MEL_TOL,
+                floor=LOG_MEL_FLOOR, peak_rel_err=peak_err, peak_tol=LOG_MEL_PEAK_TOL, tf32=flags, ms=ms,
+                speechbrain_log_mel_ms=sb_ms, bound_ms=bound, bound_by=bound_by, gpu=smi)
+
+
+def drive_surface(out_dir, smi) -> dict:
+    """Phase 11 (see the module docstring)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    rec = dict(lazy=lazy_models(surface_audio()))
+    with tempfile.TemporaryDirectory() as tmp:
+        rec["env"] = env_overrides(tmp)
+    rec["log_mel"] = log_mel_check(smi)
+    rec["seconds"] = time.perf_counter() - t0
+    if out_dir:
+        with open(os.path.join(out_dir, "chip_smoke_surface.json"), "w") as f:
+            json.dump(rec, f, indent=1)
+    log(f"surface phase in {rec['seconds']:.1f} s ({smi})")
+    return rec
+
+
+def surface_launches(rec, name) -> dict:
+    """A kernel's launches in phase 11's runs."""
+    out = {"lazy_engine": rec["lazy"]["launches"].get(name, 0)}
+    out.update({f"env_{case}": r["launches"].get(name, 0) for case, r in rec["env"].items()})
+    return out
+
+
 KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # the statistics kernels' extra readings: prepared and raw operands, the
 # product alone (a yardstick, not the same function)
@@ -4168,8 +4537,12 @@ def main() -> int:
                         help="only build the kernels and run phase 1's TF32-default checks")
     parser.add_argument("--jax-files", action="store_true",
                         help="only build the kernels and run the diart_tpu files and stacked frontend phase (10)")
+    parser.add_argument("--surface", action="store_true",
+                        help="only build the kernels and run the lazy models, DIART_TPU_* and log-mel phase (11)")
     parser.add_argument("--rank-child", nargs=4, metavar=("KIND", "RANK", "PORT", "DIR"),
                         help="one process of phase 9's process groups (started by the script itself)")
+    parser.add_argument("--env-child", nargs=2, metavar=("CASE", "PATH"),
+                        help="one environment case of phase 11 (started by the script itself)")
     args = parser.parse_args()
     if args.root:
         global PKG_ROOT
@@ -4186,6 +4559,10 @@ def main() -> int:
     if args.rank_child:
         kind, rank, port, out = args.rank_child
         return rank_child(kind, int(rank), int(port), out)
+    if args.env_child:
+        return env_child(*args.env_child)
+    scrubbed = scrub_policy_variables()
+    DEFAULT_TF32.update(matmul=torch.backends.cuda.matmul.allow_tf32, cudnn=torch.backends.cudnn.allow_tf32)
     def tf32_off():
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -4195,6 +4572,10 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     smi = smi_line()
     log(f"gpu: {smi}")
+    from diart_tpu_torch.precision import Precision
+
+    log(f"policy variables removed from the environment: {scrubbed or 'none set'}; the default policy "
+        f"resolves on the card to {Precision().resolved('cuda')}")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
 
@@ -4244,7 +4625,7 @@ def main() -> int:
     # phase 1's TF32 checks: torch's switches as they come; every later
     # phase runs with both off
     tf32 = None
-    if not (args.families or args.scaleout or args.training or args.jax_files):
+    if not (args.families or args.scaleout or args.training or args.jax_files or args.surface):
         t0 = time.perf_counter()
         tf32 = drive_tf32_default(args.out)
         log(f"TF32-default phase in {time.perf_counter() - t0:.1f} s")
@@ -4273,6 +4654,13 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s after start-up")
         log(f"gpu: {smi}")
         log(json.dumps({"jax_files": {k: v for k, v in jax_files.items() if k != "models"}}))
+        return 0
+
+    if args.surface:
+        surface = drive_surface(args.out, smi)
+        log(f"total {time.perf_counter() - t_start:.1f} s after start-up")
+        log(f"gpu: {smi}")
+        log(json.dumps({"surface": {k: v for k, v in surface.items() if k != "env"}}))
         return 0
 
     if args.training:
@@ -4354,6 +4742,10 @@ def main() -> int:
     # on the card, and the stacked SincNet frontend
     jax_files = drive_jax_files(args.out)
 
+    # the rest of diart_tpu's surface: lazy models, the DIART_TPU_* variables
+    # (in child processes), the generic log-mel frontend
+    surface = drive_surface(args.out, smi)
+
     # the main paths run the bf16 LSTM stream and bf16 embedding trunks
     xv, ec = runs["xvector"]["launches"], runs["ecapa"]["launches"]
     on_session = lambda name: {e: sessions[e]["session"]["launches"][name] for e in sessions}
@@ -4371,6 +4763,7 @@ def main() -> int:
                                   grad_f32={k: grads[name]["f32"][k] for k in grad_keys},
                                   launches_training_step=on_training(name))
     on_jax_files = lambda name: jax_files_launches(jax_files, name)
+    on_surface = lambda name: surface_launches(surface, name)
     on_runtime = lambda name: dict(
         **{f"inference_{k}": r["launches"][name] for k, r in runtime["inference"].items()},
         benchmark_multi_stream=runtime["benchmark"]["launches"][name],
@@ -4381,6 +4774,7 @@ def main() -> int:
              launches_xvector_path=xv["lstm_sweep"], launches_session_paths=on_session("lstm_sweep"),
              launches_pipeline_paths=on_pipeline("lstm_sweep"), launches_runtime_paths=on_runtime("lstm_sweep"),
              launches_family_paths=on_family("lstm_sweep"), launches_jax_files_paths=on_jax_files("lstm_sweep"),
+             launches_surface_paths=on_surface("lstm_sweep"),
              **{k: lstm["bf16"][k] for k in KEYS},
              ms_b256=lstm["bf16"]["ms_b256"], ms_b528=lstm["bf16"]["ms_b528"],
              ms_f32=lstm["f32"]["ms"], plan=lstm["bf16"]["plan"], **with_grad("lstm_sweep")),
@@ -4389,6 +4783,7 @@ def main() -> int:
              launches_session_paths=on_session("linear_stats"),
              launches_pipeline_paths=on_pipeline("linear_stats"), launches_runtime_paths=on_runtime("linear_stats"),
              launches_family_paths=on_family("linear_stats"), launches_jax_files_paths=on_jax_files("linear_stats"),
+             launches_surface_paths=on_surface("linear_stats"),
              at_xvect_sb=dict(at_shape(families["kernels"]["linear_stats_xvect_sb"]),
                               ms_f32=families["kernels"]["linear_stats_xvect_sb"]["f32"]["ms"]),
              **{k: stats["bf16"][k] for k in KEYS + STATS_KEYS}, ms_f32=stats["f32"]["ms"],
@@ -4398,6 +4793,7 @@ def main() -> int:
              launches_session_paths=on_session("attn_stats"),
              launches_pipeline_paths=on_pipeline("attn_stats"), launches_runtime_paths=on_runtime("attn_stats"),
              launches_family_paths=on_family("attn_stats"), launches_jax_files_paths=on_jax_files("attn_stats"),
+             launches_surface_paths=on_surface("attn_stats"),
              at_titanet=dict(at_shape(families["kernels"]["attn_stats_titanet"]),
                              ms_f32=families["kernels"]["attn_stats_titanet"]["f32"]["ms"]),
              **{k: attn["bf16"][k] for k in KEYS + STATS_KEYS}, ms_f32=attn["f32"]["ms"],
@@ -4407,6 +4803,7 @@ def main() -> int:
              launches_session_paths=on_session("se_res2"),
              launches_pipeline_paths=on_pipeline("se_res2"), launches_runtime_paths=on_runtime("se_res2"),
              launches_family_paths=on_family("se_res2"), launches_jax_files_paths=on_jax_files("se_res2"),
+             launches_surface_paths=on_surface("se_res2"),
              **{k: res2["bf16"][k] for k in KEYS}, ms_b8=res2["bf16"]["ms_b8"],
              device_ms=res2["bf16"]["device_ms"],
              ms_f32=res2["f32"]["ms"], by_launch=res2["bf16"]["by_launch"], **with_grad("se_res2"),
@@ -4418,14 +4815,14 @@ def main() -> int:
                              stages_checked=sum(res2[k]["stage"]["stages_checked"] for k in res2),
                              max_abs_err=max(res2[k]["stage"]["max_abs_err"] for k in res2),
                              library_ms=None)),
-        int8_entry(scaleout),
+        dict(int8_entry(scaleout), launches_surface_paths=on_surface("int8_conv")),
     ]
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(result, engines=runs, probes=probes, sessions=sessions, pipelines=pipelines,
                            pipelines_vs_cpu=pipe_cpu, session_tensor_blocks=session_tensors, runtime=runtime,
                            families=families, training=training, scaleout=scaleout, jax_files=jax_files,
-                           kernels=kernels), f, indent=1)
+                           surface=surface, kernels=kernels), f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s after start-up")
     log(f"gpu: {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -18,6 +18,9 @@ kernels. The package imports torch, numpy and scipy only — never jax or
 
 Entry points default to ``device="cuda"`` and raise without a GPU; pass
 ``device="cpu"`` to run every kernel's plain PyTorch version instead.
+:class:`Precision` is the numerics policy (``precision.py``; the
+``DIART_TPU_*`` variables of its switches override it, as in the JAX
+package).
 """
 
 from .blocks import (
@@ -35,6 +38,7 @@ from .parallel import (
     StepOutput,
     StreamState,
 )
+from .precision import Precision
 
 __all__ = [
     "CohortScheduler",
@@ -42,6 +46,7 @@ __all__ = [
     "HopTiming",
     "MultiStreamEngine",
     "MultiStreamSession",
+    "Precision",
     "SegmentationModel",
     "SpeakerDiarization",
     "SpeakerDiarizationConfig",

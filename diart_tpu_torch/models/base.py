@@ -27,7 +27,12 @@ to a CRC of the registry name) or, with ``flax_params=``, from the JAX
 package's parameter tree through
 :func:`diart_tpu_torch.weights.load_flax_params`.
 
-The wrappers default to ``device="cuda"`` and raise without a GPU. A
+The wrappers are lazy (:class:`LazyModel`, as the JAX package's): the
+``from_*`` constructors store a loader, and the module is built and placed
+on its device at first use (``load()``, ``to(device)``, ``eval()``, a
+call, or a property that needs it); ``with_dtype`` sets the compute dtype
+before or after the load; a pickled model carries its loader. They
+default to ``device="cuda"`` and raise without a GPU. A
 host-only model (its module has ``host_only = True``: the ONNX wrapper's
 contract) takes and returns numpy arrays and runs only through the
 pipelines, as in the JAX package.
@@ -35,10 +40,10 @@ pipelines, as in the JAX package.
 
 from __future__ import annotations
 
-import copy
 import inspect
 import json
 import zlib
+from copy import deepcopy
 from pathlib import Path
 from typing import Callable, Dict, Optional, Tuple
 
@@ -57,7 +62,7 @@ from .segmentation import PyanNet
 from .titanet import TitaNet
 from .xvect import XVectorFbank
 
-__all__ = ["EmbeddingModel", "SegmentationModel", "init_weights", "same_device"]
+__all__ = ["EmbeddingModel", "LazyModel", "SegmentationModel", "init_weights", "same_device"]
 
 TORCH_SUFFIXES = (".bin", ".pt", ".ckpt", ".safetensors")
 FLAX_SUFFIXES = (".msgpack", ".npz")
@@ -218,14 +223,15 @@ def same_device(a, b) -> bool:
     return current(a) == current(b)
 
 
-def _replica(module, device) -> nn.Module:
-    """A copy of ``module`` on ``device`` (its weights copied once)."""
+def _replica(module, device, copy: bool = True) -> nn.Module:
+    """A copy of ``module`` on ``device`` (its weights copied once), or with
+    ``copy=False`` the module itself moved there."""
     if not isinstance(module, nn.Module):
         raise TypeError(
-            f"{type(module).__name__} holds its own weights and cannot be replicated to another "
+            f"{type(module).__name__} holds its own weights and cannot be moved to another "
             f"device; build it there"
         )
-    return copy.deepcopy(module).to(device)
+    return (deepcopy(module) if copy else module).to(device)
 
 
 class _SegFn:
@@ -278,33 +284,296 @@ class _EmbFn:
         return self._head(frames, weights)
 
 
-def _build(module: nn.Module, name: str, device, seed: Optional[int], flax_params) -> nn.Module:
-    if flax_params is not None:
-        from ..weights import load_flax_params
+SEG_REGISTRY = ("tpu/pyannet", "tpu/pyannet-powerset")
+SEG_SIZES = ("num_speakers", "lstm_hidden", "lstm_layers", "linear_dims", "dtype")
+EMB_REGISTRY = {
+    "tpu/xvector": (XVectorSincNet, dict(embedding_dim=512)),
+    "tpu/ecapa": (EcapaTDNN, dict(embedding_dim=192, channels=512)),
+    "tpu/resnet34": (ResNet34, dict(embedding_dim=256, base_channels=32)),
+    "tpu/titanet": (TitaNet, dict(embedding_dim=192, channels=1024)),
+    "tpu/xvect-sb": (XVectorFbank, dict(
+        embedding_dim=512, num_mels=24,
+        tdnn_specs=((5, 1, 512), (3, 2, 512), (3, 3, 512), (1, 1, 512), (1, 1, 1500)))),
+}
 
-        load_flax_params(module, flax_params)
-    else:
-        gen = torch.Generator().manual_seed(_seed_from_name(name) if seed is None else int(seed))
-        init_weights(module, gen)
-    return _ready(module, device)
+
+def _check_registry(role: str, name: str, kwargs: dict) -> None:
+    """Raise for a registry name or a size argument the role does not know."""
+    if role == "segmentation":
+        if name not in SEG_REGISTRY:
+            raise ValueError(f"unknown segmentation registry name {name!r}; known: {list(SEG_REGISTRY)}")
+        _check_kwargs(name, kwargs, SEG_SIZES + (("max_simultaneous",) if name.endswith("powerset") else ()))
+        return
+    if name not in EMB_REGISTRY:
+        raise ValueError(f"unknown embedding registry name {name!r}; known: {list(EMB_REGISTRY)}")
+    _check_kwargs(name, kwargs, tuple(EMB_REGISTRY[name][1]) + ("dtype",))
 
 
-class SegmentationModel:
+def _seg_declared(name: str, kwargs: dict) -> Optional[Tuple[int, int]]:
+    """(num_speakers, max_simultaneous) of a powerset registry model, else
+    None."""
+    if name != "tpu/pyannet-powerset":
+        return None
+    return kwargs.get("num_speakers", 3), kwargs.get("max_simultaneous", 2)
+
+
+def _registry_module(role: str, name: str, kwargs: dict) -> nn.Module:
+    """The registry architecture ``name`` with its size arguments, on the
+    host, its weights not yet set."""
+    if role == "segmentation":
+        declared = _seg_declared(name, kwargs)
+        return PyanNet(
+            num_speakers=kwargs.get("num_speakers", 4) if declared is None else declared[0],
+            lstm_hidden=kwargs.get("lstm_hidden", 128),
+            lstm_layers=kwargs.get("lstm_layers", 4),
+            linear_dims=tuple(kwargs.get("linear_dims", (128, 128))),
+            compute_dtype=_dtype_kwarg(kwargs),
+            powerset_classes=0 if declared is None else num_powerset_classes(*declared),
+        )
+    cls, defaults = EMB_REGISTRY[name]
+    args = {k: kwargs.get(k, v) for k, v in defaults.items()}
+    if "tdnn_specs" in args:
+        args["tdnn_specs"] = tuple(tuple(spec) for spec in args["tdnn_specs"])
+    return cls(**args, compute_dtype=_dtype_kwarg(kwargs))
+
+
+class _Loader:
+    """What builds a model's module on the host: ``kind`` and its arguments.
+    Calling it gives (module, meta). It is what a model pickles (spawn
+    workers rebuild the module from it), so it holds names, paths, seeds and
+    a ``from_apply`` callable or a module passed in, never a built registry
+    or file module."""
+
+    def __init__(self, kind: str, *args):
+        self.kind = kind
+        self.args = args
+
+    def __call__(self) -> Tuple[object, dict]:
+        return getattr(self, f"_{self.kind}")(*self.args)
+
+    @staticmethod
+    def _held(module):
+        return module, {}
+
+    @staticmethod
+    def _registry(role: str, name: str, seed: Optional[int], flax_params, kwargs: dict):
+        module = _registry_module(role, name, kwargs)
+        if flax_params is not None:
+            from ..weights import load_flax_params
+
+            load_flax_params(module, flax_params)
+        else:
+            gen = torch.Generator().manual_seed(_seed_from_name(name) if seed is None else int(seed))
+            init_weights(module, gen)
+        return module, {}
+
+    @staticmethod
+    def _file(path: str, default_cls: str):
+        module, config = _load_file(path, MODULE_CLASSES[default_cls])
+        return module, {"powerset": config.get("powerset")}
+
+    @staticmethod
+    def _torch_seg(path: str, powerset):
+        from .convert import load_pyannet_checkpoint
+
+        return load_pyannet_checkpoint(path, powerset)
+
+    @staticmethod
+    def _torch_emb(path: str):
+        from .convert import load_embedding_checkpoint
+
+        return load_embedding_checkpoint(path)
+
+    @staticmethod
+    def _pyannote_seg(model, use_hf_token):
+        from .convert import load_pyannote_segmentation
+
+        return load_pyannote_segmentation(model, use_hf_token)
+
+    @staticmethod
+    def _pyannote_emb(model, use_hf_token):
+        from .convert import load_pyannote_embedding
+
+        return load_pyannote_embedding(model, use_hf_token)
+
+    @staticmethod
+    def _onnx(path: str, input_names, output_name: str):
+        from .onnx import ONNXModel
+
+        return ONNXModel(path, input_names, output_name), {}
+
+
+def _as_dtype(module, dtype: Optional[str]):
+    """``module`` computing in ``dtype`` ("bf16"/"f32"; None: as it is).
+    Modules without a ``compute_dtype`` (callables, ONNX) are left as they
+    are, as in the JAX package."""
+    if dtype is None or type(module).__name__ not in MODULE_CLASSES:
+        return module
+    if module.compute_dtype == _dtype_kwarg({"dtype": dtype}):
+        return module
+    return _with_dtype(module, dtype)
+
+
+def _place(module, device):
+    """An ``nn.Module`` on ``device``, for inference; anything else (a
+    callable holding its own weights, a host-only model) as it is."""
+    return _ready(module, device) if isinstance(module, nn.Module) else module
+
+
+class LazyModel:
+    """A model whose module is built at first use (port of the JAX
+    package's ``LazyModel``).
+
+    ``loader()`` gives (module on the host, meta); :meth:`load` calls it
+    and places the module on :attr:`device`. Every property and call that
+    needs the module loads it. A route that reads a source (a model file, a
+    torch checkpoint, a pyannote model, an ONNX file) reads and checks it on
+    the host when the model is made, so a bad source fails where it is
+    named, and keeps what it read for the first load; the registry and
+    ``from_apply`` routes build nothing until then. ``device`` is set at
+    construction (``require_cuda``: no GPU and no ``device="cpu"`` raises
+    there) and :meth:`to` moves it.
+
+    A pickled model carries its loader and not its module: spawn workers
+    (``Parallelize``) build it again on the same device, from the same
+    name and seed, file or callable. Changes made in place to a loaded
+    module (training) do not cross; a module passed to the constructor or
+    through ``from_apply`` crosses as it is."""
+
+    def __init__(self, loader: Callable[[], Tuple[object, dict]], name: str, device, staged=None):
+        self._loader = loader
+        self._staged = staged  # (module, meta) read at construction, until the first load
+        self._module = None
+        self.meta: Dict[str, object] = {}
+        self.name = name
+        self.device = torch.device(device)
+        self._pending_dtype: Optional[str] = None
+
+    def is_in_memory(self) -> bool:
+        """Whether the module is built and on its device."""
+        return self._module is not None
+
+    def load(self) -> "LazyModel":
+        """Build the module (once) and place it on :attr:`device`."""
+        if self._module is None:
+            self._load_on(self.device)
+        return self
+
+    def _load_on(self, device) -> None:
+        module, meta = self._staged if self._staged is not None else self._loader()
+        self._staged = None
+        self.meta = dict(meta)
+        if not (getattr(module, "host_only", False) or same_device(device, self.device)):
+            module = _replica(module, device, copy=False)
+            self.device = torch.device(device)
+        self._install(_place(_as_dtype(module, self._pending_dtype), self.device))
+
+    def _install(self, module) -> None:
+        self._module = module
+
+    @property
+    def module(self):
+        """The built module (loads the model)."""
+        return self.load()._module
+
+    def with_dtype(self, dtype) -> "LazyModel":
+        """Compute in ``dtype`` ("bf16"/"f32") whatever the model was made
+        with; the parameters stay f32. Before the load it applies at the
+        load, after it the module is rebuilt now. Modules without a compute
+        dtype (callables, ONNX) are unaffected."""
+        self._pending_dtype = "bf16" if _dtype_kwarg({"dtype": dtype}) == torch.bfloat16 else "f32"
+        if self._module is not None:
+            self._install(_place(_as_dtype(self._module, self._pending_dtype), self.device))
+        return self
+
+    def to(self, device=None) -> "LazyModel":
+        """Load the model and place it on ``device`` (diart's idiom; the
+        torch reading of the JAX package's ``to``). A host-only model stays
+        on the host; a callable holding its own weights cannot move."""
+        if device is None:
+            return self.load()
+        device = require_cuda(device)
+        if self._module is None:
+            self._load_on(device)
+        elif not (self.host_only or same_device(device, self.device)):
+            module = _replica(self._module, device, copy=False)
+            self.device = device
+            self._install(module)
+        return self
+
+    def eval(self) -> "LazyModel":
+        """Load the model (its module is always in inference mode)."""
+        return self.load()
+
+    def __getstate__(self):
+        """Pickle the loader, not the module (see the class docstring)."""
+        state = self.__dict__.copy()
+        state.update(_module=None, _staged=None, meta={})
+        return state
+
+    @property
+    def host_only(self) -> bool:
+        """Whether the model runs on the host (numpy in and out) and only
+        through the pipelines."""
+        return getattr(self.module, "host_only", False)
+
+    @property
+    def sample_rate(self) -> int:
+        return getattr(self.module, "sample_rate", 16000)
+
+    def save(self, path) -> None:
+        """The port's native file at ``path`` (see the module docstring)."""
+        _save_native(path, self.module, getattr(self, "_powerset", None))
+
+    def replicate(self, device) -> "LazyModel":
+        """This model on ``device``: itself where it lies there, else a
+        copy in memory."""
+        if same_device(device, self.device):
+            return self
+        return self._held(_replica(self.module, device), device)
+
+    def _held(self, module, device) -> "LazyModel":
+        raise NotImplementedError
+
+
+def _staged(loader: _Loader):
+    """Read a model's source now (see :class:`LazyModel`): (loader, what it
+    gave)."""
+    return loader, loader()
+
+
+class SegmentationModel(LazyModel):
     """waveform (B, 1, samples) -> activations (B, frames, speakers). A
     powerset model's class scores are decoded to speakers inside the call
     (one-hot of the argmax times the class -> speakers mapping), so every
-    caller, the engine included, sees speakers."""
+    caller, the engine included, sees speakers.
 
-    KNOWN = ("tpu/pyannet", "tpu/pyannet-powerset")
+    ``SegmentationModel(module, name, device, powerset)`` wraps a module
+    already built; the ``from_*`` constructors make lazy models (see
+    :class:`LazyModel`)."""
 
-    def __init__(self, module, name: str, device, powerset: Optional[Tuple[int, int]] = None):
-        self.module = module
-        self.name = name
-        self.device = torch.device(device)
+    KNOWN = SEG_REGISTRY
+
+    def __init__(self, module, name: str, device, powerset: Optional[Tuple[int, int]] = None,
+                 loader=None, staged=None):
+        super().__init__(_Loader("held", module) if loader is None else loader, name, device, staged)
         self._powerset = None if powerset is None else tuple(powerset)
         self._mapping = None
+        if loader is None:
+            self._install(module)
+
+    def _install(self, module) -> None:
+        self._module = module
+        if self._powerset is None and self.meta.get("powerset"):
+            self._powerset = tuple(self.meta["powerset"])
         if self._powerset is not None:
             self._mapping = torch.from_numpy(powerset_mapping(*self._powerset)).to(self.device)
+
+    def __getstate__(self):
+        return dict(super().__getstate__(), _mapping=None)
+
+    def _held(self, module, device) -> "SegmentationModel":
+        return SegmentationModel(module, self.name, device, self._powerset)
 
     @staticmethod
     def from_pretrained(model, use_hf_token=True, device="cuda", **kwargs) -> "SegmentationModel":
@@ -319,8 +588,8 @@ class SegmentationModel:
             return SegmentationModel.from_onnx(model)
         if _is_model_file(name):
             device = require_cuda(device)
-            module, config = _load_file(name, PyanNet)
-            return SegmentationModel(_ready(module, device), name, device, config.get("powerset"))
+            loader, staged = _staged(_Loader("file", name, "PyanNet"))
+            return SegmentationModel(None, name, device, loader=loader, staged=staged)
         if name.endswith(TORCH_SUFFIXES):
             return SegmentationModel.from_torch(model, powerset=powerset, device=device)
         if name.startswith("tpu/"):
@@ -335,7 +604,8 @@ class SegmentationModel:
         runs on ``device`` (it holds its own weights, so it takes no
         ``params``)."""
         device = require_cuda(device)
-        return SegmentationModel(_SegFn(apply_fn, num_speakers, sample_rate, device), "apply", device)
+        loader = _Loader("held", _SegFn(apply_fn, num_speakers, sample_rate, device))
+        return SegmentationModel(None, "apply", device, loader=loader)
 
     @staticmethod
     def from_registry(
@@ -344,26 +614,12 @@ class SegmentationModel:
         """``tpu/pyannet`` or ``tpu/pyannet-powerset`` with the JAX registry's
         size arguments (num_speakers, lstm_hidden, lstm_layers, linear_dims,
         dtype; the powerset model also max_simultaneous, and defaults to 3
-        speakers, at most 2 at once)."""
-        if name not in SegmentationModel.KNOWN:
-            raise ValueError(
-                f"unknown segmentation registry name {name!r}; known: {list(SegmentationModel.KNOWN)}"
-            )
-        powerset = name == "tpu/pyannet-powerset"
-        known = ("num_speakers", "lstm_hidden", "lstm_layers", "linear_dims", "dtype")
-        _check_kwargs(name, kwargs, known + (("max_simultaneous",) if powerset else ()))
+        speakers, at most 2 at once). The weights come from ``seed`` (a CRC
+        of the name by default) or ``flax_params`` at the first load."""
+        _check_registry("segmentation", name, kwargs)
         device = require_cuda(device)
-        num_speakers = kwargs.get("num_speakers", 3 if powerset else 4)
-        declared = (num_speakers, kwargs.get("max_simultaneous", 2)) if powerset else None
-        module = PyanNet(
-            num_speakers=num_speakers,
-            lstm_hidden=kwargs.get("lstm_hidden", 128),
-            lstm_layers=kwargs.get("lstm_layers", 4),
-            linear_dims=tuple(kwargs.get("linear_dims", (128, 128))),
-            compute_dtype=_dtype_kwarg(kwargs),
-            powerset_classes=num_powerset_classes(*declared) if powerset else 0,
-        )
-        return SegmentationModel(_build(module, name, device, seed, flax_params), name, device, declared)
+        loader = _Loader("registry", "segmentation", name, seed, flax_params, kwargs)
+        return SegmentationModel(None, name, device, _seg_declared(name, kwargs), loader=loader)
 
     @staticmethod
     def from_torch(path, powerset: Optional[Tuple[int, int]] = None, device="cuda") -> "SegmentationModel":
@@ -371,51 +627,38 @@ class SegmentationModel:
         (num_speakers, max_simultaneous) for a checkpoint whose classifier
         emits powerset classes (pyannote/segmentation-3.0 style) — a raw
         state dict cannot tell, so it must be declared."""
-        from .convert import load_pyannet_checkpoint
-
         device = require_cuda(device)
-        module, meta = load_pyannet_checkpoint(path, powerset)
-        return SegmentationModel(_ready(module, device), str(path), device, meta.get("powerset"))
+        loader, staged = _staged(_Loader("torch_seg", str(path), powerset))
+        return SegmentationModel(None, str(path), device, loader=loader, staged=staged)
 
     @staticmethod
     def from_pyannote(model, use_hf_token=True, device="cuda") -> "SegmentationModel":
         """A pyannote model name, through ``pyannote.audio`` (raises
         ImportError without it)."""
-        from .convert import load_pyannote_segmentation
-
         device = require_cuda(device)
-        module, meta = load_pyannote_segmentation(model, use_hf_token)
-        return SegmentationModel(_ready(module, device), str(model), device, meta.get("powerset"))
+        loader, staged = _staged(_Loader("pyannote_seg", model, use_hf_token))
+        return SegmentationModel(None, str(model), device, loader=loader, staged=staged)
 
     @staticmethod
     def from_onnx(model_path, input_name: str = "waveform", output_name: str = "segmentation"
                   ) -> "SegmentationModel":
         """An ONNX model on the host (needs ``onnxruntime``)."""
-        from .onnx import ONNXModel
-
-        return SegmentationModel(ONNXModel(model_path, [input_name], output_name), str(model_path), "cpu")
+        loader, staged = _staged(_Loader("onnx", str(model_path), [input_name], output_name))
+        return SegmentationModel(None, str(model_path), "cpu", loader=loader, staged=staged)
 
     @property
     def powerset(self) -> Optional[Tuple[int, int]]:
         """(num_speakers, max_simultaneous) when the model emits powerset
-        classes, else None."""
+        classes, else None (declared, or known once the model is loaded)."""
+        if self._powerset is None:
+            self.load()
         return self._powerset
 
     @property
-    def host_only(self) -> bool:
-        """Whether the model runs on the host (numpy in and out) and only
-        through the pipelines."""
-        return getattr(self.module, "host_only", False)
-
-    @property
     def num_speakers(self) -> int:
-        if self._powerset is not None:
+        if self.powerset is not None:
             return self._powerset[0]
         return getattr(self.module, "num_speakers", 4)
-
-    @property
-    def sample_rate(self) -> int:
-        return getattr(self.module, "sample_rate", 16000)
 
     def num_frames(self, num_samples: int) -> int:
         return self.module.num_frames(num_samples)
@@ -429,29 +672,24 @@ class SegmentationModel:
             out = to_multilabel(out, self._mapping)
         return out
 
-    def save(self, path) -> None:
-        """The port's native file at ``path`` (see the module docstring)."""
-        _save_native(path, self.module, self._powerset)
 
-    def replicate(self, device) -> "SegmentationModel":
-        """This model on ``device``: itself where it lies there, else a
-        copy."""
-        if same_device(device, self.device):
-            return self
-        return SegmentationModel(_replica(self.module, device), self.name, device, self._powerset)
-
-
-class EmbeddingModel:
+class EmbeddingModel(LazyModel):
     """Waveform + per-speaker weights -> embeddings, with a trunk/head split.
     Mel models (``fbank_ring_kind`` not None) also take the engine's raw
-    log-mel frames through :meth:`trunk_from_raw_fbank`."""
+    log-mel frames through :meth:`trunk_from_raw_fbank`.
 
-    KNOWN = ("tpu/ecapa", "tpu/resnet34", "tpu/titanet", "tpu/xvect-sb", "tpu/xvector")
+    ``EmbeddingModel(module, name, device)`` wraps a module already built;
+    the ``from_*`` constructors make lazy models (see :class:`LazyModel`)."""
 
-    def __init__(self, module, name: str, device):
-        self.module = module
-        self.name = name
-        self.device = torch.device(device)
+    KNOWN = tuple(sorted(EMB_REGISTRY))
+
+    def __init__(self, module, name: str, device, loader=None, staged=None):
+        super().__init__(_Loader("held", module) if loader is None else loader, name, device, staged)
+        if loader is None:
+            self._install(module)
+
+    def _held(self, module, device) -> "EmbeddingModel":
+        return EmbeddingModel(module, self.name, device)
 
     @staticmethod
     def from_pretrained(model, use_hf_token=True, device="cuda", **kwargs) -> "EmbeddingModel":
@@ -464,10 +702,9 @@ class EmbeddingModel:
             return EmbeddingModel.from_onnx(model)
         if _is_model_file(name):
             device = require_cuda(device)
-            module = _load_file(name, XVectorSincNet)[0]
-            if kwargs.get("dtype") is not None:
-                module = _with_dtype(module, kwargs["dtype"])
-            return EmbeddingModel(_ready(module, device), name, device)
+            loader, staged = _staged(_Loader("file", name, "XVectorSincNet"))
+            model = EmbeddingModel(None, name, device, loader=loader, staged=staged)
+            return model if kwargs.get("dtype") is None else model.with_dtype(kwargs["dtype"])
         if name.endswith(TORCH_SUFFIXES):
             return EmbeddingModel.from_torch(model, dtype=kwargs.get("dtype"), device=device)
         if name.startswith("tpu/"):
@@ -483,8 +720,8 @@ class EmbeddingModel:
         ``head(frames, weights (B, K, T)) -> (B, K, E)`` that run on
         ``device`` (they hold their own weights, so they take no
         ``params``)."""
-        return EmbeddingModel(_EmbFn(trunk_fn, head_fn, embedding_dim, sample_rate), "apply",
-                              require_cuda(device))
+        loader = _Loader("held", _EmbFn(trunk_fn, head_fn, embedding_dim, sample_rate))
+        return EmbeddingModel(None, "apply", require_cuda(device), loader=loader)
 
     @staticmethod
     def from_registry(
@@ -495,73 +732,41 @@ class EmbeddingModel:
         channels 512), ``tpu/resnet34`` (embedding_dim 256, base_channels
         32), ``tpu/titanet`` (embedding_dim 192, channels 1024) and
         ``tpu/xvect-sb`` (embedding_dim 512, num_mels 24, tdnn_specs); each
-        also takes ``dtype``."""
-        sizes = {
-            "tpu/xvector": (XVectorSincNet, dict(embedding_dim=512)),
-            "tpu/ecapa": (EcapaTDNN, dict(embedding_dim=192, channels=512)),
-            "tpu/resnet34": (ResNet34, dict(embedding_dim=256, base_channels=32)),
-            "tpu/titanet": (TitaNet, dict(embedding_dim=192, channels=1024)),
-            "tpu/xvect-sb": (XVectorFbank, dict(
-                embedding_dim=512, num_mels=24,
-                tdnn_specs=((5, 1, 512), (3, 2, 512), (3, 3, 512), (1, 1, 512), (1, 1, 1500)))),
-        }
-        if name not in sizes:
-            raise ValueError(
-                f"unknown embedding registry name {name!r}; known: {list(EmbeddingModel.KNOWN)}"
-            )
-        cls, defaults = sizes[name]
-        _check_kwargs(name, kwargs, tuple(defaults) + ("dtype",))
+        also takes ``dtype``. The weights come from ``seed`` (a CRC of the
+        name by default) or ``flax_params`` at the first load."""
+        _check_registry("embedding", name, kwargs)
         device = require_cuda(device)
-        args = {k: kwargs.get(k, v) for k, v in defaults.items()}
-        if "tdnn_specs" in args:
-            args["tdnn_specs"] = tuple(tuple(spec) for spec in args["tdnn_specs"])
-        module = cls(**args, compute_dtype=_dtype_kwarg(kwargs))
-        return EmbeddingModel(_build(module, name, device, seed, flax_params), name, device)
+        loader = _Loader("registry", "embedding", name, seed, flax_params, kwargs)
+        return EmbeddingModel(None, name, device, loader=loader)
 
     @staticmethod
     def from_torch(path, dtype=None, device="cuda") -> "EmbeddingModel":
         """A torch embedding checkpoint, converted (the layout is sniffed
         from its keys); ``dtype`` ("bf16"/"f32") sets the trunk's compute
         dtype, the parameters stay f32."""
-        from .convert import load_embedding_checkpoint
-
         device = require_cuda(device)
-        module, _ = load_embedding_checkpoint(path)
-        if dtype is not None:
-            module = _with_dtype(module, dtype)
-        return EmbeddingModel(_ready(module, device), str(path), device)
+        loader, staged = _staged(_Loader("torch_emb", str(path)))
+        model = EmbeddingModel(None, str(path), device, loader=loader, staged=staged)
+        return model if dtype is None else model.with_dtype(dtype)
 
     @staticmethod
     def from_pyannote(model, use_hf_token=True, device="cuda") -> "EmbeddingModel":
         """A pyannote model name, through ``pyannote.audio`` (raises
         ImportError without it)."""
-        from .convert import load_pyannote_embedding
-
         device = require_cuda(device)
-        return EmbeddingModel(_ready(load_pyannote_embedding(model, use_hf_token)[0], device),
-                              str(model), device)
+        loader, staged = _staged(_Loader("pyannote_emb", model, use_hf_token))
+        return EmbeddingModel(None, str(model), device, loader=loader, staged=staged)
 
     @staticmethod
     def from_onnx(model_path, input_names=None, output_name: str = "embedding") -> "EmbeddingModel":
         """An ONNX model on the host (needs ``onnxruntime``)."""
-        from .onnx import ONNXModel
-
-        module = ONNXModel(model_path, input_names or ["waveform", "weights"], output_name)
-        return EmbeddingModel(module, str(model_path), "cpu")
-
-    @property
-    def host_only(self) -> bool:
-        """Whether the model runs on the host (numpy in and out) and only
-        through the pipelines."""
-        return getattr(self.module, "host_only", False)
+        loader, staged = _staged(_Loader("onnx", str(model_path), input_names or ["waveform", "weights"],
+                                         output_name))
+        return EmbeddingModel(None, str(model_path), "cpu", loader=loader, staged=staged)
 
     @property
     def embedding_dim(self) -> int:
         return getattr(self.module, "embedding_dim", 512)
-
-    @property
-    def sample_rate(self) -> int:
-        return getattr(self.module, "sample_rate", 16000)
 
     @property
     def fbank_ring_kind(self) -> Optional[str]:
@@ -595,14 +800,3 @@ class EmbeddingModel:
     @torch.no_grad()
     def head(self, frames: torch.Tensor, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.module.head(frames, weights)
-
-    def save(self, path) -> None:
-        """The port's native file at ``path`` (see the module docstring)."""
-        _save_native(path, self.module)
-
-    def replicate(self, device) -> "EmbeddingModel":
-        """This model on ``device``: itself where it lies there, else a
-        copy."""
-        if same_device(device, self.device):
-            return self
-        return EmbeddingModel(_replica(self.module, device), self.name, device)

@@ -20,6 +20,7 @@ __all__ = [
     "QuantizableConv",
     "attentive_stats_pool",
     "held_operands",
+    "int8_trunk_enabled",
     "reflect_pad_time",
     "resample_weights",
     "trained",
@@ -62,6 +63,13 @@ def resample_weights(weights: torch.Tensor, num_frames: int) -> torch.Tensor:
         return weights
     idx = torch.arange(num_frames, device=weights.device) * src // num_frames
     return weights.index_select(-1, idx)
+
+
+def int8_trunk_enabled(device) -> bool:
+    """Whether the dynamic int8 trunk (``ops/quant.py``) applies to tensors
+    on ``device``: off by default (it changes the embeddings), on with
+    ``Precision(int8_trunk=True)`` or ``DIART_TPU_INT8_TRUNK=1``."""
+    return precision_policy.enabled("int8_trunk", device)
 
 
 class QuantizableConv(nn.Module):
@@ -110,7 +118,7 @@ class QuantizableConv(nn.Module):
 
     def int8(self, x: torch.Tensor) -> bool:
         """Whether a call on ``x`` takes the int8 path."""
-        return self.quantizable and precision_policy.enabled("int8_trunk", x.device)
+        return self.quantizable and int8_trunk_enabled(x.device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype

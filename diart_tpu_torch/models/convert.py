@@ -43,10 +43,16 @@ from .xvect import XVectorFbank
 
 __all__ = [
     "ecapa_params_from_state_dict",
+    "load_ecapa_checkpoint",
     "load_embedding_checkpoint",
     "load_pyannet_checkpoint",
     "load_pyannote_embedding",
     "load_pyannote_segmentation",
+    "load_resnet_checkpoint",
+    "load_titanet_checkpoint",
+    "load_xvect_sb_checkpoint",
+    "load_xvector_checkpoint",
+    "load_xvector_checkpoint_from_sd",
     "pyannet_params_from_state_dict",
     "resnet_params_from_state_dict",
     "titanet_params_from_state_dict",
@@ -551,9 +557,35 @@ def load_pyannet_checkpoint(path: Union[str, Path], powerset=None) -> Loaded:
     return _loaded(module, pyannet_params_from_state_dict(sd, module.lstm_layers), meta)
 
 
-def _load_xvector_from_sd(sd: Dict[str, Any], source: str) -> Loaded:
+def load_xvector_checkpoint_from_sd(sd: Dict[str, Any], source: str = "") -> Loaded:
+    """A pyannote XVectorSincNet state dict -> (module, meta)."""
     module = XVectorSincNet(embedding_dim=int(_np(sd["embedding.weight"]).shape[0]))
     return _loaded(module, xvector_params_from_state_dict(sd), {"source": source})
+
+
+def load_xvector_checkpoint(path: Union[str, Path]) -> Loaded:
+    """A pyannote XVectorSincNet checkpoint -> (module, meta)."""
+    return load_xvector_checkpoint_from_sd(_load_torch_state_dict(path), str(path))
+
+
+def load_ecapa_checkpoint(path: Union[str, Path]) -> Loaded:
+    """A speechbrain ECAPA-TDNN checkpoint -> (module, meta)."""
+    return _load_ecapa_from_sd(_load_torch_state_dict(path), str(path))
+
+
+def load_xvect_sb_checkpoint(path: Union[str, Path]) -> Loaded:
+    """A speechbrain fbank Xvector checkpoint -> (module, meta)."""
+    return _load_xvect_sb_from_sd(_load_torch_state_dict(path), str(path))
+
+
+def load_resnet_checkpoint(path: Union[str, Path]) -> Loaded:
+    """A wespeaker ResNet34 checkpoint -> (module, meta)."""
+    return _load_resnet_from_sd(_load_torch_state_dict(path), str(path))
+
+
+def load_titanet_checkpoint(path: Union[str, Path]) -> Loaded:
+    """A NeMo TitaNet checkpoint -> (module, meta)."""
+    return _load_titanet_from_sd(_load_torch_state_dict(path), str(path))
 
 
 def _load_ecapa_from_sd(sd: Dict[str, Any], source: str) -> Loaded:
@@ -622,7 +654,7 @@ def load_embedding_checkpoint(path: Union[str, Path]) -> Loaded:
         return _load_xvect_sb_from_sd(sd, source)
     if "fc.conv.weight" in sd or "blocks.0.conv.conv.weight" in sd:
         return _load_ecapa_from_sd(sd, source)
-    return _load_xvector_from_sd(sd, source)
+    return load_xvector_checkpoint_from_sd(sd, source)
 
 
 def _require_pyannote():
@@ -656,4 +688,4 @@ def load_pyannote_embedding(model, use_hf_token=True) -> Loaded:
     """A pyannote embedding model name -> (module, meta), through
     ``pyannote.audio``."""
     net = _require_pyannote().from_pretrained(model, use_auth_token=use_hf_token)
-    return _load_xvector_from_sd(net.state_dict(), str(model))
+    return load_xvector_checkpoint_from_sd(net.state_dict(), str(model))

@@ -1,5 +1,7 @@
 """Log-mel filterbank frontends (port of ``diart_tpu/models/fbank.py``):
-the speechbrain, kaldi and nemo kinds, direct and incremental.
+the generic one (:func:`log_mel_filterbank`: Hann window, floor-bin mel
+triangles, ``log(mel + eps)``) and the speechbrain, kaldi and nemo kinds,
+direct and incremental.
 
 Framing, windowing and the DFT run as one strided convolution whose basis
 (cosine rows, then sine rows, with the window and any per-frame linear map
@@ -46,7 +48,10 @@ __all__ = [
     "kaldi_log_mel",
     "kaldi_mel_matrix",
     "librosa_mel_matrix",
+    "log_mel_filterbank",
+    "mel_filter_matrix",
     "nemo_log_mel",
+    "num_fbank_frames",
     "speechbrain_log_mel",
     "speechbrain_mel_matrix",
 ]
@@ -62,6 +67,34 @@ def _hz_to_mel(hz):
 
 def _mel_to_hz(mel):
     return 700.0 * (10.0 ** (np.asarray(mel) / 2595.0) - 1.0)
+
+
+@lru_cache(maxsize=None)
+def mel_filter_matrix(
+    num_mels: int = 80,
+    n_fft: int = 400,
+    sample_rate: int = 16000,
+    f_min: float = 0.0,
+    f_max: float = None,
+) -> np.ndarray:
+    """Triangular mel filterbank over FFT bins rounded down from the mel
+    points, (num_mels, n_fft // 2 + 1)."""
+    f_max = f_max or sample_rate / 2
+    hz_points = _mel_to_hz(np.linspace(_hz_to_mel(f_min), _hz_to_mel(f_max), num_mels + 2))
+    bins = np.floor((n_fft + 1) * hz_points / sample_rate).astype(int)
+    filters = np.zeros((num_mels, n_fft // 2 + 1), np.float32)
+    for m in range(1, num_mels + 1):
+        left, center, right = bins[m - 1], bins[m], bins[m + 1]
+        for k in range(left, center):
+            filters[m - 1, k] = (k - left) / (center - left)
+        for k in range(center, right):
+            filters[m - 1, k] = (right - k) / (right - center)
+    return filters
+
+
+def num_fbank_frames(num_samples: int, n_fft: int = 400, hop: int = 160) -> int:
+    """Frames of :func:`log_mel_filterbank` (no padding: whole frames only)."""
+    return (num_samples - n_fft) // hop + 1
 
 
 @lru_cache(maxsize=None)
@@ -152,6 +185,12 @@ def _dft_rows(dft_size: int, taps: np.ndarray, bins: int, offset: int = 0):
     n = (offset + np.arange(len(taps)))[None, :].astype(np.float64)
     ang = 2.0 * np.pi * k * n / dft_size
     return np.cos(ang) * taps[None, :], np.sin(ang) * taps[None, :]
+
+
+@lru_cache(maxsize=None)
+def _hann_basis(n_fft: int) -> np.ndarray:
+    cos_r, sin_r = _dft_rows(n_fft, np.hanning(n_fft), n_fft // 2 + 1)
+    return np.concatenate([cos_r, sin_r], 0).astype(np.float32)
 
 
 @lru_cache(maxsize=None)
@@ -257,6 +296,22 @@ def _mel_db(power: torch.Tensor, mel: np.ndarray, amin: float = 1e-10) -> torch.
     """10 log10 of the mel energies of ``power``, floored at ``amin`` —
     speechbrain's cached (pre top_db) stage."""
     return 10.0 * torch.log10(torch.clamp(_mel(power, mel), min=amin))
+
+
+def log_mel_filterbank(
+    waveform: torch.Tensor,
+    num_mels: int = 80,
+    n_fft: int = 400,
+    hop: int = 160,
+    sample_rate: int = 16000,
+    eps: float = 1e-10,
+) -> torch.Tensor:
+    """(B, samples) -> (B, frames, num_mels) log-mel energies: whole frames
+    (no padding) under a symmetric Hann window, the power spectrum through
+    the DFT convolution, :func:`mel_filter_matrix`'s triangles and
+    ``log(mel + eps)``, in true f32 on the waveform's device."""
+    power = _dft_power(waveform, _hann_basis(n_fft), hop)
+    return torch.log(_mel(power, mel_filter_matrix(num_mels, n_fft, sample_rate)) + eps)
 
 
 def speechbrain_log_mel(

@@ -25,6 +25,7 @@ import numpy as np
 __all__ = [
     "build",
     "build_wavio",
+    "native_available",
     "rttm_available",
     "rttm_from_bits",
     "rttm_from_scores",
@@ -114,6 +115,16 @@ def _load() -> ctypes.CDLL:
         lib.rttm_free.restype = None
         _lib = lib
         return _lib
+
+
+def native_available() -> bool:
+    """Whether the RTTM assembler builds and loads (False where no compiler
+    builds it; :func:`rttm_available` raises there instead)."""
+    try:
+        _load()
+    except (OSError, RuntimeError):
+        return False
+    return True
 
 
 def rttm_available() -> bool:

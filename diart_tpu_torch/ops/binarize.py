@@ -13,6 +13,8 @@ package's float operation order.
 
 from __future__ import annotations
 
+import sys
+import types
 from typing import Optional
 
 import numpy as np
@@ -160,3 +162,15 @@ def _batch_rttm_from_active(
         out.append(_rttm_lines(uris[i], starts[lo:hi], ends[lo:hi], on_spk[lo:hi]))
         lo = hi
     return out
+
+
+class _CallableModule(types.ModuleType):
+    """This module, callable as :func:`binarize`: ``diart_tpu_torch.ops``
+    exports ``binarize`` as the JAX package's ``diart_tpu.ops`` does (the
+    function), and the name stays this module for its other routes."""
+
+    def __call__(self, *args, **kwargs):
+        return binarize(*args, **kwargs)
+
+
+sys.modules[__name__].__class__ = _CallableModule

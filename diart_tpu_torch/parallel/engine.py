@@ -354,6 +354,12 @@ class MultiStreamEngine:
         )
 
     @property
+    def cluster_params(self) -> ClusteringParams:
+        """The clustering thresholds the next step reads (tau_active,
+        rho_update, delta_new), as 0-d tensors on the engine's device."""
+        return ClusteringParams(*self._hparams[:3])
+
+    @property
     def gamma(self) -> float:
         return float(self._hparams[3])
 

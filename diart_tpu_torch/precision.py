@@ -28,6 +28,20 @@ switches resolve to off off the TPU; ``fbank_ring``, ``int8_trunk`` and
 ``stack_frontend`` are not TPU-only there and apply on every device here
 too.
 
+:func:`enabled` resolves a switch as the JAX package does, in order: the
+device gate (the bf16 switches are off for CPU tensors whatever else
+says), then the switch's ``DIART_TPU_*`` environment variable where it is
+set (``DIART_TPU_BF16_LSTM``, ``DIART_TPU_BF16_FRONTEND``,
+``DIART_TPU_FBANK_RING``, ``DIART_TPU_INT8_TRUNK``,
+``DIART_TPU_STACK_FRONTEND``; ``0``, ``false``, ``off`` and the empty
+string mean off, anything else on), then the active policy.
+``use(policy, force=True)`` ignores the environment inside its scope. The
+JAX package's other variables (``DIART_TPU_PALLAS_*``,
+``DIART_TPU_LSTM_BLOCK``, ``DIART_TPU_LSTM_BLOCK_K``,
+``DIART_TPU_FAST_FBANK``, ``DIART_TPU_PHASED_RING``) name switches the
+port does not have and are not read: a kernel is not a switch here, so no
+variable routes a CUDA tensor to a plain version.
+
 ``Precision.parse`` reads the CLIs' ``--precision`` spec and
 ``set_default`` installs a policy for every thread (a :func:`use` scope is
 thread-local, and the server dispatches its hops on worker threads).
@@ -36,6 +50,7 @@ thread-local, and the server dispatches its hops on worker threads).
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 from contextlib import contextmanager
 from typing import Dict
@@ -77,7 +92,7 @@ class Precision:
             key = key.strip()
             if key not in known:
                 raise ValueError(f"unknown precision switch {key!r}; known: {sorted(known)}")
-            overrides[key] = value.strip().lower() not in ("0", "false", "off", "") if sep else True
+            overrides[key] = value.strip().lower() not in _OFF if sep else True
         return dataclasses.replace(Precision(), **overrides)
 
     @staticmethod
@@ -90,18 +105,35 @@ class Precision:
         return dataclasses.asdict(self)
 
     def resolved(self, device) -> Dict[str, bool]:
-        """The switches as they apply to tensors on ``device`` (the CUDA-only
-        ones off elsewhere); a checkpoint records these beside the declared
-        ones, so its numerics can be reproduced."""
-        with use(self):
-            return {f.name: enabled(f.name, device) for f in dataclasses.fields(self)}
+        """The switches as they apply to tensors on ``device`` (the device
+        gate and the environment applied); a checkpoint records these beside
+        the declared ones, so its numerics can be reproduced."""
+        return {name: _resolve(self, name, device) for name in _ENV_VARS}
 
 
+_ENV_VARS = {
+    "bf16_lstm": "DIART_TPU_BF16_LSTM",
+    "bf16_frontend": "DIART_TPU_BF16_FRONTEND",
+    "fbank_ring": "DIART_TPU_FBANK_RING",
+    "int8_trunk": "DIART_TPU_INT8_TRUNK",
+    "stack_frontend": "DIART_TPU_STACK_FRONTEND",
+}
 _CUDA_ONLY = frozenset(("bf16_lstm", "bf16_frontend"))
+_OFF = ("0", "false", "off", "")  # the spellings of off, in a spec and in a variable
 
 
 _DEFAULT = Precision()
 _STATE = threading.local()
+
+
+def _resolve(policy: Precision, field: str, device) -> bool:
+    if field in _CUDA_ONLY and torch.device(device).type != "cuda":
+        return False
+    if not getattr(_STATE, "force", False):
+        env = os.environ.get(_ENV_VARS[field])
+        if env is not None:
+            return env.strip().lower() not in _OFF
+    return bool(getattr(policy, field))
 
 
 def active() -> Precision:
@@ -117,20 +149,24 @@ def set_default(policy: Precision) -> None:
 
 
 def enabled(field: str, device) -> bool:
-    """Whether ``field`` applies to tensors on ``device``."""
-    policy = active()
-    if not hasattr(policy, field):
-        raise KeyError(f"unknown precision switch {field!r}")
-    on_device = field not in _CUDA_ONLY or torch.device(device).type == "cuda"
-    return on_device and bool(getattr(policy, field))
+    """Whether ``field`` applies to tensors on ``device`` (see the module
+    docstring for the order of resolution)."""
+    if field not in _ENV_VARS:
+        raise KeyError(f"unknown precision switch {field!r}; known: {sorted(_ENV_VARS)}")
+    return _resolve(active(), field, device)
 
 
 @contextmanager
-def use(policy: Precision):
-    """Scoped policy activation (thread-local)."""
-    prev = getattr(_STATE, "policy", None)
+def use(policy: Precision, force: bool = False):
+    """Scoped policy activation (thread-local). ``force=True`` also ignores
+    the ``DIART_TPU_*`` variables inside the scope; the previous policy and
+    force are restored on exit."""
+    prev_policy = getattr(_STATE, "policy", None)
+    prev_force = getattr(_STATE, "force", False)
     _STATE.policy = policy
+    _STATE.force = force
     try:
         yield policy
     finally:
-        _STATE.policy = prev
+        _STATE.policy = prev_policy
+        _STATE.force = prev_force

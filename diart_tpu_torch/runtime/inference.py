@@ -389,7 +389,9 @@ class Benchmark:
         # pinned: a sweep over distinct model configs replaces the slot each
         # time instead of accumulating every engine for the process
         # lifetime. The engine holds the precision policy it was built
-        # under, so the policy is part of the key.
+        # under, and resolves some of its switches at construction (the
+        # ``DIART_TPU_*`` variables included), so the policy and what it
+        # resolves to are part of the key.
         cache_key = (
             config.segmentation,
             None if is_vad else config.embedding,
@@ -401,6 +403,7 @@ class Benchmark:
             getattr(config, "normalize_embedding_weights", False),
             b,
             precision_policy.active(),
+            tuple(precision_policy.active().resolved(config.segmentation.device).items()),
         )
         engine = None
         if getattr(self, "_engine_cache", None) is not None:
@@ -538,11 +541,14 @@ class Parallelize:
     """Process-level fan-out of a Benchmark (``inference.py:435-559``).
 
     Workers start with ``spawn`` (CUDA does not survive a fork). The config
-    is pickled to each worker with torch's multiprocessing reductions, so
-    models on the card cross as CUDA IPC handles of the caller's weights
-    and every worker runs on the caller's device; models on the CPU cross
-    in shared memory. The caller's precision policy and TF32 switches
-    become each worker's, so a worker gives the caller's numbers. On the
+    is pickled to each worker with torch's multiprocessing reductions. A
+    model crosses as its loader (``LazyModel``: a registry name and seed, a
+    file), and each worker builds it on the caller's device at first use;
+    a module or callable passed in (``from_apply``, the constructor)
+    crosses as it is, as CUDA IPC handles of the caller's weights on the
+    card and in shared memory on the CPU. The caller's precision policy and
+    TF32 switches become each worker's (the ``DIART_TPU_*`` variables
+    cross with the environment), so a worker gives the caller's numbers. On the
     card the preferred scale-out is ``MultiStreamEngine``
     batching (``Benchmark(multi_stream=True)``); this class is kept for API
     parity.
