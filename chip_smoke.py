@@ -6,7 +6,7 @@ Run from the repository root with no arguments (``python3 chip_smoke.py``);
 
 Phases (any failure exits non-zero):
 
-1. Build the five hand-written kernels (``diart_tpu_torch/csrc/*.cu``, one
+1. Build the six hand-written kernels (``diart_tpu_torch/csrc/*.cu``, one
    ``nvcc`` each, in parallel) and print the card's name and power limit.
    Then, with torch's TF32 switches as a process gets them (no
    ``NVIDIA_TF32_OVERRIDE``; the script turns both off for every later
@@ -114,17 +114,29 @@ Phases (any failure exits non-zero):
    (its file equal to the in-process conversion) and the stream CLI with
    ``--powerset 3 2`` (its text equal to the in-process run).
 8. Training and tuning (``drive_training``): each kernel's
-   ``autograd.Function`` (the kernel forward, autograd through its plain
-   version backward) against autograd through the plain version at the
-   main paths' shapes with B=64, bf16 and f32: every input's gradient for a
-   seeded cotangent, the forward's, the backward's and the plain
-   backward's times; the trainers at full width on B=32 chunks of 5 s for
-   6 AdamW steps: ``tpu/pyannet`` with PIT-BCE (f32, lr 1e-3, random
+   ``autograd.Function`` (the kernel forward; the LSTM sweep's backward
+   kernel, the others' autograd through their plain versions) against
+   autograd through the plain version at the main paths' shapes with
+   B=64, bf16 and f32: every input's gradient for a seeded cotangent, the
+   forward's, the backward's and the plain backward's times. The sweep's
+   backward (``lstm_sweep_backward``: two batched products around the
+   kernel ``csrc/lstm_sweep_bwd.cu``) against its plain version on the card
+   at (293, 64, 128) and the trainer's B=32, bf16 and f32, and at other
+   sizes (one step, 600 streams, H = 20, 64, 256): the kernel's ms (CUDA
+   events) and device ms, the whole backward's ms and device launches, the
+   plain backward's, autograd through the plain forward (the backward it
+   replaces), cuDNN's LSTM backward (a yardstick), the bound and an argued
+   latency floor (``LSTM_BWD_STEP_FLOOR_CYCLES``). Then the trainers at
+   full width on B=32 chunks of 5 s for 6 AdamW steps, with the sweep's
+   plain forward and backward refused on CUDA tensors
+   (``plain_sweep_refused``: no autograd through the plain step loop):
+   ``tpu/pyannet`` with PIT-BCE (f32, lr 1e-3, random
    targets), ``tpu/xvector`` and ``tpu/ecapa`` with AAM-softmax (bf16
    trunks, lr 1e-5, 8 tone-plus-noise speakers): finite losses, the last
    below the first, every parameter's gradient finite and nonzero (SincNet
    and every LSTM layer's ``w_ih`` / ``w_hh``, every SE-Res2Block
-   parameter), each kernel's launches a step; the forward / backward /
+   parameter), each kernel's launches a step (segmentation: 4 sweeps and
+   4 backward kernels); the forward / backward /
    update split, device busy and idle share of a step; the trained model's
    engine equal to a fresh one loaded with its weights; one f32 step of
    each trainer on 2 samples against the CPU; 3 steps, a checkpoint and 3
@@ -206,7 +218,9 @@ Phases (any failure exits non-zero):
 12. Print ``{"kernels": [...]}`` (with each kernel's launches on the
    pipelines', the runtime's, the families', the training, phase 10's and
    phase 11's runs, and its gradient's error and times; ``int8_conv``'s at
-   every site) and, last, ``{"ok": true, "device": ...}``.
+   every site; ``lstm_sweep_bwd``'s launches a segmentation training step
+   and on phase 10's training steps, its error, times and bound) and,
+   last, ``{"ok": true, "device": ...}``.
 
 ``--families`` runs only the build and phase 7; ``--training`` only the
 build and phase 8; ``--scaleout`` only the build and phase 9
@@ -219,6 +233,10 @@ checks (with ``TREE``'s ``diart_tpu_torch``, its subprocess too).
 ``--step-timing [--root TREE]`` runs only the step timing of phase 4 (its
 sync check recorded, not fatal), importing ``diart_tpu_torch`` from
 ``TREE``: run it on two trees in the order A B B A to compare commits.
+``--engine-outputs NPZ [--root TREE]`` writes only the x-vector and ECAPA
+engines' outputs over phase 3's hops (B=64) with ``TREE``'s package, and
+``--compare-outputs A B`` holds two such files bitwise: the serving path
+of two commits, compared.
 
 The script imports only the port (never jax or diart_tpu) and exits
 non-zero without a GPU.
@@ -227,6 +245,7 @@ non-zero without a GPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -847,6 +866,7 @@ def launch_counters() -> dict:
 
     return {
         "lstm_sweep": lstm_sweep.lstm_sweep_tm,
+        "lstm_sweep_bwd": lstm_sweep.lstm_sweep_backward,
         "linear_stats": linear_stats.fused_linear_stats,
         "attn_stats": attn_stats.fused_attentive_stats,
         "se_res2": se_res2.fused_se_res2_block,
@@ -857,7 +877,7 @@ def launch_counters() -> dict:
 def path_launches(kind, lstm_layers: int) -> dict:
     """Each counted kernel's launches in one step or pipeline call of the
     path ``kind`` (``xvector``, ``ecapa`` or ``vad``)."""
-    return {"lstm_sweep": lstm_layers, "linear_stats": int(kind == "xvector"),
+    return {"lstm_sweep": lstm_layers, "lstm_sweep_bwd": 0, "linear_stats": int(kind == "xvector"),
             "attn_stats": int(kind == "ecapa"), "se_res2": 3 * int(kind == "ecapa"),
             "se_res2_staged": 0}
 
@@ -962,6 +982,37 @@ def drive_engine(emb, audio, out_dir):
     except Exception as exc:  # diagnostic only
         log(f"profiler unavailable: {type(exc).__name__}: {exc}")
     return run
+
+
+def engine_outputs(path):
+    """Each engine's aggregated and newest scores over HOPS hops of phase 3's
+    seeded audio at B=64 (f32 on the host), written to ``path`` (npz)."""
+    import torch
+
+    arrays = {}
+    for emb in ("xvector", "ecapa"):
+        engine = build_engine("cuda", B, emb)
+        audio = make_audio(np.random.default_rng(0), HOPS, B, 8000)
+        state = engine.init_state()
+        for i in range(HOPS):
+            state, out = engine.step(state, audio[i], run_mask=np.full(B, i + 1 >= WARMUP_HOPS))
+            arrays[f"{emb}_aggregated_{i}"] = out.aggregated.float().cpu().numpy()
+            arrays[f"{emb}_newest_{i}"] = out.newest.float().cpu().numpy()
+        del engine
+        torch.cuda.empty_cache()
+    np.savez(path, **arrays)
+    log(f"wrote {len(arrays)} arrays to {path}")
+
+
+def compare_outputs(a, b) -> bool:
+    """Two ``engine_outputs`` files bitwise: the same arrays, equal bits."""
+    x, y = np.load(a), np.load(b)
+    differ = {k: float(np.abs(x[k] - y[k]).max()) if k in y.files else "missing" for k in x.files
+              if k not in y.files or not np.array_equal(x[k], y[k])}
+    same = sorted(x.files) == sorted(y.files) and not differ
+    log(f"engine outputs {a} against {b}: {len(x.files) - len(differ)} of {len(x.files)} arrays bitwise equal "
+        f"({len(y.files)} in the second); differing: {differ or 'none'}")
+    return same
 
 
 def compare_cpu(emb, audio, which=("f32", "serving"), strict=True):
@@ -2341,7 +2392,7 @@ def family_launches(family) -> dict:
     the 4-layer PyanNet's sweeps, and the embedding's statistics kernel
     (TitaNet: attention statistics; XVector-SB and the x-vector beside the
     powerset model: the fused stats head; ResNet34: none)."""
-    return {"lstm_sweep": 4, "linear_stats": int(family in ("xvect-sb", "powerset")),
+    return {"lstm_sweep": 4, "lstm_sweep_bwd": 0, "linear_stats": int(family in ("xvect-sb", "powerset")),
             "attn_stats": int(family == "titanet"), "se_res2": 0, "se_res2_staged": 0}
 
 
@@ -2567,8 +2618,12 @@ RESUME_B = 8  # the checkpoint check's batch (3 + 3 steps against 6)
 # a Function's gradient is autograd through the plain version on the same
 # inputs, so it is the plain version's own; both sums of index_select's
 # backward (the reflect padding) use atomics on the card, so their order
-# may differ from run to run: within 1e-5 (f32) / 1e-2 (bf16: a flipped
-# rounding of a bf16 gradient is 2**-8 of it) of the largest gradient
+# may differ from run to run. The sweep's backward is its own kernel
+# (csrc/lstm_sweep_bwd.cu) with the plain version's rounding points: its
+# f32 sums run in another order, and it starts from the forward kernel's
+# output, whose bf16 roundings differ from the plain version's now and then
+# (LSTM_TOL). Within 1e-5 (f32) / 1e-2 (bf16: a flipped rounding of a bf16
+# gradient is 2**-8 of it) of the largest gradient
 KERNEL_GRAD_TOL = {"f32": 1e-5, "bf16": 1e-2}
 # card against CPU in f32, one step on 2 samples: the loss within 1e-4;
 # each gradient tensor norm-wise within 5e-2, or within 1e-6 of the
@@ -2582,12 +2637,13 @@ KERNEL_GRAD_TOL = {"f32": 1e-5, "bf16": 1e-2}
 # step is lr * g / (|g| + eps) for each entry, and where |g| is near eps
 # rounding noise moves it by up to lr either way.
 CPU_LOSS_TOL, CPU_GRAD_TOL = 1e-4, 5e-2
-# each counted kernel's launches in one training step (forward only: the
-# backward is the plain versions' autograd)
+# each counted kernel's launches in one training step: the forwards, and
+# the sweep's backward kernel (one a layer); the other kernels' backwards
+# are their plain versions' autograd
 TRAIN_LAUNCHES = {
-    "seg": dict(lstm_sweep=4, linear_stats=0, attn_stats=0, se_res2=0, se_res2_staged=0),
-    "xvector": dict(lstm_sweep=0, linear_stats=1, attn_stats=0, se_res2=0, se_res2_staged=0),
-    "ecapa": dict(lstm_sweep=0, linear_stats=0, attn_stats=1, se_res2=3, se_res2_staged=0),
+    "seg": dict(lstm_sweep=4, lstm_sweep_bwd=4, linear_stats=0, attn_stats=0, se_res2=0, se_res2_staged=0),
+    "xvector": dict(lstm_sweep=0, lstm_sweep_bwd=0, linear_stats=1, attn_stats=0, se_res2=0, se_res2_staged=0),
+    "ecapa": dict(lstm_sweep=0, lstm_sweep_bwd=0, linear_stats=0, attn_stats=1, se_res2=3, se_res2_staged=0),
 }
 TUNE_SECONDS = (10, 13, 16, 20)  # the tuning corpus, one file each
 TUNE_TRIALS = 3
@@ -2658,6 +2714,207 @@ def check_kernel_grads():
             del got_out, want_out, got, want
     torch.cuda.empty_cache()
     return out
+
+
+# The shortest dependent chain of one step of the backward kernel's walk
+# back through time that the instruction latencies allow, in cycles: the
+# barrier (~30), the first shared-memory load of the step's da (~30), the
+# product's 4H = 512-term sum as a tree of FMAs and adds (9 levels x 4),
+# the rounding to the stream dtype (8), dh and dc (3 dependent FMAs, 12),
+# da (2 multiplies, 8; the gates' sigmoid / tanh and tanh(c) do not depend
+# on the chain and are computed ahead), the shared-memory store until the
+# barrier sees it (~30). Phase A's chain is one FMA a step.
+LSTM_BWD_STEP_FLOOR_CYCLES = 154
+SWEEP_BWD_BATCHES = (B, TRAIN_B)  # the kernel checks' 64 streams, the trainer's 32 chunks
+# (T, B, H) off the main path: one step, the widest batch tile (8 rows, 600
+# streams), a width that is not a multiple of 32, the half width, and the
+# widest H (f32: most of W read through L2)
+SWEEP_BWD_CASES = [(1, 3, H), (37, 600, H), (21, 3, 20), (37, 9, 64), (21, 5, 256)]
+
+
+def sweep_bwd_inputs(time_, batch, dtype, cgen, hidden=H):
+    """A seeded sweep: the gate stream, w_hh at the scale of
+    kernel_grad_cases, the kernel forward's output and a cotangent."""
+    import torch
+    from diart_tpu_torch.ops import lstm_sweep
+
+    n = lambda *s: torch.randn(*s, generator=cgen, device="cuda")
+    proj = n(time_, 2, batch, 4 * hidden).to(dtype)
+    w_hh = n(2, 4 * hidden, hidden) * (0.3 / (hidden / 8) ** 0.5)
+    with torch.no_grad():
+        out = lstm_sweep.lstm_sweep_tm(proj, w_hh)
+    return proj, w_hh, out, n(time_, 2, batch, hidden).to(dtype)
+
+
+def kernel_only_ms(proj, w_hh, out, dout, iters=10):
+    """The backward kernel's launch alone (CUDA events around each launch;
+    its in-place input is refilled before each, outside the events)."""
+    import torch
+    from diart_tpu_torch.ops import lstm_sweep
+
+    w = w_hh.to(proj.dtype).float()
+    hr = lstm_sweep._prev_hidden(out)
+    pre = lstm_sweep._recurrent_products(hr, w)
+    wp = lstm_sweep.pack_backward_w(w_hh, proj.dtype)
+    work = torch.empty_like(pre)
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(iters + 1)]
+    for a, b in pairs:
+        work.copy_(pre)
+        a.record()
+        lstm_sweep._launch_backward(proj, work, dout, wp)
+        b.record()
+    torch.cuda.synchronize()
+    return float(np.mean([a.elapsed_time(b) for a, b in pairs[1:]]))
+
+
+def backward_profile(call, what, calls=5):
+    """A profile of ``calls`` backwards: their device rows, the kernel's
+    device ms a launch and the device launches of one backward (every row's
+    launches over the kernel's). Late in a long run the profiler loses some
+    calls' events, or all of them: then the readings are None (logged, not
+    measured); they are records, not checks."""
+    try:
+        rows = device_times(call, what, calls)
+    except AssertionError as exc:
+        log(f"  {exc}: the kernel's device ms and the backward's launches not measured")
+        return [], None, None
+    kernel = [r for r in rows if r[0].startswith("lstm_sweep_bwd_kernel")]
+    if not kernel:
+        log(f"  the profile of {what} holds no launch of the kernel: not measured ({rows})")
+        return rows, None, None
+    seen = kernel[0][2]  # the kernel's launches a call that the profile kept
+    return rows, kernel[0][1] / seen, round(sum(r[2] for r in rows) / seen)
+
+
+def check_sweep_backward():
+    """The sweep's backward on the card (``lstm_sweep_backward``: the bulk
+    products around the backward kernel) against its plain version
+    (``lstm_sweep_backward_reference`` on the same CUDA tensors, the kernel
+    forward's output and a seeded cotangent) at (293, B, 128) for B = 64
+    and the trainer's 32, bf16 and f32, within KERNEL_GRAD_TOL of the
+    largest gradient. At B = 64: the kernel's ms (CUDA events) and device
+    ms (profiler), the whole backward's ms and device launches, the plain
+    backward's ms, autograd through the plain forward (the backward before
+    the kernel), cuDNN's LSTM backward of the same (T, B, H) with 2H inputs
+    (a yardstick the port never calls), the bound and the argued latency
+    floor."""
+    import torch
+    from diart_tpu_torch.ops import lstm_sweep
+
+    out_rec = {}
+    for key, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        cgen = torch.Generator(device="cuda").manual_seed(17)
+        for batch in SWEEP_BWD_BATCHES:
+            proj, w_hh, out, dout = sweep_bwd_inputs(T_LSTM, batch, dtype, cgen)
+            got = lstm_sweep.lstm_sweep_backward(proj, w_hh, out, dout)
+            want = lstm_sweep.lstm_sweep_backward_reference(proj, w_hh, out, dout)
+            torch.cuda.synchronize()
+            scale = max(w.float().abs().max().item() for w in want)
+            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+            tol = KERNEL_GRAD_TOL[key] * scale
+            finite = all(torch.isfinite(g).all().item() for g in got)
+            again = lstm_sweep.lstm_sweep_backward(proj, w_hh, out, dout)
+            deterministic = bitwise_equal(got, again)
+            plan = lstm_sweep.backward_plan(batch, H, dtype, proj.device)
+            rec = dict(max_abs_err=err, tol=tol, grad_scale=scale, deterministic=deterministic, plan=plan)
+            log(f"lstm_sweep_bwd[{key}] T={T_LSTM} B={batch} H={H} plan={plan}: max_abs_err={err:.3e} "
+                f"(tol {tol:.3e} = {KERNEL_GRAD_TOL[key]:.0e} x the largest gradient {scale:.3e}); "
+                f"bitwise over two calls: {deterministic}")
+            if not (finite and err <= tol and deterministic):
+                raise AssertionError(f"lstm_sweep_bwd[{key}] B={batch} disagrees with its plain version")
+            if batch == B:
+                ms = kernel_only_ms(proj, w_hh, out, dout)
+                dev_rows, dev_ms, launches = backward_profile(
+                    lambda: lstm_sweep.lstm_sweep_backward(proj, w_hh, out, dout), f"lstm_sweep_bwd[{key}]")
+                whole_ms = time_ms(lambda: lstm_sweep.lstm_sweep_backward(proj, w_hh, out, dout), 10)
+                plain_ms = time_ms(lambda: lstm_sweep.lstm_sweep_backward_reference(proj, w_hh, out, dout), 2,
+                                   warmup=1)
+                leaves = [proj.detach().requires_grad_(True), w_hh.detach().requires_grad_(True)]
+                ref_out = lstm_sweep.lstm_sweep_reference(*leaves)
+                autograd_ms = time_ms(lambda: torch.autograd.grad(ref_out, leaves, dout, retain_graph=True), 2,
+                                      warmup=1)
+                del ref_out, leaves
+                # yardstick only: cuDNN's bidirectional LSTM backward over the
+                # same (T, B, H) with 2H inputs (layers 2-4 of PyanNet), data
+                # and weight gradients (w_ih's too: more than the sweep's)
+                lstm = torch.nn.LSTM(2 * H, H, bidirectional=True).to("cuda", dtype)
+                lstm.flatten_parameters()
+                xin = torch.randn(T_LSTM, batch, 2 * H, generator=cgen, device="cuda").to(dtype).requires_grad_(True)
+                y = lstm(xin)[0]
+                ycot = torch.randn(y.shape, generator=cgen, device="cuda").to(dtype)
+                lib_ms = time_ms(lambda: torch.autograd.grad(y, [xin, *lstm.parameters()], ycot, retain_graph=True),
+                                 10)
+                del lstm, xin, y, ycot
+                elt = proj.element_size()
+                gemm = 2.0 * T_LSTM * 2 * batch * 4 * H * H
+                # the kernel: proj, the recurrent products and dout read, da written, W read
+                k_bytes = proj.numel() * elt + 2 * proj.numel() * 4 + dout.numel() * elt + w_hh.numel() * elt
+                k_bound, k_by = bound_ms(k_bytes, gemm, "f32")
+                # the whole backward: proj, w_hh, out, dout read, dproj, dw_hh written; three
+                # f32 products (the recurrent products, the walk's, the weight gradient)
+                w_bytes = (2 * proj.numel() + 2 * out.numel()) * elt + 2 * w_hh.numel() * 4
+                w_bound, w_by = bound_ms(w_bytes, 3 * gemm, "f32")
+                floor_ms = T_LSTM * LSTM_BWD_STEP_FLOOR_CYCLES / sm_clock_hz() * 1e3
+                rec.update(ms=ms, device_ms=dev_ms,
+                           device_rows=[list(r) for r in dev_rows], backward_ms=whole_ms,
+                           backward_launches=launches, plain_ms=plain_ms, autograd_plain_ms=autograd_ms,
+                           library_ms=lib_ms, bound_ms=k_bound, bound_by=k_by, backward_bound_ms=w_bound,
+                           backward_bound_by=w_by, argued_latency_floor_ms=floor_ms)
+                log(f"lstm_sweep_bwd[{key}] B={batch}: kernel_ms={ms:.4f} (device "
+                    f"{rec['device_ms']}) bound_ms={k_bound:.5f} ({k_by}) argued latency_floor_ms={floor_ms:.4f} "
+                    f"({LSTM_BWD_STEP_FLOOR_CYCLES} cycles a step at the card's highest clock; not a "
+                    f"measurement); the whole backward {whole_ms:.4f} ms in {launches} device launches "
+                    f"(bound {w_bound:.5f}, {w_by}); plain backward {plain_ms:.3f} ms; autograd through the "
+                    f"plain forward {autograd_ms:.3f} ms; cuDNN LSTM backward (yardstick) {lib_ms:.4f} ms")
+                for name, dms, count in dev_rows:
+                    log(f"  {dms:9.4f} ms x{count:4.1f}  {name}")
+            out_rec.setdefault(key, {})[f"B{batch}"] = rec
+            del proj, w_hh, out, dout, got, want, again
+        cases = []
+        for time_, batch, hidden in SWEEP_BWD_CASES:
+            args = sweep_bwd_inputs(time_, batch, dtype, cgen, hidden)
+            got = lstm_sweep.lstm_sweep_backward(*args)
+            want = lstm_sweep.lstm_sweep_backward_reference(*args)
+            scale = max(w.float().abs().max().item() for w in want)
+            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+            plan = lstm_sweep.backward_plan(batch, hidden, dtype, args[0].device)
+            log(f"  lstm_sweep_bwd[{key}] T={time_} B={batch} H={hidden} plan={plan}: max_abs_err={err:.3e} "
+                f"(tol {KERNEL_GRAD_TOL[key] * scale:.3e})")
+            if not (all(torch.isfinite(g).all().item() for g in got) and err <= KERNEL_GRAD_TOL[key] * scale):
+                raise AssertionError(f"lstm_sweep_bwd[{key}] T={time_} B={batch} H={hidden} disagrees with its "
+                                     f"plain version")
+            cases.append(dict(T=time_, B=batch, H=hidden, max_abs_err=err, tol=KERNEL_GRAD_TOL[key] * scale,
+                              plan=plan))
+        out_rec[key]["cases"] = cases
+    torch.cuda.empty_cache()
+    return out_rec
+
+
+@contextlib.contextmanager
+def plain_sweep_refused():
+    """While open, the sweep's plain forward and plain backward raise on a
+    CUDA tensor: a training step on the card runs neither (no autograd
+    through the plain step loop)."""
+    import torch
+    from diart_tpu_torch.ops import lstm_sweep
+
+    names = ("lstm_sweep_reference", "lstm_sweep_backward_reference", "_bptt_reference")
+    saved = {n: getattr(lstm_sweep, n) for n in names}
+
+    def refuse(name, fn):
+        def guarded(*args):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                raise AssertionError(f"{name} ran on a CUDA tensor in a training step")
+            return fn(*args)
+        return guarded
+
+    for n, fn in saved.items():
+        setattr(lstm_sweep, n, refuse(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(lstm_sweep, n, fn)
 
 
 def seg_batch(batch, frames, gen, device):
@@ -2753,7 +3010,8 @@ def train_full_width(kind, model_dtype, launches_per_step, serve_probe):
             fn.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, loss = step(state, waves, targets)
+        with plain_sweep_refused():
+            state, loss = step(state, waves, targets)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         launches.append({k: fn.launches for k, fn in counters.items()})
@@ -2779,24 +3037,25 @@ def train_full_width(kind, model_dtype, launches_per_step, serve_probe):
     # one more step, split with CUDA events as train_step runs it
     module, ev = state.module, [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     opt.zero_grad(set_to_none=True)
-    ev[0].record()
-    if kind == "seg":
-        from diart_tpu_torch.train import pit_bce_loss
+    with plain_sweep_refused():
+        ev[0].record()
+        if kind == "seg":
+            from diart_tpu_torch.train import pit_bce_loss
 
-        loss = pit_bce_loss(module(waves), targets)
-    else:
-        from diart_tpu_torch.train import aam_softmax_loss
+            loss = pit_bce_loss(module(waves), targets)
+        else:
+            from diart_tpu_torch.train import aam_softmax_loss
 
-        loss = aam_softmax_loss(module(waves), targets, state.prototypes)
-    ev[1].record()
-    loss.backward()
-    ev[2].record()
-    opt.step()
-    ev[3].record()
-    torch.cuda.synchronize()
+            loss = aam_softmax_loss(module(waves), targets, state.prototypes)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
     split = dict(forward_ms=ev[0].elapsed_time(ev[1]), backward_ms=ev[1].elapsed_time(ev[2]),
                  update_ms=ev[2].elapsed_time(ev[3]))
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, plain_sweep_refused():
         t0 = time.perf_counter()
         state, _ = step(state, waves, targets)
         torch.cuda.synchronize()
@@ -2824,7 +3083,9 @@ def train_full_width(kind, model_dtype, launches_per_step, serve_probe):
         + f"; every one of {n_params} parameters has a finite nonzero gradient (smallest norms "
         + ", ".join(f"{n} {v:.2e}" for v, n in smallest) + f"); launches a step {launches[-1]}"
         + (f"; all {f1} SE-Res2Block parameters trained" if f1 else ""))
-    log(f"train[{kind}] step wall median {step_ms:.2f} ms (all: {', '.join(f'{w:.1f}' for w in walls)}); "
+    log(f"train[{kind}] step wall median {step_ms:.2f} ms (all: {', '.join(f'{w:.1f}' for w in walls)}"
+        + ("; with autograd through the plain step loop as the sweep's backward: 640-1157 ms on an H100 80GB HBM3"
+           if kind == "seg" else "") + "); "
         f"forward {split['forward_ms']:.2f} ms, backward {split['backward_ms']:.2f} ms, update "
         f"{split['update_ms']:.2f} ms; profiled step: wall {prof_wall:.2f} ms, device busy "
         f"{dev['device_busy_ms']:.2f} ms ({dev['kernels_per_step']:.0f} device launches), idle share "
@@ -2875,7 +3136,8 @@ def compare_trainer_cpu(kind):
             waves, targets = seg_batch(2, model.num_frames(TRAIN_SAMPLES), torch.Generator().manual_seed(4), device)
         else:
             waves, targets = speaker_batch(2, np.random.default_rng(4), device)
-        state, loss = step(state, waves, targets)
+        with plain_sweep_refused():
+            state, loss = step(state, waves, targets)
         grads = {n: g.detach().cpu() for n, g in named_grads(state)}
         params = {n: p.detach().cpu() for n, p in state.module.named_parameters()}
         if state.prototypes is not None:
@@ -2917,28 +3179,29 @@ def check_resume(tmp):
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        model, straight, _, step = trainer("seg", "cuda")
-        waves, targets = seg_batch(RESUME_B, model.num_frames(TRAIN_SAMPLES), torch.Generator().manual_seed(5),
-                                   "cuda")
-        losses = []
-        for _ in range(2 * 3):
-            straight, loss = step(straight, waves, targets)
-            losses.append(loss)
-        _, resumed, _, step2 = trainer("seg", "cuda")
-        for _ in range(3):
-            resumed, _ = step2(resumed, waves, targets)
-        path = save_train_state(os.path.join(tmp, "ckpt"), resumed)
-        _, again, _, step3 = trainer("seg", "cuda", seed=9)
-        again = restore_train_state(os.path.join(tmp, "ckpt"), again)
-        tail = []
-        for _ in range(3):
-            again, loss = step3(again, waves, targets)
-            tail.append(loss)
-        same_loss = all(torch.equal(a, b) for a, b in zip(tail, losses[3:]))
-        same_params = bitwise_equal(list(straight.module.state_dict().values()),
-                                    list(again.module.state_dict().values()))
-        diff = max((a - b).abs().max().item() for a, b in zip(straight.module.state_dict().values(),
-                                                               again.module.state_dict().values()))
+        with plain_sweep_refused():
+            model, straight, _, step = trainer("seg", "cuda")
+            waves, targets = seg_batch(RESUME_B, model.num_frames(TRAIN_SAMPLES), torch.Generator().manual_seed(5),
+                                       "cuda")
+            losses = []
+            for _ in range(2 * 3):
+                straight, loss = step(straight, waves, targets)
+                losses.append(loss)
+            _, resumed, _, step2 = trainer("seg", "cuda")
+            for _ in range(3):
+                resumed, _ = step2(resumed, waves, targets)
+            path = save_train_state(os.path.join(tmp, "ckpt"), resumed)
+            _, again, _, step3 = trainer("seg", "cuda", seed=9)
+            again = restore_train_state(os.path.join(tmp, "ckpt"), again)
+            tail = []
+            for _ in range(3):
+                again, loss = step3(again, waves, targets)
+                tail.append(loss)
+            same_loss = all(torch.equal(a, b) for a, b in zip(tail, losses[3:]))
+            same_params = bitwise_equal(list(straight.module.state_dict().values()),
+                                        list(again.module.state_dict().values()))
+            diff = max((a - b).abs().max().item() for a, b in zip(straight.module.state_dict().values(),
+                                                                   again.module.state_dict().values()))
     finally:
         torch.backends.cudnn.deterministic = prev
     log(f"checkpoint: 3 steps, {os.path.basename(path)} saved and restored into a fresh state, 3 more: "
@@ -3070,6 +3333,9 @@ def drive_training(out_dir):
         t0 = time.perf_counter()
         grads = check_kernel_grads()
         log(f"kernel gradients in {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        sweep_bwd = check_sweep_backward()
+        log(f"the sweep's backward kernel in {time.perf_counter() - t1:.1f} s")
         runs = {}
         # segmentation in f32 (the sweep's f32 stream, the f32 frontend); the
         # embedding trunks in bf16 under the serving policy, as the engines run
@@ -3087,8 +3353,8 @@ def drive_training(out_dir):
         t1 = time.perf_counter()
         tuning = drive_tuning(tmp)
         log(f"tuning in {time.perf_counter() - t1:.1f} s")
-        return dict(kernel_grads=grads, runs=runs, vs_cpu=vs_cpu, resume=resume, tuning=tuning,
-                    seconds=time.perf_counter() - t0)
+        return dict(kernel_grads=grads, sweep_bwd=sweep_bwd, runs=runs, vs_cpu=vs_cpu, resume=resume,
+                    tuning=tuning, seconds=time.perf_counter() - t0)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3917,7 +4183,7 @@ def jax_file_training(stored) -> dict:
     assert state.step == 2, state.step
     waves, targets = (torch.from_numpy(stored[k]).to("cuda") for k in ("train:waves", "train:targets"))
     counters = zeroed_counters()
-    with precision.use(f32_policy()):
+    with precision.use(f32_policy()), plain_sweep_refused():
         for _ in range(2):
             state, loss = train_step(lambda m, x: m(x), opt, state, waves, targets)
     launches = read_counters(counters)
@@ -3929,7 +4195,7 @@ def jax_file_training(stored) -> dict:
         f"(bound {bound:.1e}), loss {float(loss):.5f}, launches {launches}")
     if not err <= bound:
         raise AssertionError(f"jax_files[training]: {err} > {bound}")
-    require_launches("jax_files[training]", launches, ("lstm_sweep",))
+    require_launches("jax_files[training]", launches, ("lstm_sweep", "lstm_sweep_bwd"))
     return dict(max_abs_param_err=err, bound=bound, launches=launches)
 
 
@@ -4518,6 +4784,12 @@ KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # the statistics kernels' extra readings: prepared and raw operands, the
 # product alone (a yardstick, not the same function)
 STATS_KEYS = ("device_ms", "raw_operands_ms", "product_library_ms", "plan")
+# the sweep backward's extra readings, bf16 and f32 at B=64: the kernel's
+# device time, the whole backward (its time, device launches and bound),
+# autograd through the plain forward (the backward before the kernel), the
+# argued latency floor
+SWEEP_BWD_KEYS = ("device_ms", "backward_ms", "backward_launches", "backward_bound_ms", "autograd_plain_ms",
+                  "argued_latency_floor_ms", "plan")
 
 
 def main() -> int:
@@ -4526,7 +4798,12 @@ def main() -> int:
     parser.add_argument("--step-timing", action="store_true",
                         help="only time the step with host inputs (and its sync check), both engines")
     parser.add_argument("--root", default=None,
-                        help="with --step-timing or --tf32-default: import diart_tpu_torch from this tree (to compare two trees)")
+                        help="with --step-timing, --tf32-default or --engine-outputs: import diart_tpu_torch from this "
+                             "tree (to compare two trees)")
+    parser.add_argument("--engine-outputs", metavar="NPZ", default=None,
+                        help="only write the x-vector and ECAPA engines' outputs (B=64, phase 3's hops) to NPZ")
+    parser.add_argument("--compare-outputs", nargs=2, metavar=("A", "B"), default=None,
+                        help="only compare two --engine-outputs files bitwise")
     parser.add_argument("--families", action="store_true",
                         help="only build the kernels and run the families phase (7)")
     parser.add_argument("--training", action="store_true",
@@ -4578,6 +4855,18 @@ def main() -> int:
         f"resolves on the card to {Precision().resolved('cuda')}")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
+
+    if args.compare_outputs:
+        return 0 if compare_outputs(*args.compare_outputs) else 1
+    if args.engine_outputs:
+        import diart_tpu_torch
+
+        tf32_off()
+        log(f"engine outputs of {os.path.dirname(diart_tpu_torch.__file__)}")
+        _build.build()
+        engine_outputs(args.engine_outputs)
+        log(f"gpu: {smi}")
+        return 0
 
     if args.step_timing:
         import diart_tpu_torch
@@ -4757,6 +5046,7 @@ def main() -> int:
     # each kernel's gradient (bf16 at the top, as the main paths run; f32
     # beside it) and its launches a training step
     grads = training["kernel_grads"]
+    sweep_bwd = training["sweep_bwd"]
     on_training = lambda name: {k: r["launches_per_step"][name] for k, r in training["runs"].items()}
     grad_keys = ("grad_max_abs_err", "grad_tol", "bitwise", "forward_ms", "backward_ms", "plain_backward_ms")
     with_grad = lambda name: dict(**{k: grads[name]["bf16"][k] for k in grad_keys},
@@ -4778,6 +5068,14 @@ def main() -> int:
              **{k: lstm["bf16"][k] for k in KEYS},
              ms_b256=lstm["bf16"]["ms_b256"], ms_b528=lstm["bf16"]["ms_b528"],
              ms_f32=lstm["f32"]["ms"], plan=lstm["bf16"]["plan"], **with_grad("lstm_sweep")),
+        dict(name="lstm_sweep_bwd", route="cuda", source="diart_tpu_torch/csrc/lstm_sweep_bwd.cu",
+             replaces="diart_tpu/ops/pallas_lstm.py:303", launches=on_training("lstm_sweep_bwd")["seg"],
+             launches_training_steps=on_training("lstm_sweep_bwd"),
+             launches_jax_files_paths=on_jax_files("lstm_sweep_bwd"),
+             **{k: sweep_bwd["bf16"]["B64"][k] for k in KEYS}, ms_f32=sweep_bwd["f32"]["B64"]["ms"],
+             max_abs_err_f32=sweep_bwd["f32"]["B64"]["max_abs_err"],
+             max_abs_err_b32={d: sweep_bwd[d]["B32"]["max_abs_err"] for d in sweep_bwd},
+             **{k: {d: sweep_bwd[d]["B64"][k] for d in sweep_bwd} for k in SWEEP_BWD_KEYS}),
         dict(name="linear_stats", route="cuda", source="diart_tpu_torch/csrc/linear_stats.cu",
              replaces="diart_tpu/ops/pallas_stats.py:163", launches=xv["linear_stats"],
              launches_session_paths=on_session("linear_stats"),

@@ -81,39 +81,43 @@ def build_wavio(force: bool = False) -> Path:
     return _compile(_WAV_SRC, _WAV_LIB_PATH, "WAV decoder", force)
 
 
+def _declare_rttm(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of an RTTM assembler library (``rttm.cpp``'s
+    interface) on ``lib`` and return it."""
+    c_charpp = ctypes.POINTER(ctypes.c_char_p)
+    lib.rttm_from_bits.argtypes = [
+        ctypes.POINTER(ctypes.c_ubyte),  # bits
+        ctypes.c_long, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+        ctypes.POINTER(ctypes.c_double),  # window_starts
+        ctypes.c_double,                  # resolution
+        c_charpp,                         # uris
+        ctypes.POINTER(ctypes.c_ubyte),   # emit
+        ctypes.POINTER(ctypes.c_void_p),  # out
+        ctypes.POINTER(ctypes.c_long),    # out_len
+    ]
+    lib.rttm_from_bits.restype = ctypes.c_int
+    lib.rttm_from_scores.argtypes = [
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.c_long, ctypes.c_long, ctypes.c_long,
+        ctypes.POINTER(ctypes.c_double),
+        ctypes.c_double,
+        ctypes.c_float,
+        c_charpp,
+        ctypes.POINTER(ctypes.c_ubyte),
+        ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_long),
+    ]
+    lib.rttm_from_scores.restype = ctypes.c_int
+    lib.rttm_free.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_long]
+    lib.rttm_free.restype = None
+    return lib
+
+
 def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(str(build()))
-        c_charpp = ctypes.POINTER(ctypes.c_char_p)
-        lib.rttm_from_bits.argtypes = [
-            ctypes.POINTER(ctypes.c_ubyte),  # bits
-            ctypes.c_long, ctypes.c_long, ctypes.c_long, ctypes.c_long,
-            ctypes.POINTER(ctypes.c_double),  # window_starts
-            ctypes.c_double,                  # resolution
-            c_charpp,                         # uris
-            ctypes.POINTER(ctypes.c_ubyte),   # emit
-            ctypes.POINTER(ctypes.c_void_p),  # out
-            ctypes.POINTER(ctypes.c_long),    # out_len
-        ]
-        lib.rttm_from_bits.restype = ctypes.c_int
-        lib.rttm_from_scores.argtypes = [
-            ctypes.POINTER(ctypes.c_float),
-            ctypes.c_long, ctypes.c_long, ctypes.c_long,
-            ctypes.POINTER(ctypes.c_double),
-            ctypes.c_double,
-            ctypes.c_float,
-            c_charpp,
-            ctypes.POINTER(ctypes.c_ubyte),
-            ctypes.POINTER(ctypes.c_void_p),
-            ctypes.POINTER(ctypes.c_long),
-        ]
-        lib.rttm_from_scores.restype = ctypes.c_int
-        lib.rttm_free.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_long]
-        lib.rttm_free.restype = None
-        _lib = lib
+        if _lib is None:
+            _lib = _declare_rttm(ctypes.CDLL(str(build())))
         return _lib
 
 

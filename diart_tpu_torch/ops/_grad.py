@@ -6,7 +6,13 @@ reference formulation. The port does the same with a
 ``torch.autograd.Function`` per kernel: its forward launches the kernel
 and saves the raw inputs, its backward recomputes the plain PyTorch version
 under ``torch.enable_grad()`` and returns ``torch.autograd.grad`` of it
-(:func:`plain_vjp`).
+(:func:`plain_vjp`). The LSTM sweep is the exception: differentiating its
+plain version is a Python loop of T steps (some 13k launches a layer on
+the card), where XLA compiles the JAX package's scan and its VJP into one
+loop on the device. Its Function's backward is a walk back through time
+of its own (``lstm_sweep.lstm_sweep_backward``: a hand-written kernel on
+CUDA tensors, its plain version on CPU tensors) that gives the same
+gradient.
 
 Prepared operands (a kernel's layout of its parameters, made once per
 model) are cut off from autograd, so a call that trains takes the raw

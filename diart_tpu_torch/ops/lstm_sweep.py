@@ -5,10 +5,14 @@ time-major sweep over UNREVERSED projections, equal to its ``_tm_reference``.
 On a CUDA tensor it launches the hand-written kernel ``csrc/lstm_sweep.cu``
 (one persistent launch per call); on a CPU tensor it runs the plain
 step-by-step version below. There is no fallback between the two. Under
-autograd on a CUDA tensor the call is :class:`SweepFunction`: the kernel
-forward, autograd through the plain version backward (as the JAX
-package's ``custom_vjp``); the packed operand is cut off from autograd, so a
-trained ``w_hh`` goes in raw.
+autograd the call is :class:`SweepFunction`, whose backward is
+:func:`lstm_sweep_backward`: on a CUDA tensor the hand-written kernel
+``csrc/lstm_sweep_bwd.cu`` between two bulk products, on a CPU tensor its
+plain version :func:`lstm_sweep_backward_reference`. Both compute the
+gradient of :func:`lstm_sweep_reference` (what the JAX package's
+``custom_vjp`` takes of its ``lax.scan`` reference), with its rounding
+points. The packed operand is cut off from autograd, so a trained ``w_hh``
+goes in raw.
 
 The kernel reads ``w_hh`` in a layout of its own: :func:`pack_w_hh` makes it
 (:class:`SweepWeights`) and ``lstm_sweep_tm`` takes either the raw
@@ -35,14 +39,19 @@ from typing import NamedTuple, Optional, Union
 import torch
 
 from . import _build
-from ._grad import plain_vjp, refuse_trained_operands, wants_grad
+from ._grad import refuse_trained_operands, wants_grad
+from ._numerics import true_f32
 
 __all__ = [
     "SweepFunction",
     "SweepWeights",
+    "backward_plan",
     "launch_plan",
+    "lstm_sweep_backward",
+    "lstm_sweep_backward_reference",
     "lstm_sweep_reference",
     "lstm_sweep_tm",
+    "pack_backward_w",
     "pack_w_hh",
     "packed_gates",
     "unpack_w_hh",
@@ -194,23 +203,200 @@ def _launch(proj_t: torch.Tensor, packed: SweepWeights) -> torch.Tensor:
     return out
 
 
+# --------------------------------------------------------------------- #
+# The backward. Notation: r rounds to the stream dtype (the identity for
+# f32), W = float(r(w_hh[d])). Direction d visits step s at time t = s
+# (d = 0) or T - 1 - s (d = 1); the forward's step s computes the
+# pre-activation a_s = float(proj[t, d]) + r(h_{s-1}) W^T, and r(h_{s-1}) is
+# the stored ``out`` at the previous visited time (0 at s = 0). Walking s
+# down from T - 1, with e_T = 0 and dc_T = 0:
+#   dh_s = float(dout[t, d]) + e_{s+1},  e_s = float(r(da_s W))
+#   dc_s = dh_s o (1 - tanh^2 c_s) + dc_{s+1} f_{s+1}
+#   da_s = [dc_s g i(1-i), dc_s c_{s-1} f(1-f), dc_s i (1-g^2), dh_s tanh c_s o(1-o)]
+# then dproj[t, d] = r(da_s) and dw_hh[d] = r(sum_s da_s^T r(h_{s-1})),
+# summed in f32 and returned in w_hh's dtype: what autograd gives through
+# lstm_sweep_reference (its casts round the same terms). The recurrent
+# products r(h_{s-1}) W^T of every step and the weight gradient are one
+# batched product each, outside the recurrence; what is left, the walk
+# itself, is the kernel (its plain version: _bptt_reference).
+def _prev_hidden(out: torch.Tensor) -> torch.Tensor:
+    """(T, 2, B, H) stored outputs -> (2, T, B, H) f32: r(h) at each
+    direction's previous visited time, 0 at its first step."""
+    hr = out.new_zeros((2,) + tuple(out.shape[:1] + out.shape[2:]), dtype=torch.float32)
+    hr[0, 1:] = out[:-1, 0]
+    hr[1, :-1] = out[1:, 1]
+    return hr
+
+
+def _recurrent_products(hr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """r(h_{s-1}) W^T of every step: (2, T, B, H) f32 -> (2, T, B, 4H) f32."""
+    two, time, batch, hidden = hr.shape
+    return torch.bmm(hr.view(2, time * batch, hidden), w.transpose(1, 2)).view(2, time, batch, 4 * hidden)
+
+
+def _bptt_reference(proj_t: torch.Tensor, pre: torch.Tensor, dout: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """Plain version of the backward kernel: the walk back through time.
+
+    proj_t (T, 2, B, 4H) and dout (T, 2, B, H) in the stream dtype, pre
+    (2, T, B, 4H) f32 (:func:`_recurrent_products`), w_hh (2, 4H, H) raw ->
+    da (2, T, B, 4H) f32, the gradient of every pre-activation."""
+    hidden = proj_t.shape[-1] // 4
+    dt = proj_t.dtype
+    w = w_hh.to(dt).float()
+    steps = lambda x: torch.stack([x[0], x[1].flip(0)])  # natural time <-> step order
+    a = steps(proj_t.float().transpose(0, 1) + pre)  # (2, T, B, 4H), step order
+    g_out = steps(dout.float().transpose(0, 1))
+    i, f, g, o = (torch.sigmoid(a[..., :hidden]), torch.sigmoid(a[..., hidden:2 * hidden]),
+                  torch.tanh(a[..., 2 * hidden:3 * hidden]), torch.sigmoid(a[..., 3 * hidden:]))
+    c = [torch.zeros_like(g_out[:, 0])]
+    for s in range(a.shape[1]):  # the forward's cell states, c[s + 1] = c_s
+        c.append(f[:, s] * c[s] + i[:, s] * g[:, s])
+    e = dc_next = f_next = torch.zeros_like(c[0])
+    da = [None] * a.shape[1]
+    for s in reversed(range(a.shape[1])):
+        tc = torch.tanh(c[s + 1])
+        dh = g_out[:, s] + e
+        dc = dh * o[:, s] * (1 - tc * tc) + dc_next * f_next
+        da[s] = torch.cat([
+            dc * g[:, s] * (1 - i[:, s]) * i[:, s],
+            dc * c[s] * (1 - f[:, s]) * f[:, s],
+            dc * i[:, s] * (1 - g[:, s] * g[:, s]),
+            dh * tc * (1 - o[:, s]) * o[:, s],
+        ], dim=-1)
+        e = torch.bmm(da[s], w).to(dt).float()
+        dc_next, f_next = dc, f[:, s]
+    return steps(torch.stack(da, dim=1))
+
+
+def _gradients(da: torch.Tensor, hr: torch.Tensor, dt: torch.dtype, w_dtype: torch.dtype):
+    """(dproj (T, 2, B, 4H) in ``dt``, dw_hh (2, 4H, H) in ``w_dtype``)
+    from da (2, T, B, 4H) and r(h_{s-1}) (2, T, B, H), both f32."""
+    two, time, batch, gates4 = da.shape
+    dproj = torch.empty(time, 2, batch, gates4, dtype=dt, device=da.device)
+    dproj.copy_(da.transpose(0, 1))
+    dw = torch.bmm(da.view(2, time * batch, gates4).transpose(1, 2), hr.view(2, time * batch, -1))
+    return dproj, dw.to(dt).to(w_dtype)
+
+
+def _backward(proj_t, w_hh, out, dout, walk):
+    """The batched products around ``walk`` (the kernel or its plain
+    version), in true f32."""
+    hr = _prev_hidden(out)
+    with true_f32(proj_t.device):
+        pre = _recurrent_products(hr, w_hh.to(proj_t.dtype).float())
+        da = walk(proj_t, pre, dout.contiguous(), w_hh)
+        return _gradients(da, hr, proj_t.dtype, w_hh.dtype)
+
+
+def lstm_sweep_backward_reference(proj_t: torch.Tensor, w_hh: torch.Tensor, out: torch.Tensor,
+                                  dout: torch.Tensor):
+    """Plain version of the sweep's backward: (dproj_t, dw_hh), the gradient
+    of :func:`lstm_sweep_reference` at (proj_t, w_hh), whose output was
+    ``out``, against the cotangent ``dout``; an explicit walk back through
+    time with the forward's rounding points (see the note above)."""
+    return _backward(proj_t, w_hh, out, dout, _bptt_reference)
+
+
+def _bwd_signature(lib: ctypes.CDLL) -> None:
+    p, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.lstm_sweep_bwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.lstm_sweep_bwd_launch.restype = i
+    lib.lstm_sweep_bwd_plan.argtypes = [i, i, i, i, ip, ip]
+    lib.lstm_sweep_bwd_plan.restype = None
+
+
+def backward_plan(batch: int, hidden: int, dtype: torch.dtype, device) -> dict:
+    """The backward kernel's launch plan for a sweep of this size on
+    ``device``: batch rows per block and how many of w_hh's 4H rows sit in
+    shared memory (the rest is read through L2)."""
+    lib = _build.library("lstm_sweep_bwd", _bwd_signature)
+    bt, rows = ctypes.c_int(), ctypes.c_int()
+    lib.lstm_sweep_bwd_plan(batch, hidden, _DTYPES[dtype], _build.num_sms(device), bt, rows)
+    return {"rows_per_block": bt.value, "w_rows_in_shared": 4 * rows.value, "w_rows": 4 * hidden}
+
+
+def pack_backward_w(w_hh: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w_hh`` (2, 4H, H) laid out for the backward kernel, in ``dtype``:
+    (2, H, H, 4), ``[d][m // 4][j][m % 4] = w_hh[d][m][j]``, so the thread of
+    unit j reads four rows m of its column in one load."""
+    hidden = w_hh.shape[-1]
+    return w_hh.to(dtype).view(2, hidden, 4, hidden).permute(0, 1, 3, 2).contiguous()
+
+
+def _launch_backward(proj_t: torch.Tensor, pre: torch.Tensor, dout: torch.Tensor, wp: torch.Tensor):
+    """Launch the backward kernel on CUDA tensors (``wp`` from
+    :func:`pack_backward_w`): ``pre`` is overwritten with da and returned."""
+    time, _, batch, gates4 = proj_t.shape
+    hidden = gates4 // 4
+    lib = _build.library("lstm_sweep_bwd", _bwd_signature)
+    dev = proj_t.device
+    cells = torch.empty(2, time, batch, hidden, dtype=torch.float32, device=dev)  # c_s, phase A
+    with torch.cuda.device(dev):
+        err = lib.lstm_sweep_bwd_launch(
+            proj_t.data_ptr(), pre.data_ptr(), dout.data_ptr(), wp.data_ptr(), cells.data_ptr(),
+            time, batch, hidden, _DTYPES[proj_t.dtype], _build.num_sms(dev), _build.stream_handle(dev),
+        )
+    _build.check(lib, "lstm_sweep_bwd", err)
+    lstm_sweep_backward.launches += 1
+    return pre
+
+
+def lstm_sweep_backward(proj_t: torch.Tensor, w_hh: torch.Tensor, out: torch.Tensor, dout: torch.Tensor):
+    """The sweep's backward: (dproj_t, dw_hh) as
+    :func:`lstm_sweep_backward_reference` gives them. On CUDA tensors the
+    recurrent products of every step and the weight gradient are batched
+    products (in true f32) around ONE launch of the backward kernel
+    ``csrc/lstm_sweep_bwd.cu``; on CPU tensors, the plain version.
+
+    proj_t (T, 2, B, 4H) and out, dout (T, 2, B, H) in the stream dtype;
+    w_hh (2, 4H, H) raw."""
+    time, _, batch, gates4 = proj_t.shape
+    hidden = gates4 // 4
+    if proj_t.dtype not in _DTYPES or out.dtype != proj_t.dtype or dout.dtype != proj_t.dtype:
+        raise TypeError(f"stream dtype must be float32 or bfloat16 for proj_t, out and dout; got "
+                        f"{proj_t.dtype}, {out.dtype}, {dout.dtype}")
+    if (tuple(w_hh.shape) != (2, gates4, hidden) or tuple(out.shape) != (time, 2, batch, hidden)
+            or tuple(dout.shape) != tuple(out.shape)):
+        raise ValueError(f"shapes: proj_t {tuple(proj_t.shape)}, w_hh {tuple(w_hh.shape)}, "
+                         f"out {tuple(out.shape)}, dout {tuple(dout.shape)}")
+    if len({t.device for t in (proj_t, w_hh, out, dout)}) != 1:
+        raise ValueError("proj_t, w_hh, out and dout must be on the same device")
+    if proj_t.device.type == "cpu":
+        return lstm_sweep_backward_reference(proj_t, w_hh, out, dout)
+    if proj_t.device.type != "cuda":
+        raise ValueError(f"unsupported device {proj_t.device}")
+    if hidden > KERNEL_MAX_HIDDEN:
+        raise ValueError(f"the backward kernel takes H <= {KERNEL_MAX_HIDDEN}; got {hidden}")
+    if not proj_t.is_contiguous():
+        raise ValueError("proj_t must be contiguous")
+    return _backward(proj_t, w_hh, out, dout,
+                     lambda p, pre, d, w: _launch_backward(p, pre, d, pack_backward_w(w, p.dtype)))
+
+
+lstm_sweep_backward.launches = 0
+
+
 class SweepFunction(torch.autograd.Function):
     """The sweep with a gradient (``jax.custom_vjp`` of ``pallas_lstm.py``):
     the forward launches the kernel on CUDA tensors (the plain version on
-    CPU tensors) with ``packed``, or ``w_hh`` packed for the call; the
-    backward is autograd through :func:`lstm_sweep_reference` on the saved
-    ``proj_t`` and ``w_hh``."""
+    CPU tensors) with ``packed``, or ``w_hh`` packed for the call, and saves
+    its output; the backward is :func:`lstm_sweep_backward` (the backward
+    kernel on CUDA tensors, its plain version on CPU tensors)."""
 
     @staticmethod
     def forward(ctx, proj_t, w_hh, packed: Optional[SweepWeights] = None):
-        ctx.save_for_backward(proj_t, w_hh)
         if proj_t.device.type == "cpu":
-            return lstm_sweep_reference(proj_t, w_hh)
-        return _launch(proj_t, packed if packed is not None else pack_w_hh(w_hh, proj_t.dtype))
+            out = lstm_sweep_reference(proj_t, w_hh)
+        else:
+            out = _launch(proj_t, packed if packed is not None else pack_w_hh(w_hh, proj_t.dtype))
+        ctx.save_for_backward(proj_t, w_hh, out)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        return (*plain_vjp(ctx, lstm_sweep_reference, (grad,)), None)
+        proj_t, w_hh, out = ctx.saved_tensors
+        dproj, dw = lstm_sweep_backward(proj_t, w_hh, out, grad)
+        return (dproj if ctx.needs_input_grad[0] else None, dw if ctx.needs_input_grad[1] else None, None)
 
 
 def lstm_sweep_tm(proj_t: torch.Tensor, w_hh: Union[torch.Tensor, SweepWeights]) -> torch.Tensor:
@@ -243,16 +429,17 @@ def lstm_sweep_tm(proj_t: torch.Tensor, w_hh: Union[torch.Tensor, SweepWeights])
         raise ValueError("proj_t and w_hh must be on the same device")
     if packed is not None:
         refuse_trained_operands(packed, "the packed w_hh (SweepWeights)")
-    if proj_t.device.type == "cpu":
-        return lstm_sweep_reference(proj_t, unpack_w_hh(packed) if packed else w_hh)
-    if proj_t.device.type != "cuda":
+    if proj_t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {proj_t.device}")
-    if not proj_t.is_contiguous():
-        raise ValueError("proj_t must be contiguous")
-    if hidden > KERNEL_MAX_HIDDEN:
-        raise ValueError(f"the sweep kernel takes H <= {KERNEL_MAX_HIDDEN}; got {hidden}")
+    if proj_t.device.type == "cuda":
+        if not proj_t.is_contiguous():
+            raise ValueError("proj_t must be contiguous")
+        if hidden > KERNEL_MAX_HIDDEN:
+            raise ValueError(f"the sweep kernel takes H <= {KERNEL_MAX_HIDDEN}; got {hidden}")
     if wants_grad(proj_t, None if packed else w_hh):
         return SweepFunction.apply(proj_t, unpack_w_hh(packed) if packed else w_hh, packed)
+    if proj_t.device.type == "cpu":
+        return lstm_sweep_reference(proj_t, unpack_w_hh(packed) if packed else w_hh)
     return _launch(proj_t, packed if packed is not None else pack_w_hh(w_hh, proj_t.dtype))
 
 

@@ -11,11 +11,13 @@ The rest are the port's own equivalents of the JAX session tests
 (``tests/test_engine.py``, ``tests/test_tools.py``).
 """
 
+import ctypes
 import importlib
 import json
 import sys
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -289,21 +291,52 @@ def _native_case(rng, b, f, s, dense=False):
     return scores, starts, uris
 
 
-def _native_routes(scores, starts, res, tau, uris, emit=None):
+# diart_tpu's rttm.cpp, built apart from diart_tpu.native's own library:
+# that loader keeps its build state in module globals and compiles straight
+# into its final path, so under parallel test workers one of them can load
+# a half-written file and then return None for the rest of its life. The
+# port's atomic build (a temporary file, then os.replace) into this
+# module's own directory, loaded with the port's signature, is the JAX
+# package's C++ with no state shared with any other test.
+JAX_RTTM_SRC = Path(jax_native.__file__).resolve().parent / "rttm.cpp"
+
+
+@pytest.fixture(scope="module")
+def jax_rttm_lib(tmp_path_factory):
+    path = tmp_path_factory.mktemp("jax_rttm") / "librttm.so"
+    return native._declare_rttm(ctypes.CDLL(str(native._compile(JAX_RTTM_SRC, path, "RTTM assembler", True))))
+
+
+def _through(lib, fn, *args, **kw):
+    """``fn`` (one of the port's native calls) run on the library ``lib``."""
+    saved = native._lib
+    native._lib = lib
+    try:
+        return fn(*args, **kw)
+    finally:
+        native._lib = saved
+
+
+def _native_routes(scores, starts, res, tau, uris, jax_lib, emit=None):
     """Every route's texts: the port's native calls (scores and bits), the
-    JAX package's, and the numpy batch routes."""
+    same calls on diart_tpu's rttm.cpp, diart_tpu's numpy batch routes, and
+    the port's numpy batch routes (the reference)."""
     b, f, s = scores.shape
     packed = binarize.pack_binarized_bits(torch.from_numpy(scores), float(tau)).numpy()
     routes = {
         "port scores": native.rttm_from_scores(scores, starts, res, tau, uris, emit=emit),
         "port bits": native.rttm_from_bits(packed, f, s, starts, res, uris, emit=emit),
-        "jax scores": jax_native.rttm_from_scores(scores, starts, res, tau, uris, emit=emit),
-        "jax bits": jax_native.rttm_from_bits(packed, f, s, starts, res, uris, emit=emit),
+        "jax C++ scores": _through(jax_lib, native.rttm_from_scores, scores, starts, res, tau, uris, emit=emit),
+        "jax C++ bits": _through(jax_lib, native.rttm_from_bits, packed, f, s, starts, res, uris, emit=emit),
+        "jax numpy scores": jax_binarize.batch_binarize_rttm(scores, starts, res, tau, uris),
+        "jax numpy bits": jax_binarize.batch_bits_rttm(packed, f, s, starts, res, uris),
     }
     numpy_texts = binarize.batch_binarize_rttm(scores, starts, res, tau, uris)
     assert binarize.batch_bits_rttm(packed, f, s, starts, res, uris) == numpy_texts
     if emit is not None:
         numpy_texts = [t if e else None for t, e in zip(numpy_texts, emit)]
+        for name in ("jax numpy scores", "jax numpy bits"):  # the numpy routes emit every stream
+            routes[name] = [t if e else None for t, e in zip(routes[name], emit)]
     return routes, numpy_texts
 
 
@@ -355,15 +388,28 @@ NATIVE_CASES = {
 
 
 @pytest.mark.parametrize("case", list(NATIVE_CASES))
-def test_native_matches_jax_and_numpy(case):
+def test_native_matches_jax_and_numpy(case, jax_rttm_lib):
     for scores, starts, res, tau, uris, emit in NATIVE_CASES[case]():
-        routes, want = _native_routes(scores, starts, res, tau, uris, emit)
+        routes, want = _native_routes(scores, starts, res, tau, uris, jax_rttm_lib, emit)
         for name, got in routes.items():
             assert got == want, name
     if case == "strictly_greater":
         assert want[0].count("\n") == 1  # only the 0.9 run
     if case == "emit_mask_and_empty":
         assert want == [""]  # an all-inactive stream gives "", not None
+
+
+def test_native_parity_ignores_jax_native_state(monkeypatch, jax_rttm_lib):
+    """The comparison holds whatever diart_tpu.native's per-process build
+    state says: here it claims a failed build and holds no library."""
+    monkeypatch.setattr(jax_native, "_rttm_lib", None)
+    monkeypatch.setattr(jax_native, "_rttm_failed", True)
+    assert jax_native.rttm_from_scores(np.zeros((1, 4, 2), np.float32), np.zeros(1), RES, TAU, ["u"]) is None
+    for case in NATIVE_CASES.values():
+        for scores, starts, res, tau, uris, emit in case():
+            routes, want = _native_routes(scores, starts, res, tau, uris, jax_rttm_lib, emit)
+            for name, got in routes.items():
+                assert got == want, name
 
 
 def test_native_raises_without_compiler(monkeypatch, tmp_path):

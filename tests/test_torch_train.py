@@ -4,7 +4,9 @@ kernels' gradients) with diart_tpu's, on the CPU.
 The same numpy inputs go through both packages: the losses against
 ``diart_tpu.train``'s; each kernel's ``autograd.Function`` (on CPU tensors
 its forward is the plain version, its backward autograd through the plain
-version, as on the card) against ``jax.grad`` through the ``diart_tpu``
+version, as on the card; the LSTM sweep's backward is the plain version of
+its backward kernel, ``tests/test_torch_lstm_backward.py``) against
+``jax.grad`` through the ``diart_tpu``
 wrapper in Pallas interpret mode; the trainers' steps against JAX's jitted
 steps from the same weights (the flax init carried over by
 ``load_flax_params``). Then the port's own checkpoints and the trained
@@ -180,7 +182,7 @@ def test_sweep_function_grad_matches_jax():
     got = _grads_match(lambda p, w: lstm_sweep.SweepFunction.apply(p, w, None),
                        lambda p, w: jax_lstm_sweep_tm(p, w, interpret=True, block=0),
                        (proj, w_hh), cot, 1e-4, 1e-5)
-    # the wrapper's CPU route (autograd through the plain version) gives the same bits
+    # the wrapper's CPU route under grad mode (the same Function) gives the same bits
     p, w = _t(proj, w_hh, grad=True)
     lstm_sweep.lstm_sweep_tm(p, w).backward(torch.from_numpy(cot[0]))
     assert torch.equal(p.grad, got[0].grad) and torch.equal(w.grad, got[1].grad)
@@ -235,8 +237,13 @@ def test_se_res2_function_grad_matches_jax():
                  (x, *params), cot, 1e-4, 1e-5)
 
 
-# bf16 streams: the Function's backward is the plain version's autograd,
-# so it gives the bits of autograd through the plain version itself.
+# bf16 streams: the stats head's Function backward is the plain version's
+# autograd, so it gives the bits of autograd through the plain version
+# itself. The sweep's backward is a walk back through time of its own
+# (lstm_sweep_backward_reference) with the plain version's rounding
+# points; at this size (H = 8) its batched products give the per-step
+# products' bits, so it too is held bitwise here (at larger widths the
+# product's blocking differs: tests/test_torch_lstm_backward.py bounds it).
 def test_functions_bf16_backward_is_the_plain_autograd():
     rng = np.random.default_rng(4)
     bf = lambda a: torch.tensor(a).to(torch.bfloat16)
