@@ -122,11 +122,20 @@ Phases (any failure exits non-zero):
    backward (``lstm_sweep_backward``: two batched products around the
    kernel ``csrc/lstm_sweep_bwd.cu``) against its plain version on the card
    at (293, 64, 128) and the trainer's B=32, bf16 and f32, and at other
-   sizes (one step, 600 streams, H = 20, 64, 256): the kernel's ms (CUDA
-   events) and device ms, the whole backward's ms and device launches, the
-   plain backward's, autograd through the plain forward (the backward it
+   sizes (one step, 600 streams, H = 20, 64, 256), each with its launch
+   plan (route, cluster, where W lives): the kernel's ms (CUDA events) and
+   device ms, the whole backward's ms and device launches, the plain
+   backward's, autograd through the plain forward (the backward it
    replaces), cuDNN's LSTM backward (a yardstick), the bound and an argued
-   latency floor (``LSTM_BWD_STEP_FLOOR_CYCLES``). Then the trainers at
+   latency floor (``LSTM_BWD_STEP_FLOOR_CYCLES``); ``-Xptxas -v``'s
+   registers, shared memory and spill bytes of every instantiation (none
+   may spill on the split route); phase A alone (the kernel's template
+   that stops there) for the phase split; the column kernel (the route
+   that takes the other widths, built under another name in the
+   script's own scratch build, ``build/smoke/``) against the split route
+   in A B B A turns: both kernels' ms at B=64 and 32, the whole backward
+   with each at B=64, and the segmentation training step at B=32 with
+   each (``seg_step_abba``). Then the trainers at
    full width on B=32 chunks of 5 s for 6 AdamW steps, with the sweep's
    plain forward and backward refused on CUDA tensors
    (``plain_sweep_refused``: no autograd through the plain step loop):
@@ -245,6 +254,7 @@ non-zero without a GPU.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import json
 import os
@@ -2717,18 +2727,23 @@ def check_kernel_grads():
 
 
 # The shortest dependent chain of one step of the backward kernel's walk
-# back through time that the instruction latencies allow, in cycles: the
-# barrier (~30), the first shared-memory load of the step's da (~30), the
-# product's 4H = 512-term sum as a tree of FMAs and adds (9 levels x 4),
-# the rounding to the stream dtype (8), dh and dc (3 dependent FMAs, 12),
-# da (2 multiplies, 8; the gates' sigmoid / tanh and tanh(c) do not depend
-# on the chain and are computed ahead), the shared-memory store until the
-# barrier sees it (~30). Phase A's chain is one FMA a step.
-LSTM_BWD_STEP_FLOOR_CYCLES = 154
+# back through time on its split route (H = 128: a cluster of 2), in
+# cycles, from the instruction latencies: dh, dc and da (an add, an FMA, a
+# multiply: 12; the gates' coefficients come from phase A), da's 16 bytes
+# into the peer's shared memory until its mbarrier phase completes (~180),
+# the first broadcast load of da (~30), one part's chain of 16 FMAs (64),
+# the parts' store and the block barrier (~50), the cell thread's loads of
+# the parts (~30), their balanced tree (5 levels of adds, 20) and the
+# rounding to the stream dtype (8). The column route's chain counts 154
+# for a 512-term sum as one tree and one barrier; the split route's chain
+# is longer and its throughput a step far shorter. Phase A's chain is one
+# multiply and add a step.
+LSTM_BWD_STEP_FLOOR_CYCLES = 394
 SWEEP_BWD_BATCHES = (B, TRAIN_B)  # the kernel checks' 64 streams, the trainer's 32 chunks
-# (T, B, H) off the main path: one step, the widest batch tile (8 rows, 600
-# streams), a width that is not a multiple of 32, the half width, and the
-# widest H (f32: most of W read through L2)
+# (T, B, H) off the main path: one step, 600 streams (split route: 2 rows
+# a block, several waves of clusters), a width that is not a multiple of 32
+# (the column route), the half width (split route, one block a tile), and
+# the widest H (the column route; f32: most of W read through L2)
 SWEEP_BWD_CASES = [(1, 3, H), (37, 600, H), (21, 3, 20), (37, 9, 64), (21, 5, 256)]
 
 
@@ -2746,25 +2761,139 @@ def sweep_bwd_inputs(time_, batch, dtype, cgen, hidden=H):
     return proj, w_hh, out, n(time_, 2, batch, hidden).to(dtype)
 
 
-def kernel_only_ms(proj, w_hh, out, dout, iters=10):
-    """The backward kernel's launch alone (CUDA events around each launch;
-    its in-place input is refilled before each, outside the events)."""
+def kernel_only_ms(proj, w_hh, out, dout, iters=10, launch=None, pack=None):
+    """A backward kernel's launch alone (CUDA events around each launch;
+    its in-place input is refilled before each, outside the events):
+    ``launch(proj, pre, dout, wp)`` with ``wp = pack(w_hh, dtype)``, by
+    default the port's (``_launch_backward``, ``pack_backward_w``)."""
     import torch
     from diart_tpu_torch.ops import lstm_sweep
 
+    launch = launch or lstm_sweep._launch_backward
+    pack = pack or lstm_sweep.pack_backward_w
     w = w_hh.to(proj.dtype).float()
     hr = lstm_sweep._prev_hidden(out)
     pre = lstm_sweep._recurrent_products(hr, w)
-    wp = lstm_sweep.pack_backward_w(w_hh, proj.dtype)
+    wp = pack(w_hh, proj.dtype)
     work = torch.empty_like(pre)
     pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(iters + 1)]
     for a, b in pairs:
         work.copy_(pre)
         a.record()
-        lstm_sweep._launch_backward(proj, work, dout, wp)
+        launch(proj, work, dout, wp)
         b.record()
     torch.cuda.synchronize()
     return float(np.mean([a.elapsed_time(b) for a, b in pairs[1:]]))
+
+
+# The column kernel at H = 128, for A B B A turns against the split route:
+# the column route of csrc/lstm_sweep_bwd.cu (the route that takes the
+# other widths) exported at every H under another name, from a source in
+# the script's own scratch build that includes the package's
+COLUMN_SOURCE = """#include "lstm_sweep_bwd.cu"
+
+extern "C" int lstm_sweep_bwd_column_launch(const void* proj, void* gates, const void* dout,
+                                            const void* wp, void* cells, int time, int batch,
+                                            int hidden, int dtype, int num_sms, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_column<float>(proj, gates, dout, wp, cells, time, batch, hidden, num_sms, s);
+  return launch_column<__nv_bfloat16>(proj, gates, dout, wp, cells, time, batch, hidden, num_sms, s);
+}
+"""
+COLUMN_BUILD = {}  # the nvcc process and the library's path, started beside the package's builds
+BUILD_LOGS = {}  # the package's nvcc output (-Xptxas -v) by library
+
+
+def start_column_build():
+    """Start nvcc on COLUMN_SOURCE (with the package's flags) into
+    ``build/smoke/`` beside this script; ``column_library`` waits for it."""
+    from diart_tpu_torch.ops import _build
+
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke")
+    os.makedirs(out, exist_ok=True)
+    src = os.path.join(out, "lstm_sweep_bwd_column.cu")
+    with open(src, "w") as f:
+        f.write(COLUMN_SOURCE)
+    so = os.path.join(out, "liblstm_sweep_bwd_column.so")
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src]
+    COLUMN_BUILD.update(so=so, proc=subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                     text=True))
+
+
+def column_library():
+    """The column kernel, loaded (its build waited for; raises if it failed)."""
+    import ctypes
+
+    if "lib" not in COLUMN_BUILD:
+        text = COLUMN_BUILD["proc"].communicate()[0]
+        if COLUMN_BUILD["proc"].returncode != 0:
+            raise AssertionError(f"nvcc failed for the column kernel:\n{text}")
+        lib = ctypes.CDLL(COLUMN_BUILD["so"])
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.lstm_sweep_bwd_column_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        lib.lstm_sweep_bwd_column_launch.restype = i
+        COLUMN_BUILD.update(lib=lib, log=text)
+    return COLUMN_BUILD["lib"]
+
+
+def column_launch(proj, pre, dout, wp):
+    """The column kernel on CUDA tensors (``wp`` in its layout,
+    ``lstm_sweep._pack_column``): ``pre`` overwritten with da. Not counted:
+    a comparison, not the path."""
+    import torch
+    from diart_tpu_torch.ops import _build, lstm_sweep
+
+    time_, _, batch, gates4 = proj.shape
+    cells = torch.empty(2, time_, batch, gates4 // 4, dtype=torch.float32, device=proj.device)
+    err = column_library().lstm_sweep_bwd_column_launch(
+        proj.data_ptr(), pre.data_ptr(), dout.data_ptr(), wp.data_ptr(), cells.data_ptr(), time_, batch,
+        gates4 // 4, lstm_sweep._DTYPES[proj.dtype], _build.num_sms(proj.device),
+        _build.stream_handle(proj.device))
+    if err != 0:
+        raise AssertionError(f"the column kernel failed to launch: cudaError {err}")
+    return pre
+
+
+def column_backward(proj, w_hh, out, dout):
+    """The whole backward with the column kernel between the same products."""
+    from diart_tpu_torch.ops import lstm_sweep
+
+    return lstm_sweep._backward(proj, w_hh, out, dout,
+                                lambda p, pre, d, w: column_launch(p, pre, d, lstm_sweep._pack_column(w, p.dtype)))
+
+
+PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+PTXAS_KERNEL = re.compile(r"lstm_sweep_bwd_(split|kernel)I(f|13__nv_bfloat16)((?:Li\d+E)+)(?:Lb([01])E)?")
+
+
+def ptxas_records(text):
+    """-Xptxas -v's registers, shared memory and spill bytes of each
+    instantiation of the backward kernel in an nvcc log."""
+    recs, cur = [], None
+    for line in text.splitlines():
+        m = PTXAS_ENTRY.search(line)
+        if m:
+            k = PTXAS_KERNEL.search(m.group(1))
+            cur = None
+            if k:
+                ints = [int(v) for v in re.findall(r"Li(\d+)E", k.group(3))]
+                cur = dict(route="split" if k.group(1) == "split" else "column",
+                           dtype="f32" if k.group(2) == "f" else "bf16",
+                           H=ints[0] if k.group(1) == "split" else None, BT=ints[-1],
+                           phase_a_only=k.group(4) == "1")
+                recs.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return recs
 
 
 def backward_profile(call, what, calls=5):
@@ -2778,12 +2907,37 @@ def backward_profile(call, what, calls=5):
     except AssertionError as exc:
         log(f"  {exc}: the kernel's device ms and the backward's launches not measured")
         return [], None, None
-    kernel = [r for r in rows if r[0].startswith("lstm_sweep_bwd_kernel")]
+    kernel = [r for r in rows if r[0].startswith("lstm_sweep_bwd")]
     if not kernel:
         log(f"  the profile of {what} holds no launch of the kernel: not measured ({rows})")
         return rows, None, None
     seen = kernel[0][2]  # the kernel's launches a call that the profile kept
     return rows, kernel[0][1] / seen, round(sum(r[2] for r in rows) / seen)
+
+
+def abba(a, b):
+    """Two readings taken in turns a, b, b, a: ([a1, a2], [b1, b2])."""
+    a1, b1 = a(), b()
+    b2, a2 = b(), a()
+    return [a1, a2], [b1, b2]
+
+
+def check_bwd_build():
+    """-Xptxas -v of the backward kernel's library: every instantiation's
+    registers, shared memory and spill bytes, logged; none may spill on
+    the split route (W in registers)."""
+    recs = ptxas_records(BUILD_LOGS.get("lstm_sweep_bwd", ""))
+    for r in recs:
+        log(f"  [lstm_sweep_bwd] {r['route']} {r['dtype']} H={r['H']} BT={r['BT']}"
+            f"{' (phase A alone)' if r['phase_a_only'] else ''}: {r.get('registers')} registers, "
+            f"{r.get('smem')} bytes smem, spill stores {r.get('spill_stores')} / loads {r.get('spill_loads')}")
+    split = [r for r in recs if r["route"] == "split"]
+    if not split:
+        raise AssertionError("no -Xptxas -v record of the split route's instantiations in the build log")
+    bad = [r for r in split if r.get("spill_stores") or r.get("spill_loads") or "registers" not in r]
+    if bad:
+        raise AssertionError(f"the split route spills (W in registers): {bad}")
+    return recs
 
 
 def check_sweep_backward():
@@ -2792,43 +2946,70 @@ def check_sweep_backward():
     (``lstm_sweep_backward_reference`` on the same CUDA tensors, the kernel
     forward's output and a seeded cotangent) at (293, B, 128) for B = 64
     and the trainer's 32, bf16 and f32, within KERNEL_GRAD_TOL of the
-    largest gradient. At B = 64: the kernel's ms (CUDA events) and device
-    ms (profiler), the whole backward's ms and device launches, the plain
-    backward's ms, autograd through the plain forward (the backward before
-    the kernel), cuDNN's LSTM backward of the same (T, B, H) with 2H inputs
-    (a yardstick the port never calls), the bound and the argued latency
-    floor."""
+    largest gradient, bitwise over two calls, on the split route with no
+    row of W through L2. The column kernel on the same inputs (within the
+    same tolerance) and both kernels' ms in A B B A turns (the column
+    kernel's first). At
+    B = 64 also: phase A alone, the kernel's device ms (profiler), the
+    whole backward's ms with each kernel (A B B A) and device launches, the
+    two batched products alone, the plain backward's ms, autograd through
+    the plain forward (the backward before the kernel), cuDNN's LSTM backward of
+    the same (T, B, H) with 2H inputs (a yardstick the port never calls),
+    the bound, the argued latency floor and the clusters the card holds."""
     import torch
     from diart_tpu_torch.ops import lstm_sweep
+    from diart_tpu_torch.ops._numerics import true_f32
 
     out_rec = {}
+    column_kernel_ms = lambda a: kernel_only_ms(*a, launch=column_launch, pack=lstm_sweep._pack_column)
     for key, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         cgen = torch.Generator(device="cuda").manual_seed(17)
         for batch in SWEEP_BWD_BATCHES:
-            proj, w_hh, out, dout = sweep_bwd_inputs(T_LSTM, batch, dtype, cgen)
-            got = lstm_sweep.lstm_sweep_backward(proj, w_hh, out, dout)
-            want = lstm_sweep.lstm_sweep_backward_reference(proj, w_hh, out, dout)
+            args = sweep_bwd_inputs(T_LSTM, batch, dtype, cgen)
+            proj, w_hh, out, dout = args
+            got = lstm_sweep.lstm_sweep_backward(*args)
+            want = lstm_sweep.lstm_sweep_backward_reference(*args)
             torch.cuda.synchronize()
             scale = max(w.float().abs().max().item() for w in want)
             err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
             tol = KERNEL_GRAD_TOL[key] * scale
             finite = all(torch.isfinite(g).all().item() for g in got)
-            again = lstm_sweep.lstm_sweep_backward(proj, w_hh, out, dout)
+            again = lstm_sweep.lstm_sweep_backward(*args)
             deterministic = bitwise_equal(got, again)
             plan = lstm_sweep.backward_plan(batch, H, dtype, proj.device)
-            rec = dict(max_abs_err=err, tol=tol, grad_scale=scale, deterministic=deterministic, plan=plan)
+            column = column_backward(*args)
+            column_err = max((g.float() - w.float()).abs().max().item() for g, w in zip(column, want))
+            a_ms, b_ms = abba(lambda: column_kernel_ms(args), lambda: kernel_only_ms(*args))
+            rec = dict(max_abs_err=err, tol=tol, grad_scale=scale, deterministic=deterministic, plan=plan,
+                       column_max_abs_err=column_err, ms=float(np.mean(b_ms)), ms_turns=b_ms,
+                       ms_column=float(np.mean(a_ms)), ms_column_turns=a_ms)
             log(f"lstm_sweep_bwd[{key}] T={T_LSTM} B={batch} H={H} plan={plan}: max_abs_err={err:.3e} "
                 f"(tol {tol:.3e} = {KERNEL_GRAD_TOL[key]:.0e} x the largest gradient {scale:.3e}); "
-                f"bitwise over two calls: {deterministic}")
+                f"bitwise over two calls: {deterministic}; the column kernel {column_err:.3e}")
+            log(f"lstm_sweep_bwd[{key}] B={batch} A B B A (A: the column kernel, B: the split route), ms: "
+                f"{a_ms[0]:.4f} {b_ms[0]:.4f} {b_ms[1]:.4f} {a_ms[1]:.4f}")
             if not (finite and err <= tol and deterministic):
                 raise AssertionError(f"lstm_sweep_bwd[{key}] B={batch} disagrees with its plain version")
+            if plan["route"] != "split" or plan["w_rows_in_l2"] or plan["w_rows_in_registers"] != 4 * H:
+                raise AssertionError(f"lstm_sweep_bwd[{key}] B={batch}: W is not held on chip ({plan})")
+            if not column_err <= tol:
+                raise AssertionError(f"the column kernel [{key}] B={batch} disagrees with the plain version")
             if batch == B:
-                ms = kernel_only_ms(proj, w_hh, out, dout)
+                phase_a = kernel_only_ms(*args, launch=lstm_sweep._launch_phase_a)
                 dev_rows, dev_ms, launches = backward_profile(
-                    lambda: lstm_sweep.lstm_sweep_backward(proj, w_hh, out, dout), f"lstm_sweep_bwd[{key}]")
-                whole_ms = time_ms(lambda: lstm_sweep.lstm_sweep_backward(proj, w_hh, out, dout), 10)
-                plain_ms = time_ms(lambda: lstm_sweep.lstm_sweep_backward_reference(proj, w_hh, out, dout), 2,
-                                   warmup=1)
+                    lambda: lstm_sweep.lstm_sweep_backward(*args), f"lstm_sweep_bwd[{key}]")
+                a_whole, b_whole = abba(lambda: time_ms(lambda: column_backward(*args), 10),
+                                        lambda: time_ms(lambda: lstm_sweep.lstm_sweep_backward(*args), 10))
+                w = w_hh.to(dtype).float()
+                hr = lstm_sweep._prev_hidden(out)
+                with true_f32(proj.device):
+                    pre = lstm_sweep._recurrent_products(hr, w)
+                    products_ms = dict(
+                        recurrent=time_ms(lambda: lstm_sweep._recurrent_products(hr, w), 10),
+                        weight_gradient=time_ms(lambda: lstm_sweep._gradients(pre, hr, dtype, w_hh.dtype), 10))
+                del pre
+                clusters = lstm_sweep.backward_max_clusters(batch, dtype, proj.device)
+                plain_ms = time_ms(lambda: lstm_sweep.lstm_sweep_backward_reference(*args), 2, warmup=1)
                 leaves = [proj.detach().requires_grad_(True), w_hh.detach().requires_grad_(True)]
                 ref_out = lstm_sweep.lstm_sweep_reference(*leaves)
                 autograd_ms = time_ms(lambda: torch.autograd.grad(ref_out, leaves, dout, retain_graph=True), 2,
@@ -2854,40 +3035,99 @@ def check_sweep_backward():
                 # f32 products (the recurrent products, the walk's, the weight gradient)
                 w_bytes = (2 * proj.numel() + 2 * out.numel()) * elt + 2 * w_hh.numel() * 4
                 w_bound, w_by = bound_ms(w_bytes, 3 * gemm, "f32")
-                floor_ms = T_LSTM * LSTM_BWD_STEP_FLOOR_CYCLES / sm_clock_hz() * 1e3
-                rec.update(ms=ms, device_ms=dev_ms,
-                           device_rows=[list(r) for r in dev_rows], backward_ms=whole_ms,
-                           backward_launches=launches, plain_ms=plain_ms, autograd_plain_ms=autograd_ms,
+                # phase A alone: proj and the recurrent products read, the six
+                # values a cell of phase B written (four over pre, two in its scratch)
+                a_bytes = proj.numel() * elt + 2 * proj.numel() * 4 + proj.numel() // 2 * 4
+                a_bound = a_bytes / HBM_BYTES_PER_S * 1e3
+                clock = sm_clock_hz()
+                floor_ms = T_LSTM * LSTM_BWD_STEP_FLOOR_CYCLES / clock * 1e3
+                ms = rec["ms"]
+                rec.update(device_ms=dev_ms, device_rows=[list(r) for r in dev_rows],
+                           backward_ms=float(np.mean(b_whole)), backward_ms_turns=b_whole,
+                           backward_ms_column=float(np.mean(a_whole)), backward_ms_column_turns=a_whole,
+                           backward_launches=launches, phase_a_ms=phase_a, phase_a_share=phase_a / ms,
+                           phase_a_bound_ms=a_bound,
+                           cycles_a_step=(ms - phase_a) * 1e-3 * clock / T_LSTM, products_ms=products_ms,
+                           max_clusters=clusters, plain_ms=plain_ms, autograd_plain_ms=autograd_ms,
                            library_ms=lib_ms, bound_ms=k_bound, bound_by=k_by, backward_bound_ms=w_bound,
                            backward_bound_by=w_by, argued_latency_floor_ms=floor_ms)
-                log(f"lstm_sweep_bwd[{key}] B={batch}: kernel_ms={ms:.4f} (device "
-                    f"{rec['device_ms']}) bound_ms={k_bound:.5f} ({k_by}) argued latency_floor_ms={floor_ms:.4f} "
-                    f"({LSTM_BWD_STEP_FLOOR_CYCLES} cycles a step at the card's highest clock; not a "
-                    f"measurement); the whole backward {whole_ms:.4f} ms in {launches} device launches "
-                    f"(bound {w_bound:.5f}, {w_by}); plain backward {plain_ms:.3f} ms; autograd through the "
-                    f"plain forward {autograd_ms:.3f} ms; cuDNN LSTM backward (yardstick) {lib_ms:.4f} ms")
+                log(f"lstm_sweep_bwd[{key}] B={batch}: kernel_ms={ms:.4f} (device {rec['device_ms']}; the column "
+                    f"kernel {rec['ms_column']:.4f}) bound_ms={k_bound:.5f} ({k_by}) argued latency_floor_ms="
+                    f"{floor_ms:.4f} ({LSTM_BWD_STEP_FLOOR_CYCLES} cycles a step at the card's highest clock; not "
+                    f"a measurement); phase A alone {phase_a:.4f} ms ({phase_a / ms:.3f} of the kernel; its bytes "
+                    f"{a_bytes / 1e6:.1f} MB, {a_bound:.4f} ms at the HBM rate), phase B "
+                    f"{rec['cycles_a_step']:.0f} cycles a step at the highest clock; the whole backward "
+                    f"A B B A {a_whole[0]:.4f} {b_whole[0]:.4f} {b_whole[1]:.4f} {a_whole[1]:.4f} ms in "
+                    f"{launches} device launches (bound {w_bound:.5f}, {w_by}); the recurrent products "
+                    f"{products_ms['recurrent']:.4f} ms, the weight gradient {products_ms['weight_gradient']:.4f}; "
+                    f"plain backward {plain_ms:.3f} ms; autograd through the plain forward {autograd_ms:.3f} ms; "
+                    f"cuDNN LSTM backward (yardstick) {lib_ms:.4f} ms; clusters the card holds at once: "
+                    f"{clusters} (the launch has {plan['blocks'] // plan['cluster']})")
                 for name, dms, count in dev_rows:
                     log(f"  {dms:9.4f} ms x{count:4.1f}  {name}")
             out_rec.setdefault(key, {})[f"B{batch}"] = rec
-            del proj, w_hh, out, dout, got, want, again
+            del proj, w_hh, out, dout, got, want, again, column, args
         cases = []
         for time_, batch, hidden in SWEEP_BWD_CASES:
             args = sweep_bwd_inputs(time_, batch, dtype, cgen, hidden)
             got = lstm_sweep.lstm_sweep_backward(*args)
             want = lstm_sweep.lstm_sweep_backward_reference(*args)
+            again = lstm_sweep.lstm_sweep_backward(*args)
             scale = max(w.float().abs().max().item() for w in want)
             err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+            deterministic = bitwise_equal(got, again)
             plan = lstm_sweep.backward_plan(batch, hidden, dtype, args[0].device)
             log(f"  lstm_sweep_bwd[{key}] T={time_} B={batch} H={hidden} plan={plan}: max_abs_err={err:.3e} "
-                f"(tol {KERNEL_GRAD_TOL[key] * scale:.3e})")
-            if not (all(torch.isfinite(g).all().item() for g in got) and err <= KERNEL_GRAD_TOL[key] * scale):
+                f"(tol {KERNEL_GRAD_TOL[key] * scale:.3e}); bitwise over two calls: {deterministic}")
+            if not (all(torch.isfinite(g).all().item() for g in got) and err <= KERNEL_GRAD_TOL[key] * scale
+                    and deterministic):
                 raise AssertionError(f"lstm_sweep_bwd[{key}] T={time_} B={batch} H={hidden} disagrees with its "
                                      f"plain version")
             cases.append(dict(T=time_, B=batch, H=hidden, max_abs_err=err, tol=KERNEL_GRAD_TOL[key] * scale,
-                              plan=plan))
+                              deterministic=deterministic, plan=plan))
         out_rec[key]["cases"] = cases
     torch.cuda.empty_cache()
     return out_rec
+
+
+def seg_step_abba(steps=4):
+    """The segmentation training step at full width, B=32, f32, with the
+    column kernel (A: ``column_backward`` as the sweep's backward) and the
+    split route (B) in A B B A turns on one trainer: each turn's median
+    step wall over ``steps`` steps after one more."""
+    import torch
+    from diart_tpu_torch import precision
+    from diart_tpu_torch.ops import lstm_sweep
+
+    port = lstm_sweep.lstm_sweep_backward
+    with precision.use(f32_policy()):
+        model, state, opt, step = trainer("seg", "cuda")
+        waves, targets = seg_batch(TRAIN_B, model.num_frames(TRAIN_SAMPLES), torch.Generator().manual_seed(3),
+                                   "cuda")
+
+        def turn(column):
+            nonlocal state
+            walls = []
+            lstm_sweep.lstm_sweep_backward = column_backward if column else port
+            try:
+                for _ in range(steps + 1):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with plain_sweep_refused():
+                        state, _ = step(state, waves, targets)
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                lstm_sweep.lstm_sweep_backward = port
+            return float(np.median(walls[1:]))
+
+        a, b = abba(lambda: turn(True), lambda: turn(False))
+    log(f"train[seg] step at B={TRAIN_B}, A B B A (A: the column kernel, B: the split route), median ms: "
+        f"{a[0]:.3f} {b[0]:.3f} {b[1]:.3f} {a[1]:.3f}")
+    del model, state, opt
+    torch.cuda.empty_cache()
+    return dict(batch=TRAIN_B, steps=steps, step_ms=float(np.mean(b)), step_ms_turns=b,
+                step_ms_column=float(np.mean(a)), step_ms_column_turns=a)
 
 
 @contextlib.contextmanager
@@ -3334,7 +3574,9 @@ def drive_training(out_dir):
         grads = check_kernel_grads()
         log(f"kernel gradients in {time.perf_counter() - t0:.1f} s")
         t1 = time.perf_counter()
+        bwd_build = check_bwd_build()
         sweep_bwd = check_sweep_backward()
+        seg_abba = seg_step_abba()
         log(f"the sweep's backward kernel in {time.perf_counter() - t1:.1f} s")
         runs = {}
         # segmentation in f32 (the sweep's f32 stream, the f32 frontend); the
@@ -3353,8 +3595,8 @@ def drive_training(out_dir):
         t1 = time.perf_counter()
         tuning = drive_tuning(tmp)
         log(f"tuning in {time.perf_counter() - t1:.1f} s")
-        return dict(kernel_grads=grads, sweep_bwd=sweep_bwd, runs=runs, vs_cpu=vs_cpu, resume=resume,
-                    tuning=tuning, seconds=time.perf_counter() - t0)
+        return dict(kernel_grads=grads, sweep_bwd=sweep_bwd, sweep_bwd_build=bwd_build, sweep_bwd_seg_step=seg_abba,
+                    runs=runs, vs_cpu=vs_cpu, resume=resume, tuning=tuning, seconds=time.perf_counter() - t0)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4789,7 +5031,9 @@ STATS_KEYS = ("device_ms", "raw_operands_ms", "product_library_ms", "plan")
 # autograd through the plain forward (the backward before the kernel), the
 # argued latency floor
 SWEEP_BWD_KEYS = ("device_ms", "backward_ms", "backward_launches", "backward_bound_ms", "autograd_plain_ms",
-                  "argued_latency_floor_ms", "plan")
+                  "argued_latency_floor_ms", "plan", "ms_turns", "ms_column", "ms_column_turns", "phase_a_ms",
+                  "phase_a_share", "phase_a_bound_ms", "cycles_a_step", "backward_ms_turns", "backward_ms_column",
+                  "backward_ms_column_turns", "products_ms", "max_clusters")
 
 
 def main() -> int:
@@ -4890,7 +5134,11 @@ def main() -> int:
     from diart_tpu_torch import native
 
     t_start = t0 = time.perf_counter()
+    if not (args.families or args.scaleout or args.jax_files or args.surface or args.tf32_default):
+        start_column_build()  # the column kernel for phase 8's A B B A, beside the package's builds
+        atexit.register(lambda: COLUMN_BUILD["proc"].poll() is None and COLUMN_BUILD["proc"].kill())
     logs = _build.build(force=True)
+    BUILD_LOGS.update(logs)
     native.build(force=True)
     log(f"built {', '.join(_build.KERNELS)} and the native RTTM assembler in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
@@ -5075,6 +5323,9 @@ def main() -> int:
              **{k: sweep_bwd["bf16"]["B64"][k] for k in KEYS}, ms_f32=sweep_bwd["f32"]["B64"]["ms"],
              max_abs_err_f32=sweep_bwd["f32"]["B64"]["max_abs_err"],
              max_abs_err_b32={d: sweep_bwd[d]["B32"]["max_abs_err"] for d in sweep_bwd},
+             ms_b32={d: sweep_bwd[d]["B32"]["ms"] for d in sweep_bwd},
+             ms_column_b32={d: sweep_bwd[d]["B32"]["ms_column"] for d in sweep_bwd},
+             seg_step_b32=training["sweep_bwd_seg_step"],
              **{k: {d: sweep_bwd[d]["B64"][k] for d in sweep_bwd} for k in SWEEP_BWD_KEYS}),
         dict(name="linear_stats", route="cuda", source="diart_tpu_torch/csrc/linear_stats.cu",
              replaces="diart_tpu/ops/pallas_stats.py:163", launches=xv["linear_stats"],

@@ -14,6 +14,22 @@ gradient of :func:`lstm_sweep_reference` (what the JAX package's
 points. The packed operand is cut off from autograd, so a trained ``w_hh``
 goes in raw.
 
+The backward kernel has two routes, chosen by H (:func:`backward_plan`
+reports them; :func:`pack_backward_w` lays ``w_hh`` out for each, and
+:func:`backward_product` replays each one's product in plain PyTorch):
+
+* ``"split"`` (H = 128 or 64, both dtypes): W = r(w_hh) held in registers
+  for the whole walk, as f32; a block holds 64 units (columns) and all 4H
+  rows of them, so H = 128 takes a cluster of 2 blocks, which send each
+  other their units' da through distributed shared memory. With the rows
+  in unit-major order (4 u + gate), thread ``16 p + q`` holds rows
+  ``16p .. 16p+15`` of columns ``4q .. 4q+3``; each unit's 4H-row sum is
+  split over the 4H / 16 parts (every warp of the block), each part one
+  FMA chain of 16 rows, and the parts are added as a balanced tree in part
+  order before the one rounding to the stream dtype.
+* ``"column"`` (every other H <= 256): one thread a unit walks the 4H rows
+  of its column, W in shared memory where it fits and through L2 beyond.
+
 The kernel reads ``w_hh`` in a layout of its own: :func:`pack_w_hh` makes it
 (:class:`SweepWeights`) and ``lstm_sweep_tm`` takes either the raw
 ``(2, 4H, H)`` tensor or the packed operand, so a model with fixed weights
@@ -45,7 +61,9 @@ from ._numerics import true_f32
 __all__ = [
     "SweepFunction",
     "SweepWeights",
+    "backward_max_clusters",
     "backward_plan",
+    "backward_product",
     "launch_plan",
     "lstm_sweep_backward",
     "lstm_sweep_backward_reference",
@@ -299,46 +317,137 @@ def lstm_sweep_backward_reference(proj_t: torch.Tensor, w_hh: torch.Tensor, out:
 
 def _bwd_signature(lib: ctypes.CDLL) -> None:
     p, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    lib.lstm_sweep_bwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-    lib.lstm_sweep_bwd_launch.restype = i
-    lib.lstm_sweep_bwd_plan.argtypes = [i, i, i, i, ip, ip]
+    for name in ("lstm_sweep_bwd_launch", "lstm_sweep_bwd_phase_a_launch"):
+        getattr(lib, name).argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        getattr(lib, name).restype = i
+    lib.lstm_sweep_bwd_plan.argtypes = [i, i, i, i, ip]
     lib.lstm_sweep_bwd_plan.restype = None
+    lib.lstm_sweep_bwd_max_clusters.argtypes = [i, i, i, ip]
+    lib.lstm_sweep_bwd_max_clusters.restype = i
+
+
+_SPLIT_UNITS, _SPLIT_ROWS, _SPLIT_COLS = 64, 16, 4  # units a block; rows, columns a thread
+
+
+def _backward_route(hidden: int) -> str:
+    """The backward kernel's route for this width (the rule of
+    ``csrc/lstm_sweep_bwd.cu``)."""
+    return "split" if hidden in (64, 128) else "column"
 
 
 def backward_plan(batch: int, hidden: int, dtype: torch.dtype, device) -> dict:
     """The backward kernel's launch plan for a sweep of this size on
-    ``device``: batch rows per block and how many of w_hh's 4H rows sit in
-    shared memory (the rest is read through L2)."""
+    ``device``, as the kernel's library computes it: the route
+    (``"split"`` / ``"column"``), blocks a cluster, batch rows a block,
+    threads a block, blocks, the warps that add to each unit's sum, units
+    (columns of W) a block, W's rows in registers, in shared memory and
+    read through L2 (of ``w_rows`` = 4H), and where W lives."""
     lib = _build.library("lstm_sweep_bwd", _bwd_signature)
-    bt, rows = ctypes.c_int(), ctypes.c_int()
-    lib.lstm_sweep_bwd_plan(batch, hidden, _DTYPES[dtype], _build.num_sms(device), bt, rows)
-    return {"rows_per_block": bt.value, "w_rows_in_shared": 4 * rows.value, "w_rows": 4 * hidden}
+    f = (ctypes.c_int * 10)()
+    lib.lstm_sweep_bwd_plan(batch, hidden, _DTYPES[dtype], _build.num_sms(device), f)
+    plan = dict(route="split" if f[0] else "column", cluster=f[1], rows_per_block=f[2], threads=f[3],
+                blocks=f[4], warps_per_unit=f[5], units_per_block=f[6], w_rows=4 * hidden,
+                w_rows_in_registers=f[7], w_rows_in_shared=f[8], w_rows_in_l2=f[9])
+    homes = [n for n, k in (("registers", 7), ("shared memory", 8), ("L2", 9)) if f[k]]
+    plan["w_in"] = " + ".join(homes)
+    return plan
 
 
-def pack_backward_w(w_hh: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``w_hh`` (2, 4H, H) laid out for the backward kernel, in ``dtype``:
-    (2, H, H, 4), ``[d][m // 4][j][m % 4] = w_hh[d][m][j]``, so the thread of
-    unit j reads four rows m of its column in one load."""
+def backward_max_clusters(batch: int, dtype: torch.dtype, device) -> int:
+    """How many clusters of the split route at H = 128 the card holds at
+    once (``cudaOccupancyMaxActiveClusters``), for reports."""
+    lib = _build.library("lstm_sweep_bwd", _bwd_signature)
+    n = ctypes.c_int()
+    with torch.cuda.device(device):
+        err = lib.lstm_sweep_bwd_max_clusters(batch, _DTYPES[dtype], _build.num_sms(device), n)
+    _build.check(lib, "lstm_sweep_bwd", err)
+    return n.value
+
+
+def _pack_column(w_hh: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The column route's layout: (2, H, H, 4) in ``dtype``,
+    ``[d][m // 4][j][m % 4] = w_hh[d][m][j]``."""
     hidden = w_hh.shape[-1]
     return w_hh.to(dtype).view(2, hidden, 4, hidden).permute(0, 1, 3, 2).contiguous()
 
 
-def _launch_backward(proj_t: torch.Tensor, pre: torch.Tensor, dout: torch.Tensor, wp: torch.Tensor):
-    """Launch the backward kernel on CUDA tensors (``wp`` from
-    :func:`pack_backward_w`): ``pre`` is overwritten with da and returned."""
-    time, _, batch, gates4 = proj_t.shape
-    hidden = gates4 // 4
-    lib = _build.library("lstm_sweep_bwd", _bwd_signature)
-    dev = proj_t.device
-    cells = torch.empty(2, time, batch, hidden, dtype=torch.float32, device=dev)  # c_s, phase A
-    with torch.cuda.device(dev):
-        err = lib.lstm_sweep_bwd_launch(
-            proj_t.data_ptr(), pre.data_ptr(), dout.data_ptr(), wp.data_ptr(), cells.data_ptr(),
-            time, batch, hidden, _DTYPES[proj_t.dtype], _build.num_sms(dev), _build.stream_handle(dev),
-        )
-    _build.check(lib, "lstm_sweep_bwd", err)
-    lstm_sweep_backward.launches += 1
-    return pre
+def pack_backward_w(w_hh: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w_hh`` (2, 4H, H) laid out for the backward kernel's route.
+
+    ``"split"``: (2, C, 16, 4H, 4) f32 (C = H / 64 blocks a cluster),
+    ``[d][k][r][16 p + q][c] = float(r(w_hh))[d][g H + u][64 k + 4 q + c]``
+    for row ``16 p + r = 4 u + g`` in unit-major order (gate g of unit u):
+    thread ``16 p + q`` of block k loads its 16 x 4 values as 16 coalesced
+    16-byte loads, and the thread of unit u stores its four gates' da as
+    one 16-byte vector. ``"column"``: (2, H, H, 4) in ``dtype``,
+    ``[d][m // 4][j][m % 4] = w_hh[d][m][j]``, so the thread of unit j
+    reads four rows m of its column in one load."""
+    hidden = w_hh.shape[-1]
+    if _backward_route(hidden) == "column":
+        return _pack_column(w_hh, dtype)
+    w = w_hh.to(dtype).float().view(2, 4, hidden, hidden).transpose(1, 2)  # [d][u][g][col]
+    # rows 16p + r (= 4u + g), columns 64k + 4q + c
+    w = w.reshape(2, hidden // 4, _SPLIT_ROWS, hidden // _SPLIT_UNITS, _SPLIT_UNITS // _SPLIT_COLS, _SPLIT_COLS)
+    return w.permute(0, 3, 2, 1, 4, 5).reshape(2, hidden // _SPLIT_UNITS, _SPLIT_ROWS, 4 * hidden,
+                                               _SPLIT_COLS).contiguous()
+
+
+def backward_product(wp: torch.Tensor, da: torch.Tensor, hidden: int) -> torch.Tensor:
+    """``da W`` (da (2, B, 4H) f32 in gate-major order -> (2, B, H) f32,
+    before the rounding to the stream dtype) computed from the packed
+    operand ``wp`` in the order the kernel's route adds it. ``"split"``:
+    with the rows in unit-major order, in each part p (rows 16p ..
+    16p+15: units 4p .. 4p+3) one chain over its 16 rows, then the parts
+    added as a balanced tree in part order; every cluster block adds all 4H
+    rows of its own 64 columns. ``"column"``: four chains over m % 4, each
+    over m // 4 in order, summed (0 + 1) + (2 + 3)."""
+    two, batch, gates4 = da.shape
+    if _backward_route(hidden) == "column":
+        chains = [da.new_zeros(2, batch, hidden) for _ in range(4)]
+        wf = wp.float()  # [d][m // 4][j][m % 4]
+        for m4 in range(hidden):
+            for k in range(4):
+                chains[k] = chains[k] + da[:, :, 4 * m4 + k, None] * wf[:, None, m4, :, k]
+        return (chains[0] + chains[1]) + (chains[2] + chains[3])
+    blocks, parts = hidden // _SPLIT_UNITS, hidden // 4
+    # [d][k][r][p][q][c] -> W's (unit-major) rows 16p + r of columns 64k + 4q + c
+    wf = wp.float().view(2, blocks, _SPLIT_ROWS, parts, _SPLIT_UNITS // _SPLIT_COLS, _SPLIT_COLS)
+    wf = wf.permute(0, 3, 2, 1, 4, 5).reshape(2, parts, _SPLIT_ROWS, hidden)  # [d][p][r][j]
+    x = da.view(2, batch, 4, hidden).transpose(2, 3).reshape(2, batch, parts, _SPLIT_ROWS)
+    acc = da.new_zeros(2, batch, parts, hidden)
+    for r in range(_SPLIT_ROWS):  # one chain a part, column and batch row
+        acc = acc + x[:, :, :, r, None] * wf[:, None, :, r, :]
+    while acc.shape[2] > 1:  # the balanced tree over the parts, in part order
+        acc = acc[:, :, 0::2] + acc[:, :, 1::2]
+    return acc[:, :, 0]
+
+
+def _backward_launcher(name: str, counted: bool):
+    def launch(proj_t: torch.Tensor, pre: torch.Tensor, dout: torch.Tensor, wp: torch.Tensor):
+        time, _, batch, gates4 = proj_t.shape
+        hidden = gates4 // 4
+        lib = _build.library("lstm_sweep_bwd", _bwd_signature)
+        dev = proj_t.device
+        # phase A's scratch: (2, T, B, 2, H) f32 (the column route uses its first half)
+        cells = torch.empty(2, time, batch, 2, hidden, dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            err = getattr(lib, name)(
+                proj_t.data_ptr(), pre.data_ptr(), dout.data_ptr(), wp.data_ptr(), cells.data_ptr(),
+                time, batch, hidden, _DTYPES[proj_t.dtype], _build.num_sms(dev), _build.stream_handle(dev),
+            )
+        _build.check(lib, "lstm_sweep_bwd", err)
+        if counted:
+            lstm_sweep_backward.launches += 1
+        return pre
+    return launch
+
+
+_launch_backward = _backward_launcher("lstm_sweep_bwd_launch", True)
+_launch_backward.__doc__ = """Launch the backward kernel on CUDA tensors (``wp`` from
+:func:`pack_backward_w`): ``pre`` is overwritten with da and returned."""
+# the split route's phase A alone (H = 128; the kernel's template stops
+# there), to time the kernel's phase split: never on the path, not counted
+_launch_phase_a = _backward_launcher("lstm_sweep_bwd_phase_a_launch", False)
 
 
 def lstm_sweep_backward(proj_t: torch.Tensor, w_hh: torch.Tensor, out: torch.Tensor, dout: torch.Tensor):

@@ -177,23 +177,110 @@ def test_previous_hidden_states():
 
 @pytest.mark.parametrize("kind", list(DTYPES))
 def test_backward_w_layout_replays_the_product(kind):
-    """The kernel's W layout, [d][m // 4][j][m % 4] = w_hh[d][m][j], walked
-    as the kernel walks it (four chains over m % 4, summed (0 + 1) + (2 +
-    3)), gives e = da W within f32 rounding."""
+    """The kernel's W layouts, walked as the kernel walks them, give e = da W
+    within f32 rounding. ``"column"`` (H = 20): [d][m // 4][j][m % 4] =
+    w_hh[d][m][j] in the stream dtype, four chains over m % 4 summed (0 + 1)
+    + (2 + 3). ``"split"`` (H = 128): [d][k][r][16 p + q][c] = W[d][g H +
+    u][64 k + 4 q + c] for the unit-major row 16 p + r = 4 u + g, in f32
+    (the stream dtype's values), a chain of 16 rows a part, the parts as a
+    balanced tree."""
     dtype = DTYPES[kind]
     rng = np.random.default_rng(5)
-    hidden, batch = 20, 3
-    w_hh = torch.from_numpy(rng.normal(size=(2, 4 * hidden, hidden)).astype(np.float32))
+    for hidden, batch in ((20, 3), (128, 2)):
+        w_hh = torch.from_numpy(rng.normal(size=(2, 4 * hidden, hidden)).astype(np.float32))
+        da = torch.from_numpy(rng.normal(size=(2, batch, 4 * hidden)).astype(np.float32))
+        wp = lstm_sweep.pack_backward_w(w_hh, dtype)
+        w = w_hh.to(dtype).float()
+        if hidden == 20:
+            assert lstm_sweep._backward_route(hidden) == "column"
+            assert wp.shape == (2, hidden, hidden, 4) and wp.dtype == dtype and wp.is_contiguous()
+            for m in (0, 1, 5, 4 * hidden - 1):
+                assert torch.equal(wp[:, m // 4, :, m % 4].float(), w[:, m, :])
+        else:
+            assert lstm_sweep._backward_route(hidden) == "split"
+            assert wp.shape == (2, 2, 16, 4 * hidden, 4) and wp.dtype == torch.float32 and wp.is_contiguous()
+            for m, col in ((0, 0), (17, 5), (4 * hidden - 1, hidden - 1), (300, 70)):
+                row = 4 * (m % hidden) + m // hidden  # unit-major: gate m // H of unit m % H
+                p, r, k, q, c = row // 16, row % 16, col // 64, (col % 64) // 4, col % 4
+                assert torch.equal(wp[:, k, r, 16 * p + q, c], w[:, m, col])
+        e = lstm_sweep.backward_product(wp, da, hidden)
+        want = torch.bmm(da, w)
+        torch.testing.assert_close(e, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("hidden", [20, 64, 128, 256])
+@pytest.mark.parametrize("kind", list(DTYPES))
+def test_backward_product_replays_the_sum_order(kind, hidden):
+    """Each route's fixed sum order (``backward_product``: the split over
+    parts, i.e. warps, and over the cluster's blocks, which own columns)
+    against ``torch.bmm(da, W)`` in float64, within f32 rounding; the
+    split route's parts one by one against their own float64 sums."""
+    dtype = DTYPES[kind]
+    rng = np.random.default_rng(hidden)
+    batch = 3
+    w_hh = torch.from_numpy((rng.normal(size=(2, 4 * hidden, hidden)) / np.sqrt(hidden)).astype(np.float32))
     da = torch.from_numpy(rng.normal(size=(2, batch, 4 * hidden)).astype(np.float32))
     wp = lstm_sweep.pack_backward_w(w_hh, dtype)
-    assert wp.shape == (2, hidden, hidden, 4) and wp.dtype == dtype and wp.is_contiguous()
-    w = w_hh.to(dtype).float()
-    for m in (0, 1, 5, 4 * hidden - 1):
-        assert torch.equal(wp[:, m // 4, :, m % 4].float(), w[:, m, :])
-    chains = torch.einsum("dbkq,dkjq->dbjq", da.view(2, batch, hidden, 4), wp.float())
-    e = (chains[..., 0] + chains[..., 1]) + (chains[..., 2] + chains[..., 3])
-    want = torch.bmm(da, w)
-    torch.testing.assert_close(e, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+    w = w_hh.to(dtype).double()
+    e = lstm_sweep.backward_product(wp, da, hidden)
+    want = torch.bmm(da.double(), w)
+    assert e.dtype == torch.float32 and e.shape == (2, batch, hidden)
+    assert (e.double() - want).abs().max().item() <= 4 * hidden * 2.0**-24 * want.abs().max().item()
+    if lstm_sweep._backward_route(hidden) == "split":
+        # one part alone (units 4p .. 4p+3, every gate): da zero elsewhere
+        part = torch.zeros_like(da)
+        rows = [g * hidden + u for g in range(4) for u in range(12, 16)]
+        part[:, :, rows] = da[:, :, rows]
+        got = lstm_sweep.backward_product(wp, part, hidden).double()
+        ref = torch.bmm(part.double(), w)
+        assert (got - ref).abs().max().item() <= 16 * 2.0**-24 * ref.abs().max().item()
+
+
+def _split_walk(proj, pre, dout, w_hh):
+    """The split route's walk in plain PyTorch, step by step as the kernel
+    computes it: phase A's gates, coefficients and the scan of c; phase B's
+    cell update from them, e from ``backward_product`` on the packed W, one
+    rounding to the stream dtype."""
+    hidden = proj.shape[-1] // 4
+    dt = proj.dtype
+    wp = lstm_sweep.pack_backward_w(w_hh, dt)
+    steps = lambda x: torch.stack([x[0], x[1].flip(0)])
+    a = steps(proj.float().transpose(0, 1) + pre)  # (2, T, B, 4H), step order
+    g_out = steps(dout.float().transpose(0, 1))
+    i, f, g, o = (torch.sigmoid(a[..., :hidden]), torch.sigmoid(a[..., hidden:2 * hidden]),
+                  torch.tanh(a[..., 2 * hidden:3 * hidden]), torch.sigmoid(a[..., 3 * hidden:]))
+    k_i, k_g = g * (1 - i) * i, i * (1 - g * g)  # phase A's coefficients in pre
+    c = torch.zeros_like(g_out[:, 0])
+    k_f, tc = [], []
+    for s in range(a.shape[1]):  # the scan thread
+        k_f.append(c * (1 - f[:, s]) * f[:, s])
+        c = f[:, s] * c + i[:, s] * g[:, s]
+        tc.append(torch.tanh(c))
+    e = dc_next = f_next = torch.zeros_like(c)
+    da = [None] * a.shape[1]
+    for s in reversed(range(a.shape[1])):
+        dh = g_out[:, s] + e
+        dc = dh * (o[:, s] * (1 - tc[s] * tc[s])) + dc_next * f_next
+        da[s] = torch.cat([dc * k_i[:, s], dc * k_f[s], dc * k_g[:, s], dh * (tc[s] * (1 - o[:, s]) * o[:, s])], -1)
+        e = lstm_sweep.backward_product(wp, da[s], hidden).to(dt).float()
+        dc_next, f_next = dc, f[:, s]
+    return steps(torch.stack(da, dim=1))
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 64), (9, 3, 64), (7, 2, 128)], ids=lambda s: "T{}-B{}-H{}".format(*s))
+@pytest.mark.parametrize("kind", list(DTYPES))
+def test_split_walk_replays_the_plain_walk(kind, shape):
+    """The split route's arithmetic (phase A's coefficients, the cell
+    update from them, the parts' sum order) against ``_bptt_reference``
+    on the same inputs: da within TOL of its largest entry."""
+    dtype = DTYPES[kind]
+    proj, w_hh, cot = _inputs(sum(shape) + 1, *shape, dtype)
+    out = lstm_sweep.lstm_sweep_reference(proj, w_hh)
+    pre = lstm_sweep._recurrent_products(lstm_sweep._prev_hidden(out), w_hh.to(dtype).float())
+    want = lstm_sweep._bptt_reference(proj, pre, cot, w_hh)
+    got = _split_walk(proj, pre, cot, w_hh)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL[dtype] * want.abs().max().item()
 
 
 def test_segmentation_train_step_through_the_sweep_function_matches_jax(monkeypatch):
