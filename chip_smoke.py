@@ -17,8 +17,13 @@ Phases (any failure exits non-zero):
    TF32 (``drive_tf32_default``).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes of the main paths with 64 streams: the LSTM sweep at T=293,
-   H=128 (f32 and bf16 streams, raw and packed ``w_hh``), with other batch
-   sizes (3 to 600) and hidden sizes on both of its routes; the stats head
+   H=128 (f32 and bf16 streams, raw and packed ``w_hh``, bitwise over two
+   calls), with other batch sizes (1 to 600, one step) and hidden sizes on
+   each of its three routes; in f32 the split route's plan (W in
+   registers over a cluster of 2), ``-Xptxas -v`` of its instantiations
+   (no spill, no stack frame), its device time, the clusters the card
+   holds, and the FMA route (built under another name in ``build/smoke/``)
+   against it in A B B A turns at B = 64 and 32; the stats head
    at X (64, 279, 512) (bf16 and f32), W (512, 1500), 4 speakers; the
    attention statistics at x (64, 501, 1536), hidden (64, 501, 128), 4
    speakers (bf16 and f32), both with prepared and raw operands, with
@@ -135,7 +140,9 @@ Phases (any failure exits non-zero):
    script's own scratch build, ``build/smoke/``) against the split route
    in A B B A turns: both kernels' ms at B=64 and 32, the whole backward
    with each at B=64, and the segmentation training step at B=32 with
-   each (``seg_step_abba``). Then the trainers at
+   each (``seg_step_abba``); the same step with the FMA route and with the
+   split route as the sweep's f32 forward (A B B A, each turn's forward /
+   backward / update split). Then the trainers at
    full width on B=32 chunks of 5 s for 6 AdamW steps, with the sweep's
    plain forward and backward refused on CUDA tensors
    (``plain_sweep_refused``: no autograd through the plain step loop):
@@ -226,7 +233,8 @@ Phases (any failure exits non-zero):
    script removes them and prints the resolved policy first).
 12. Print ``{"kernels": [...]}`` (with each kernel's launches on the
    pipelines', the runtime's, the families', the training, phase 10's and
-   phase 11's runs, and its gradient's error and times; ``int8_conv``'s at
+   phase 11's runs, and its gradient's error and times; ``lstm_sweep``'s
+   f32 stream (the split route) beside its bf16 one; ``int8_conv``'s at
    every site; ``lstm_sweep_bwd``'s launches a segmentation training step
    and on phase 10's training steps, its error, times and bound) and,
    last, ``{"ok": true, "device": ...}``.
@@ -337,6 +345,12 @@ LSTM_STEP_FLOOR_CYCLES = 258
 LSTM_TOL = {"f32": 1e-4, "bf16": 2.0**-7}
 
 
+# the f32 stream's A B B A, the FMA route (built in build/smoke/) against the
+# split route at H = 128: the kernel checks' 64 streams and the segmentation
+# trainer's 32 chunks
+SWEEP_ABBA_BATCHES = (64, 32)
+
+
 def check_lstm(dtype, gen):
     import torch
     from diart_tpu_torch.ops import lstm_sweep
@@ -350,6 +364,23 @@ def check_lstm(dtype, gen):
         q = torch.linalg.qr(torch.randn(2, 4 * hidden, hidden, generator=gen))[0]  # orthonormal columns
         return proj, q.to(dev)
 
+    def held(time_, batch, hidden, p=None, w=None):
+        """The kernel against the plain version (raw w_hh), and two calls bitwise."""
+        if p is None:
+            p, w = inputs(time_, batch, hidden)
+        got = lstm_sweep.lstm_sweep_tm(p, w)
+        e = (got.float() - lstm_sweep.lstm_sweep_reference(p, w).float()).abs().max().item()
+        same = torch.equal(got, lstm_sweep.lstm_sweep_tm(p, w))
+        plan = lstm_sweep.launch_plan(batch, hidden, dtype, dev)
+        log(f"  lstm_sweep[{kind}] T={time_} B={batch} H={hidden} plan={plan}: max_abs_err={e:.3e} "
+            f"(tol {tol:.1e}); bitwise over two calls: {same}")
+        if not (e <= tol and same):
+            raise AssertionError(f"lstm_sweep[{kind}] T={time_} B={batch} H={hidden} disagrees with its plain "
+                                 f"version or with itself")
+        if hidden in (64, 128) and plan["route"] != ("mma" if kind == "bf16" else "split"):
+            raise AssertionError(f"lstm_sweep[{kind}] H={hidden}: route {plan['route']}")
+        return dict(T=time_, B=batch, H=hidden, max_abs_err=e, route=plan["route"], rows_per_block=plan["rows_per_block"])
+
     proj, w_hh = inputs(T_LSTM, B, H)
     packed = lstm_sweep.pack_w_hh(w_hh, dtype)  # laid out once, as the model does
     got = lstm_sweep.lstm_sweep_tm(proj, packed)
@@ -358,6 +389,8 @@ def check_lstm(dtype, gen):
     err = (got.float() - want.float()).abs().max().item()
     if not torch.equal(got, lstm_sweep.lstm_sweep_tm(proj, w_hh)):
         raise AssertionError(f"lstm_sweep[{kind}]: the raw and the packed w_hh give different results")
+    if not torch.equal(got, lstm_sweep.lstm_sweep_tm(proj, packed)):
+        raise AssertionError(f"lstm_sweep[{kind}]: two calls differ")
     ms = time_ms(lambda: lstm_sweep.lstm_sweep_tm(proj, packed), 20)
     raw_ms = time_ms(lambda: lstm_sweep.lstm_sweep_tm(proj, w_hh), 20)
     plain_ms = time_ms(lambda: lstm_sweep.lstm_sweep_reference(proj, w_hh), 3, warmup=1)
@@ -374,6 +407,7 @@ def check_lstm(dtype, gen):
         cudnn_ms = time_ms(lambda: lstm(xin), 20)
         proj_ms = time_ms(lambda: torch.addmm(b_ih, xin.view(-1, 2 * H), w_ih.t()), 20)
     lib_ms = cudnn_ms - proj_ms
+    del lstm, xin
     elt = proj.element_size()
     nbytes = proj.numel() * elt + w_hh.numel() * 4 + got.numel() * elt
     flops = 2.0 * T_LSTM * 2 * B * 4 * H * H
@@ -381,10 +415,12 @@ def check_lstm(dtype, gen):
     plan = lstm_sweep.launch_plan(B, H, dtype, proj.device)
     floor_ms = T_LSTM * LSTM_STEP_FLOOR_CYCLES / sm_clock_hz() * 1e3 if plan["route"] == "mma" else None
     # off B=64: 256 streams (the same plan on more blocks) and 528 (one wave of
-    # 8-row blocks on the tensor-core route)
+    # 8-row blocks on the tensor-core route; several waves of 4-row clusters
+    # on the split route), each held to the plain version
     p256, p528 = inputs(T_LSTM, 256, H)[0], inputs(T_LSTM, 528, H)[0]
     ms_256 = time_ms(lambda: lstm_sweep.lstm_sweep_tm(p256, packed), 20)
     ms_528 = time_ms(lambda: lstm_sweep.lstm_sweep_tm(p528, packed), 20)
+    case_errs = [held(T_LSTM, 256, H, p256, w_hh), held(T_LSTM, 528, H, p528, w_hh)]
     del p256, p528
     log(
         f"lstm_sweep[{kind}] T={T_LSTM} B={B} H={H}: max_abs_err={err:.3e} (tol {tol:.1e}) "
@@ -397,27 +433,73 @@ def check_lstm(dtype, gen):
     )
     if not err <= tol:
         raise AssertionError(f"lstm_sweep[{kind}] disagrees with its plain version: {err} > {tol}")
+    rec = dict(max_abs_err=err, tol=tol, ms=ms, raw_w_hh_ms=raw_ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by, library_ms=lib_ms, cudnn_lstm_ms=cudnn_ms, input_projection_ms=proj_ms,
+               argued_latency_floor_ms=floor_ms, ms_b256=ms_256, ms_b528=ms_528, plan=plan)
+    if kind == "f32":
+        rec.update(split_route(proj, w_hh, packed, want, inputs, plan))
     # the other plans: the pipelines' calls (1 and 8 chunks at the full
-    # length), batch tiles and the one-wave edge on short sequences, and other
-    # hidden sizes (64 takes the tensor-core route in bf16; 16, 40 and 136 the
-    # FMA route)
-    cases = [(T_LSTM, 1, H), (T_LSTM, 8, H)]
+    # length), batch tiles and the one-wave edge on short sequences, one step,
+    # and other hidden sizes (64 takes the tensor-core route in bf16 and the
+    # split route in f32; 16, 40 and 136 the FMA route)
+    cases = [(T_LSTM, 1, H), (T_LSTM, 8, H), (1, 3, H), (1, 2, 64)]
     cases += [(37, batch, H) for batch in (3, 8, 100, 200, 528, 529, 600)]
-    cases += [(37, 5, 64), (37, 9, 16), (21, 3, 40), (21, 3, 136)]
-    case_errs = []
-    for time_, batch, hidden in cases:
-        p, w = inputs(time_, batch, hidden)
-        e = (lstm_sweep.lstm_sweep_tm(p, w).float()
-             - lstm_sweep.lstm_sweep_reference(p, w).float()).abs().max().item()
-        log(f"  lstm_sweep[{kind}] T={time_} B={batch} H={hidden} "
-            f"plan={lstm_sweep.launch_plan(batch, hidden, dtype, dev)}: max_abs_err={e:.3e} (tol {tol:.1e})")
-        if not e <= tol:
-            raise AssertionError(f"lstm_sweep[{kind}] B={batch} H={hidden} disagrees with its plain version")
-        case_errs.append(dict(T=time_, B=batch, H=hidden, max_abs_err=e))
-    return dict(max_abs_err=err, tol=tol, ms=ms, raw_w_hh_ms=raw_ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms, cudnn_lstm_ms=cudnn_ms, input_projection_ms=proj_ms,
-                argued_latency_floor_ms=floor_ms, ms_b256=ms_256, ms_b528=ms_528, plan=plan,
-                cases=case_errs)
+    cases += [(37, 5, 64), (21, 3, 64), (37, 9, 16), (21, 3, 40), (21, 3, 136)]
+    case_errs += [held(*c) for c in cases]
+    return dict(rec, cases=case_errs)
+
+
+def split_route(proj, w_hh, packed, want, inputs, plan):
+    """The f32 stream at H = 128: W held on chip (the plan, ptxas' report of
+    every split instantiation: no spill), the kernel's device time
+    (profiler), the clusters the card holds, and the FMA route (built in
+    build/smoke/) against the split route in A B B A turns at
+    SWEEP_ABBA_BATCHES, both held to the plain version."""
+    import torch
+    from diart_tpu_torch.ops import lstm_sweep
+
+    if plan["route"] != "split" or plan["w_hh_in"] != "registers" or plan["cluster"] != 2:
+        raise AssertionError(f"lstm_sweep[f32] H={H}: W is not held on chip over a cluster of 2 ({plan})")
+    build = check_split_build("lstm_sweep")
+    rows = device_times(lambda: lstm_sweep.lstm_sweep_tm(proj, packed), "lstm_sweep[f32]")
+    dev_ms = next((r[1] for r in rows if r[0].startswith("lstm_sweep_split")), None)
+    clusters = {b: lstm_sweep.max_clusters(b, proj.device) for b in (B, TRAIN_B, 528)}
+    turns = {}
+    for batch in SWEEP_ABBA_BATCHES:
+        p, ref = (proj, want) if batch == B else (inputs(T_LSTM, batch, H)[0], None)
+        if ref is None:
+            ref = lstm_sweep.lstm_sweep_reference(p, w_hh)
+        wf = lstm_sweep._pack_fma(w_hh, torch.float32)
+        fma_err = (fma_launch(p, wf) - ref).abs().max().item()
+        if not fma_err <= LSTM_TOL["f32"]:
+            raise AssertionError(f"the FMA route [f32] B={batch} disagrees with the plain version: {fma_err}")
+        a, b = abba(lambda: time_ms(lambda: fma_launch(p, wf), 20), lambda: time_ms(lambda: lstm_sweep.lstm_sweep_tm(p, packed), 20))
+        turns[f"B{batch}"] = dict(ms=float(np.mean(b)), ms_turns=b, ms_fma=float(np.mean(a)), ms_fma_turns=a,
+                                  fma_max_abs_err=fma_err,
+                                  plan=lstm_sweep.launch_plan(batch, H, torch.float32, proj.device))
+        log(f"lstm_sweep[f32] B={batch} A B B A (A: the FMA route, B: the split route), ms: "
+            f"{a[0]:.4f} {b[0]:.4f} {b[1]:.4f} {a[1]:.4f}; the FMA route's max_abs_err {fma_err:.3e}")
+    log(f"lstm_sweep[f32] split route: device ms {dev_ms} a launch ({rows}); clusters the card holds at once "
+        f"{clusters} (B=64 launches {plan['blocks'] // plan['cluster']})")
+    return dict(device_ms=dev_ms, device_rows=[list(r) for r in rows], max_clusters=clusters, abba=turns,
+                build=build)
+
+
+def fma_launch(proj, wp):
+    """The FMA route (built in build/smoke/) on f32 CUDA tensors, ``wp`` in
+    its layout (``lstm_sweep._pack_fma``). Not counted: a comparison, not
+    the path."""
+    import torch
+    from diart_tpu_torch.ops import _build
+
+    time_, _, batch, gates4 = proj.shape
+    out = torch.empty(time_, 2, batch, gates4 // 4, dtype=torch.float32, device=proj.device)
+    err = scratch_library("lstm_sweep_fma")(
+        proj.data_ptr(), wp.data_ptr(), out.data_ptr(), time_, batch, gates4 // 4, _build.num_sms(proj.device),
+        _build.stream_handle(proj.device))
+    if err != 0:
+        raise AssertionError(f"the FMA route failed to launch: cudaError {err}")
+    return out
 
 
 def bitwise_equal(a, b) -> bool:
@@ -2786,10 +2868,12 @@ def kernel_only_ms(proj, w_hh, out, dout, iters=10, launch=None, pack=None):
     return float(np.mean([a.elapsed_time(b) for a, b in pairs[1:]]))
 
 
-# The column kernel at H = 128, for A B B A turns against the split route:
-# the column route of csrc/lstm_sweep_bwd.cu (the route that takes the
-# other widths) exported at every H under another name, from a source in
-# the script's own scratch build that includes the package's
+# Kernels built in the script's own scratch build (``build/smoke/``) from
+# sources that include the package's, for A B B A turns against the routes
+# the package now takes at H = 128: the backward's column route (the route
+# of the other widths) and the forward's FMA route (the route of the other
+# widths; f32 at H = 128 before the split route), each exported at every H
+# under another name
 COLUMN_SOURCE = """#include "lstm_sweep_bwd.cu"
 
 extern "C" int lstm_sweep_bwd_column_launch(const void* proj, void* gates, const void* dout,
@@ -2800,40 +2884,61 @@ extern "C" int lstm_sweep_bwd_column_launch(const void* proj, void* gates, const
   return launch_column<__nv_bfloat16>(proj, gates, dout, wp, cells, time, batch, hidden, num_sms, s);
 }
 """
-COLUMN_BUILD = {}  # the nvcc process and the library's path, started beside the package's builds
+FMA_SOURCE = """#include "lstm_sweep.cu"
+
+extern "C" int lstm_sweep_fma_launch(const void* proj, const void* wp, void* out, int time, int batch,
+                                     int hidden, int num_sms, void* stream) {
+  return launch<float>(proj, wp, out, time, batch, hidden, num_sms, static_cast<cudaStream_t>(stream));
+}
+"""
+SCRATCH_KERNELS = {  # library -> (source, entry point, its ctypes argument kinds)
+    "lstm_sweep_bwd_column": (COLUMN_SOURCE, "lstm_sweep_bwd_column_launch", "pppppiiiiip"),
+    "lstm_sweep_fma": (FMA_SOURCE, "lstm_sweep_fma_launch", "pppiiiip"),
+}
+SCRATCH_BUILDS = {}  # library -> the nvcc process and the library's path, started beside the package's builds
 BUILD_LOGS = {}  # the package's nvcc output (-Xptxas -v) by library
 
 
-def start_column_build():
-    """Start nvcc on COLUMN_SOURCE (with the package's flags) into
-    ``build/smoke/`` beside this script; ``column_library`` waits for it."""
+def start_scratch_builds():
+    """Start nvcc on each SCRATCH_KERNELS source (with the package's flags)
+    into ``build/smoke/`` beside this script; ``scratch_library`` waits."""
     from diart_tpu_torch.ops import _build
 
     out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke")
     os.makedirs(out, exist_ok=True)
-    src = os.path.join(out, "lstm_sweep_bwd_column.cu")
-    with open(src, "w") as f:
-        f.write(COLUMN_SOURCE)
-    so = os.path.join(out, "liblstm_sweep_bwd_column.so")
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src]
-    COLUMN_BUILD.update(so=so, proc=subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                                     text=True))
+    for name, (source, _, _) in SCRATCH_KERNELS.items():
+        src = os.path.join(out, f"{name}.cu")
+        with open(src, "w") as f:
+            f.write(source)
+        so = os.path.join(out, f"lib{name}.so")
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src]
+        SCRATCH_BUILDS[name] = dict(so=so, proc=subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                                 stderr=subprocess.STDOUT, text=True))
 
 
-def column_library():
-    """The column kernel, loaded (its build waited for; raises if it failed)."""
+def stop_scratch_builds():
+    for build in SCRATCH_BUILDS.values():
+        if build["proc"].poll() is None:
+            build["proc"].kill()
+
+
+def scratch_library(name):
+    """A scratch kernel's library, loaded (its build waited for; raises if
+    it failed), and its entry point."""
     import ctypes
 
-    if "lib" not in COLUMN_BUILD:
-        text = COLUMN_BUILD["proc"].communicate()[0]
-        if COLUMN_BUILD["proc"].returncode != 0:
-            raise AssertionError(f"nvcc failed for the column kernel:\n{text}")
-        lib = ctypes.CDLL(COLUMN_BUILD["so"])
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_sweep_bwd_column_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-        lib.lstm_sweep_bwd_column_launch.restype = i
-        COLUMN_BUILD.update(lib=lib, log=text)
-    return COLUMN_BUILD["lib"]
+    build = SCRATCH_BUILDS[name]
+    if "lib" not in build:
+        text = build["proc"].communicate()[0]
+        if build["proc"].returncode != 0:
+            raise AssertionError(f"nvcc failed for {name}:\n{text}")
+        lib = ctypes.CDLL(build["so"])
+        _, entry, kinds = SCRATCH_KERNELS[name]
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p if k == "p" else ctypes.c_int for k in kinds]
+        fn.restype = ctypes.c_int
+        build.update(lib=lib, fn=fn, log=text)
+    return build["fn"]
 
 
 def column_launch(proj, pre, dout, wp):
@@ -2845,7 +2950,7 @@ def column_launch(proj, pre, dout, wp):
 
     time_, _, batch, gates4 = proj.shape
     cells = torch.empty(2, time_, batch, gates4 // 4, dtype=torch.float32, device=proj.device)
-    err = column_library().lstm_sweep_bwd_column_launch(
+    err = scratch_library("lstm_sweep_bwd_column")(
         proj.data_ptr(), pre.data_ptr(), dout.data_ptr(), wp.data_ptr(), cells.data_ptr(), time_, batch,
         gates4 // 4, lstm_sweep._DTYPES[proj.dtype], _build.num_sms(proj.device),
         _build.stream_handle(proj.device))
@@ -2864,18 +2969,25 @@ def column_backward(proj, w_hh, out, dout):
 
 PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 PTXAS_KERNEL = re.compile(r"lstm_sweep_bwd_(split|kernel)I(f|13__nv_bfloat16)((?:Li\d+E)+)(?:Lb([01])E)?")
+PTXAS_SPLIT = re.compile(r"lstm_sweep_splitI((?:Li\d+E)+)E")  # the forward's split route: <H, BT>
 
 
 def ptxas_records(text):
     """-Xptxas -v's registers, shared memory and spill bytes of each
-    instantiation of the backward kernel in an nvcc log."""
+    instantiation of the backward kernel, and of the forward's split route,
+    in an nvcc log."""
     recs, cur = [], None
     for line in text.splitlines():
         m = PTXAS_ENTRY.search(line)
         if m:
             k = PTXAS_KERNEL.search(m.group(1))
+            f = PTXAS_SPLIT.search(m.group(1))
             cur = None
-            if k:
+            if f:
+                h, bt = (int(v) for v in re.findall(r"Li(\d+)E", f.group(1)))
+                cur = dict(route="split", dtype="f32", H=h, BT=bt, phase_a_only=False)
+                recs.append(cur)
+            elif k:
                 ints = [int(v) for v in re.findall(r"Li(\d+)E", k.group(3))]
                 cur = dict(route="split" if k.group(1) == "split" else "column",
                            dtype="f32" if k.group(2) == "f" else "bf16",
@@ -2885,9 +2997,9 @@ def ptxas_records(text):
             continue
         if cur is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
-            cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            cur.update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))
@@ -2922,21 +3034,25 @@ def abba(a, b):
     return [a1, a2], [b1, b2]
 
 
-def check_bwd_build():
-    """-Xptxas -v of the backward kernel's library: every instantiation's
-    registers, shared memory and spill bytes, logged; none may spill on
-    the split route (W in registers)."""
-    recs = ptxas_records(BUILD_LOGS.get("lstm_sweep_bwd", ""))
+def check_split_build(library="lstm_sweep_bwd"):
+    """-Xptxas -v of the backward kernel's library (or of the forward's,
+    ``lstm_sweep``): every instantiation's registers, shared memory, stack
+    frame and spill bytes, logged; none may spill on the split route (W in
+    registers), and the forward's split route keeps no array in local
+    memory (a stack frame: its sums, indexed at run time)."""
+    recs = ptxas_records(BUILD_LOGS.get(library, ""))
     for r in recs:
-        log(f"  [lstm_sweep_bwd] {r['route']} {r['dtype']} H={r['H']} BT={r['BT']}"
+        log(f"  [{library}] {r['route']} {r['dtype']} H={r['H']} BT={r['BT']}"
             f"{' (phase A alone)' if r['phase_a_only'] else ''}: {r.get('registers')} registers, "
-            f"{r.get('smem')} bytes smem, spill stores {r.get('spill_stores')} / loads {r.get('spill_loads')}")
+            f"{r.get('smem')} bytes smem, stack frame {r.get('stack_frame')} bytes, spill stores "
+            f"{r.get('spill_stores')} / loads {r.get('spill_loads')}")
     split = [r for r in recs if r["route"] == "split"]
     if not split:
-        raise AssertionError("no -Xptxas -v record of the split route's instantiations in the build log")
-    bad = [r for r in split if r.get("spill_stores") or r.get("spill_loads") or "registers" not in r]
+        raise AssertionError(f"no -Xptxas -v record of the split route's instantiations in {library}'s build log")
+    bad = [r for r in split if r.get("spill_stores") or r.get("spill_loads") or "registers" not in r
+           or (library == "lstm_sweep" and r.get("stack_frame"))]
     if bad:
-        raise AssertionError(f"the split route spills (W in registers): {bad}")
+        raise AssertionError(f"the split route spills or keeps an array in local memory (W in registers): {bad}")
     return recs
 
 
@@ -3090,25 +3206,26 @@ def check_sweep_backward():
     return out_rec
 
 
-def seg_step_abba(steps=4):
-    """The segmentation training step at full width, B=32, f32, with the
-    column kernel (A: ``column_backward`` as the sweep's backward) and the
-    split route (B) in A B B A turns on one trainer: each turn's median
-    step wall over ``steps`` steps after one more."""
+def seg_step_abba(attr, other, what, steps=4):
+    """The segmentation training step at full width, B=32, f32, in A B B A
+    turns on one trainer: A with ``lstm_sweep.<attr>`` replaced by ``other``
+    (``what``), B the port's own. Each turn: the median step wall over
+    ``steps`` steps after one more, then one more step split into forward /
+    backward / update (``step_split``)."""
     import torch
     from diart_tpu_torch import precision
     from diart_tpu_torch.ops import lstm_sweep
 
-    port = lstm_sweep.lstm_sweep_backward
+    port = getattr(lstm_sweep, attr)
     with precision.use(f32_policy()):
         model, state, opt, step = trainer("seg", "cuda")
         waves, targets = seg_batch(TRAIN_B, model.num_frames(TRAIN_SAMPLES), torch.Generator().manual_seed(3),
                                    "cuda")
 
-        def turn(column):
+        def turn(a):
             nonlocal state
             walls = []
-            lstm_sweep.lstm_sweep_backward = column_backward if column else port
+            setattr(lstm_sweep, attr, other if a else port)
             try:
                 for _ in range(steps + 1):
                     torch.cuda.synchronize()
@@ -3117,17 +3234,61 @@ def seg_step_abba(steps=4):
                         state, _ = step(state, waves, targets)
                     torch.cuda.synchronize()
                     walls.append((time.perf_counter() - t0) * 1e3)
+                split = step_split("seg", state, opt, waves, targets)
             finally:
-                lstm_sweep.lstm_sweep_backward = port
-            return float(np.median(walls[1:]))
+                setattr(lstm_sweep, attr, port)
+            return float(np.median(walls[1:])), split
 
         a, b = abba(lambda: turn(True), lambda: turn(False))
-    log(f"train[seg] step at B={TRAIN_B}, A B B A (A: the column kernel, B: the split route), median ms: "
-        f"{a[0]:.3f} {b[0]:.3f} {b[1]:.3f} {a[1]:.3f}")
+    fmt = lambda r: (f"{r[0]:.3f} (forward {r[1]['forward_ms']:.2f}, backward {r[1]['backward_ms']:.2f}, update "
+                     f"{r[1]['update_ms']:.2f})")
+    log(f"train[seg] step at B={TRAIN_B}, A B B A (A: {what}, B: the port), median ms: "
+        f"{fmt(a[0])} {fmt(b[0])} {fmt(b[1])} {fmt(a[1])}")
     del model, state, opt
     torch.cuda.empty_cache()
-    return dict(batch=TRAIN_B, steps=steps, step_ms=float(np.mean(b)), step_ms_turns=b,
-                step_ms_column=float(np.mean(a)), step_ms_column_turns=a)
+    return dict(batch=TRAIN_B, steps=steps, other=what, step_ms=float(np.mean([r[0] for r in b])),
+                step_ms_turns=[r[0] for r in b], split_ms_turns=[r[1] for r in b],
+                step_ms_other=float(np.mean([r[0] for r in a])), step_ms_other_turns=[r[0] for r in a],
+                split_ms_other_turns=[r[1] for r in a])
+
+
+def fma_forward(port):
+    """``lstm_sweep._launch`` (``port``) with the f32 stream at H = 128 on the
+    FMA route (built in build/smoke/) instead of the split route."""
+    from diart_tpu_torch.ops import lstm_sweep
+
+    def launch(proj_t, packed):
+        if packed.route != "split":
+            return port(proj_t, packed)
+        return fma_launch(proj_t, lstm_sweep._pack_fma(lstm_sweep.unpack_w_hh(packed), proj_t.dtype))
+    return launch
+
+
+def step_split(kind, state, opt, waves, targets):
+    """One more training step, split with CUDA events as ``train_step`` runs
+    it: forward, backward and update ms."""
+    import torch
+
+    module, ev = state.module, [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    opt.zero_grad(set_to_none=True)
+    with plain_sweep_refused():
+        ev[0].record()
+        if kind == "seg":
+            from diart_tpu_torch.train import pit_bce_loss
+
+            loss = pit_bce_loss(module(waves), targets)
+        else:
+            from diart_tpu_torch.train import aam_softmax_loss
+
+            loss = aam_softmax_loss(module(waves), targets, state.prototypes)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+    return dict(forward_ms=ev[0].elapsed_time(ev[1]), backward_ms=ev[1].elapsed_time(ev[2]),
+                update_ms=ev[2].elapsed_time(ev[3]))
 
 
 @contextlib.contextmanager
@@ -3274,27 +3435,7 @@ def train_full_width(kind, model_dtype, launches_per_step, serve_probe):
         if not want <= names or not any(n.startswith("sincnet.") for n in names):
             raise AssertionError(f"train[seg]: parameters missing from the check: {sorted(want - names)}")
 
-    # one more step, split with CUDA events as train_step runs it
-    module, ev = state.module, [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    opt.zero_grad(set_to_none=True)
-    with plain_sweep_refused():
-        ev[0].record()
-        if kind == "seg":
-            from diart_tpu_torch.train import pit_bce_loss
-
-            loss = pit_bce_loss(module(waves), targets)
-        else:
-            from diart_tpu_torch.train import aam_softmax_loss
-
-            loss = aam_softmax_loss(module(waves), targets, state.prototypes)
-        ev[1].record()
-        loss.backward()
-        ev[2].record()
-        opt.step()
-        ev[3].record()
-        torch.cuda.synchronize()
-    split = dict(forward_ms=ev[0].elapsed_time(ev[1]), backward_ms=ev[1].elapsed_time(ev[2]),
-                 update_ms=ev[2].elapsed_time(ev[3]))
+    split = step_split(kind, state, opt, waves, targets)  # one more step, split with CUDA events
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, plain_sweep_refused():
         t0 = time.perf_counter()
         state, _ = step(state, waves, targets)
@@ -3565,6 +3706,7 @@ def drive_training(out_dir):
     import tempfile
 
     from diart_tpu_torch import precision
+    from diart_tpu_torch.ops import lstm_sweep
 
     scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(scratch, exist_ok=True)
@@ -3574,9 +3716,11 @@ def drive_training(out_dir):
         grads = check_kernel_grads()
         log(f"kernel gradients in {time.perf_counter() - t0:.1f} s")
         t1 = time.perf_counter()
-        bwd_build = check_bwd_build()
+        bwd_build = check_split_build()
         sweep_bwd = check_sweep_backward()
-        seg_abba = seg_step_abba()
+        seg_abba = seg_step_abba("lstm_sweep_backward", column_backward, "the column kernel as the sweep's backward")
+        seg_fwd_abba = seg_step_abba("_launch", fma_forward(lstm_sweep._launch),
+                                     "the FMA route as the sweep's f32 forward")
         log(f"the sweep's backward kernel in {time.perf_counter() - t1:.1f} s")
         runs = {}
         # segmentation in f32 (the sweep's f32 stream, the f32 frontend); the
@@ -3596,6 +3740,7 @@ def drive_training(out_dir):
         tuning = drive_tuning(tmp)
         log(f"tuning in {time.perf_counter() - t1:.1f} s")
         return dict(kernel_grads=grads, sweep_bwd=sweep_bwd, sweep_bwd_build=bwd_build, sweep_bwd_seg_step=seg_abba,
+                    sweep_fwd_seg_step=seg_fwd_abba,
                     runs=runs, vs_cpu=vs_cpu, resume=resume, tuning=tuning, seconds=time.perf_counter() - t0)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5023,6 +5168,10 @@ def surface_launches(rec, name) -> dict:
 
 
 KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+# the sweep's f32 stream at B=64 (the split route): its plan, device time,
+# the clusters the card holds, the A B B A against the FMA route, and the
+# other batch sizes
+SWEEP_F32_KEYS = ("plan", "device_ms", "max_clusters", "abba", "ms_b256", "ms_b528")
 # the statistics kernels' extra readings: prepared and raw operands, the
 # product alone (a yardstick, not the same function)
 STATS_KEYS = ("device_ms", "raw_operands_ms", "product_library_ms", "plan")
@@ -5135,8 +5284,8 @@ def main() -> int:
 
     t_start = t0 = time.perf_counter()
     if not (args.families or args.scaleout or args.jax_files or args.surface or args.tf32_default):
-        start_column_build()  # the column kernel for phase 8's A B B A, beside the package's builds
-        atexit.register(lambda: COLUMN_BUILD["proc"].poll() is None and COLUMN_BUILD["proc"].kill())
+        start_scratch_builds()  # the A sides of phases 2's and 8's A B B A, beside the package's builds
+        atexit.register(stop_scratch_builds)
     logs = _build.build(force=True)
     BUILD_LOGS.update(logs)
     native.build(force=True)
@@ -5314,8 +5463,9 @@ def main() -> int:
              launches_family_paths=on_family("lstm_sweep"), launches_jax_files_paths=on_jax_files("lstm_sweep"),
              launches_surface_paths=on_surface("lstm_sweep"),
              **{k: lstm["bf16"][k] for k in KEYS},
-             ms_b256=lstm["bf16"]["ms_b256"], ms_b528=lstm["bf16"]["ms_b528"],
-             ms_f32=lstm["f32"]["ms"], plan=lstm["bf16"]["plan"], **with_grad("lstm_sweep")),
+             ms_b256=lstm["bf16"]["ms_b256"], ms_b528=lstm["bf16"]["ms_b528"], plan=lstm["bf16"]["plan"],
+             f32={k: lstm["f32"][k] for k in KEYS + SWEEP_F32_KEYS}, seg_step_f32_forward_b32=training["sweep_fwd_seg_step"],
+             **with_grad("lstm_sweep")),
         dict(name="lstm_sweep_bwd", route="cuda", source="diart_tpu_torch/csrc/lstm_sweep_bwd.cu",
              replaces="diart_tpu/ops/pallas_lstm.py:303", launches=on_training("lstm_sweep_bwd")["seg"],
              launches_training_steps=on_training("lstm_sweep_bwd"),

@@ -1,6 +1,7 @@
-// Hopper building blocks shared by the port's tensor-core kernels: shared
-// addresses, `cp.async` copies, the `wgmma` shared-memory descriptor and
-// fences, `mbarrier`s, and the tensor-map encoder of the TMA. A tile that a
+// Hopper building blocks shared by the port's kernels: shared addresses,
+// `cp.async` copies, the `wgmma` shared-memory descriptor and fences,
+// `mbarrier`s, thread block clusters (a cluster barrier, stores into a peer
+// block's shared memory), and the tensor-map encoder of the TMA. A tile that a
 // descriptor names lies in a swizzled layout: rows of 128 bytes (or of 64
 // or 32), the 16-byte chunk c of row r stored at chunk c ^ (r % 8) (its
 // 64- and 32-byte forms), tiles starting on a 1024-byte boundary.
@@ -93,6 +94,26 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
     if (done) return;
     if (clock64() - t0 > (1ll << 34)) __trap();
   }
+}
+
+// Thread block clusters: a barrier of every thread of the cluster, the
+// shared::cluster address of `addr` (a shared::cta address) in block `rank`,
+// and 16 bytes stored into another block's shared memory that count on its
+// mbarrier `bar` (complete_tx), so a waiter on that mbarrier sees them.
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ unsigned map_rank(unsigned addr, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void st_async16(unsigned addr, const float4& v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];\n"
+               ::"r"(addr), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(__float_as_uint(v.z)),
+               "r"(__float_as_uint(v.w)), "r"(bar)
+               : "memory");
 }
 
 // cuTensorMapEncodeTiled, looked up through the runtime's entry-point query

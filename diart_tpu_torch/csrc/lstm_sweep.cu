@@ -18,9 +18,11 @@
 // peaks -- but the recurrence is T dependent steps. The kernel is
 // latency-bound: its time is T x (the time of one step inside one block),
 // so the design shortens the step. ONE persistent launch per layer runs the
-// whole time loop; one block per (direction, batch tile).
+// whole time loop; one block (split route: one cluster) per (direction,
+// batch tile).
 //
-// Two routes, chosen by the wrapper (`lstm_sweep_plan` reports them):
+// Three routes, chosen by the stream dtype and H in one rule (`route_of`,
+// mirrored by the wrapper's `_route`; `lstm_sweep_plan` reports them):
 //
 // * Tensor-core route (bf16 stream, H = 128 or 64):
 //   gates^T (4H x 8) = w_hh (4H x H) @ h^T (H x 8) as `mma.sync` m16n8k16
@@ -44,20 +46,56 @@
 //   IEEE division made a sweep a quarter longer. What a step still waits for:
 //   the tensor pipe takes the 64 mma of a scheduler's 4 warps one after
 //   another, and every warp re-reads the whole h tile.
-// * FMA route (f32 stream, or any other H <= 256): true f32 has no
-//   tensor-core form. KS groups of H threads split the k range, leave
-//   partial sums in shared memory and sum them in a fixed order after a
-//   barrier; w_hh packed as (2, H_k, H_j, 4 gates) sits in shared memory
-//   when it fits (bf16) and is read through L2 otherwise (f32, 256 KB a
-//   direction); the batch tile BT in {1, 2, 4, 8} fills one wave of SMs;
-//   precise expf/tanhf. Known limit, left for later work: a cluster of 2
-//   blocks could hold the f32 w_hh in shared memory and exchange h through
-//   distributed shared memory.
-// Both are deterministic (no atomics).
+// * Split route (f32 stream, H = 128 or 64): true f32 has no tensor-core
+//   form, and a direction's f32 w_hh (256 KB at H = 128) does not fit one
+//   block's 227 KB of shared memory, but it is exactly one SM's register
+//   file. A block owns 64 hidden units and holds all four gate rows of each
+//   over every k in registers for the whole sweep: 256 x H f32 values over
+//   4H threads, 64 registers a thread. At H = 128 a direction takes a
+//   CLUSTER OF 2 blocks (units 0..63 and 64..127); at H = 64 one block of
+//   256 threads. Thread (unit j, part p) of a unit's H / 16 parts (8
+//   threads of one warp at H = 128, 4 at H = 64) holds the four gate rows
+//   of j over k = 8p..8p+7 of each half of the k range, the block's own
+//   half (the h it computes itself) first. A step: one FMA chain a gate and
+//   batch row over the own half (its h from this block's shared memory,
+//   whole after the last barrier), then, once the peer's h has arrived,
+//   on over the other half; the parts' sums added as a balanced tree in
+//   part order by warp shuffles that also spread the results (each thread
+//   ends with one or a few (row, gate) sums, so the gate activations run
+//   side by side); the four activations of a cell gathered by shuffles,
+//   the cell update in registers (c never leaves them); 4 units' new h
+//   gathered into one 16-byte store into the block's h tile, into `out`,
+//   and, with `st.async`, into the peer's tile, where the bytes complete a
+//   phase of its mbarrier (one a step parity; h double-buffered by the
+//   step's parity). ONE block barrier a step and no cluster barrier: the
+//   exchange's latency hides under the own half's FMAs. h sits in shared
+//   memory in an order where the parts of a warp read consecutive 16-byte
+//   words (no bank conflict; the units of a warp read the same words, a
+//   broadcast). The gate stream is loaded straight into registers two steps
+//   ahead, one value a held sum. Precise expf / tanhf and IEEE division.
+//   The batch tile BT in {1, 2, 4} is the smallest whose 2 x ceil(B / BT) x
+//   cluster blocks fit one wave of the card (BT = 2 at B = 64, H = 128: 128
+//   blocks); beyond that BT = 4 and more waves. Measured (chip_smoke.py
+//   phase 2, scripts/lstm_sweep_step_probe.py; H100 80GB HBM3, 700 W): 0.33
+//   ms at (293, 64, 128) against the FMA route's 1.34; a step ~1,430 cycles,
+//   of which the products and the wait for the peer's h ~490, and the
+//   serial tail (the tree, the precise activations, the cell update and
+//   tanh c, the stores) the rest: what a step still waits for.
+// * FMA route (every other H <= 256, either dtype): KS groups of H threads
+//   split the k range, leave partial sums in shared memory and sum them in a
+//   fixed order after a barrier; w_hh packed as (2, H_k, H_j, 4 gates) sits
+//   in shared memory where it fits (bf16 up to H = 160, f32 up to 112) and
+//   is read through L2 beyond; the batch tile BT in {1, 2, 4, 8} fills one
+//   wave of SMs; precise expf/tanhf.
+// All three are deterministic (fixed sum orders, no atomics).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
+
+#include "hopper.cuh"
 
 #include <initializer_list>
 #include <type_traits>
@@ -441,10 +479,278 @@ int launch_mma_kt(int kt, const void* proj, const void* wp, void* out, int time,
 // 4 batch rows a block while that fits one wave of the card, else 8
 int mma_rows(int batch, int num_sms) { return 2 * ((batch + 3) / 4) <= num_sms ? 4 : 8; }
 
-// the tensor-core route takes a bf16 stream with H = 128 (the published
-// segmentation model) or 64 (the half-width `lstm_hidden` its entry point
-// also takes); every other size runs the FMA route
-bool mma_route(int hidden, int dtype) { return dtype == 1 && (hidden == 128 || hidden == 64); }
+// The route of a sweep (the wrapper's `_route` states the same rule): H =
+// 128 (the published segmentation model) or 64 (the half-width
+// `lstm_hidden` its entry point also takes) run the tensor-core route in
+// bf16 (1) and the split route in f32 (2); every other size the FMA route (0)
+int route_of(int hidden, int dtype) {
+  if (hidden != 128 && hidden != 64) return 0;
+  return dtype == 1 ? 1 : 2;
+}
+
+// --------------------------------------------------------------------- //
+// Split route.
+
+namespace cg = cooperative_groups;
+
+constexpr int kUnits = 64;  // hidden units a block holds (all four gate rows of each)
+
+template <int H>
+struct Split {
+  static constexpr int kCluster = H / kUnits;       // blocks a direction: 2 at H = 128, 1 at H = 64
+  static constexpr int kParts = H / 16;             // threads that share a unit's sum: 8 / 4
+  static constexpr int kThreads = kUnits * kParts;  // 512 / 256
+  static constexpr int kWarpUnits = 32 / kParts;    // units a warp: 4 / 8
+};
+
+__host__ __device__ constexpr int log2i(int n) { return n <= 1 ? 0 : 1 + log2i(n / 2); }
+
+// One half of a step's product: v[4 b + g] += w[g][8 SLOT + e] h[b][k_e] for
+// e = 0..7 in order, one FMA chain a (row, gate). `hh` points at this
+// thread's first 16-byte word of the half in the h tile: word q of part p
+// lies at (q NP + p) 4 within the half.
+template <int H, int BT, int SLOT>
+__device__ __forceinline__ void split_half(const float (&w)[4][16], const float* hh, float (&v)[4 * BT]) {
+  constexpr int NP = Split<H>::kParts;
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int b = 0; b < BT; ++b) {
+      const float4 h4 = *reinterpret_cast<const float4*>(hh + b * H + q * NP * 4);
+      const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) v[4 * b + g] = fmaf(w[g][8 * SLOT + 4 * q + e], hv[e], v[4 * b + g]);
+    }
+}
+
+// proj (T, 2, B, 4H) f32; wp (2, CL, 16, 4H, 4) f32, `pack_w_hh`'s "split"
+// layout: float4 r of thread tid of block `rank` of direction d holds
+// w_hh[d][g H + j][hf H/2 + 8 p + 4 (r % 2) + c], c = 0..3, for r = 4 g + 2
+// slot + r % 2 and hf = slot ^ rank (slot 0: the block's own half), where
+// tid = 32 warp + NP u + p and j = 64 rank + warp (32 / NP) + u; out (T, 2,
+// B, H) f32. Grid (CL x ceil(B / BT), 2), clusters of CL blocks along x.
+template <int H, int BT>
+__global__ void __launch_bounds__(Split<H>::kThreads, 1) lstm_sweep_split(
+    const float* __restrict__ proj, const float4* __restrict__ wp, float* __restrict__ out, int time,
+    int batch) {
+  using S = Split<H>;
+  constexpr int CL = S::kCluster, NP = S::kParts, NT = S::kThreads, HALF = H / 2;
+  constexpr int NV = 4 * BT;                  // sums a thread carries, [row][gate]
+  constexpr int LP = log2i(NP), LV = log2i(NV);
+  constexpr int LH = LP < LV ? LP : LV;       // levels of the tree that halve the sums a thread holds
+  constexpr int R = NV >> LH;                 // sums a thread holds after the tree
+  constexpr unsigned ALL = 0xffffffffu;
+  __shared__ __align__(16) float h_s[2][BT][H];  // h by its step's parity, k in the parts' order
+  __shared__ __align__(8) unsigned long long mbar[2];  // the peer's h of a step, by its parity
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int u = lane / NP, p = lane % NP;
+  int rank = 0;
+  if constexpr (CL > 1) rank = (int)cg::this_cluster().block_rank();
+  const int d = blockIdx.y, b0 = (blockIdx.x / CL) * BT;
+  const int j = rank * kUnits + warp * S::kWarpUnits + u;  // this thread's unit
+
+  float w[4][16];  // [gate][8 slot + e], for the whole sweep
+  {
+    const float4* src = wp + (size_t)(d * CL + rank) * 16 * NT + tid;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const float4 v = __ldg(src + (size_t)r * NT);
+      w[r / 4][(r % 4) * 4] = v.x;
+      w[r / 4][(r % 4) * 4 + 1] = v.y;
+      w[r / 4][(r % 4) * 4 + 2] = v.z;
+      w[r / 4][(r % 4) * 4 + 3] = v.w;
+    }
+  }
+  for (int i = tid; i < 2 * BT * H; i += NT) (&h_s[0][0][0])[i] = 0.0f;  // h_{-1} = 0
+  unsigned peer_h = 0, peer_bar = 0;
+  if constexpr (CL > 1) {
+    if (tid == 0) {
+      hopper::mbar_init(hopper::smem_u32(&mbar[0]), 1);
+      hopper::mbar_init(hopper::smem_u32(&mbar[1]), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    // both blocks run, their h tiles zeroed and mbarriers set: the peer's
+    // shared memory may be written from here on
+    hopper::cluster_barrier();
+    peer_h = hopper::map_rank(hopper::smem_u32(&h_s[0][0][0]), rank ^ 1);
+    peer_bar = hopper::map_rank(hopper::smem_u32(&mbar[0]), rank ^ 1);
+  } else {
+    __syncthreads();
+  }
+
+  // After the tree this thread holds the sums base .. base + R - 1 of
+  // [row][gate]: the halving levels l pick the upper half where bit l of p
+  // is set. It updates the cell (row, j) with the lanes that share its row.
+  int base = 0;
+#pragma unroll
+  for (int l = 0; l < LH; ++l) base += ((p >> l) & 1) * (NV >> (l + 1));
+  const int row = base / 4;
+  int src[4];  // the lane that holds gate g of (row, j) after the tree
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    int q = p;
+#pragma unroll
+    for (int l = 0; l < LH; ++l) q = (q & ~(1 << l)) | ((((4 * row + g) >> (LV - 1 - l)) & 1) << l);
+    src[g] = u * NP + q;
+  }
+  // one writer a row and 4 units: units j0 .. j0 + 3 are one 16-byte word of the h tile
+  const bool writer = (u % 4) == 0 && (base % 4) == 0 && (p >> LH) == 0;
+  const int j0 = j - u % 4, k0 = j0 % HALF;
+  const int hpos = (j0 / HALF) * HALF + (((k0 % 8) / 4) * NP + k0 / 8) * 4;
+  const int pack = (u - u % 4) * NP + p;  // the lane of unit j0 with this thread's row
+
+  // the gate stream of the held sums, loaded two steps ahead
+  const size_t slab = (size_t)batch * 4 * H;  // elements per (time, direction)
+  int xoff[R];
+  bool xok[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int b = (base + i) / 4, g = (base + i) % 4;
+    xok[i] = b0 + b < batch;
+    xoff[i] = (b0 + b) * 4 * H + g * H + j;
+  }
+  auto load_x = [&](int t, float (&x)[R]) {  // t < time
+    const float* src_t = proj + ((size_t)(d == 0 ? t : time - 1 - t) * 2 + d) * slab;
+#pragma unroll
+    for (int i = 0; i < R; ++i) x[i] = xok[i] ? __ldg(src_t + xoff[i]) : 0.0f;
+  };
+  float x0[R], x1[R] = {};
+  load_x(0, x0);
+  if (time > 1) load_x(1, x1);
+  float c = 0.0f;
+
+  for (int t = 0; t < time; ++t) {
+    float xc[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) { xc[i] = x0[i]; x0[i] = x1[i]; }
+    if (t + 2 < time) load_x(t + 2, x1);
+    // the peer's h_t, sent unless this is the last step
+    if (CL > 1 && tid == 0 && t + 1 < time)
+      hopper::mbar_expect_tx(hopper::smem_u32(&mbar[t & 1]), 4 * kUnits * BT);
+
+    const float* hb = &h_s[(t + 1) & 1][0][0];  // h_{t-1}
+    float v[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) v[i] = 0.0f;
+    split_half<H, BT, 0>(w, hb + rank * HALF + 4 * p, v);
+    if (CL > 1 && t > 0) hopper::mbar_wait(hopper::smem_u32(&mbar[(t - 1) & 1]), ((t - 1) >> 1) & 1);
+    split_half<H, BT, 1>(w, hb + (rank ^ 1) * HALF + 4 * p, v);
+
+    // the parts' sums as a balanced tree in part order (level l adds lanes
+    // p and p ^ 2^l), halving what a thread holds while there is more than one
+#pragma unroll
+    for (int l = 0; l < LP; ++l) {
+      if (l < LH) {
+        const int n = NV >> (l + 1);
+        const bool up = (p >> l) & 1;
+#pragma unroll
+        for (int i = 0; i < NV / 2; ++i) {  // a constant trip count: v stays in registers
+          if (i < n) {
+            const float send = up ? v[i] : v[n + i];
+            const float keep = up ? v[n + i] : v[i];
+            v[i] = keep + __shfl_xor_sync(ALL, send, 1 << l);
+          }
+        }
+      } else {
+        v[0] += __shfl_xor_sync(ALL, v[0], 1 << l);
+      }
+    }
+    float a[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float pre = xc[i] + v[i];
+      a[i] = (base + i) % 4 == 2 ? tanhf(pre) : sigmoid(pre);
+    }
+    float act[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) act[g] = R == 4 ? a[g % R] : __shfl_sync(ALL, a[g % R], src[g]);
+    c = act[1] * c + act[0] * act[2];
+    const float hv = act[3] * tanhf(c);
+
+    float4 h4;
+    h4.x = __shfl_sync(ALL, hv, pack);
+    h4.y = __shfl_sync(ALL, hv, pack + NP);
+    h4.z = __shfl_sync(ALL, hv, pack + 2 * NP);
+    h4.w = __shfl_sync(ALL, hv, pack + 3 * NP);
+    if (writer) {
+      const int buf = t & 1, at = (buf * BT + row) * H + hpos;
+      *reinterpret_cast<float4*>(&h_s[0][0][0] + at) = h4;
+      if constexpr (CL > 1)
+        if (t + 1 < time) hopper::st_async16(peer_h + 4u * at, h4, peer_bar + 8u * buf);
+      if (b0 + row < batch) {
+        const int tt = d == 0 ? t : time - 1 - t;
+        *reinterpret_cast<float4*>(out + (((size_t)tt * 2 + d) * batch + b0 + row) * H + j0) = h4;
+      }
+    }
+    __syncthreads();  // this block's h_t is whole
+  }
+  // every st.async into this block was waited for; no block leaves before its peer is done
+  if constexpr (CL > 1) hopper::cluster_barrier();
+}
+
+// the split route's batch tile: the smallest of 1, 2, 4 whose 2 x ceil(B /
+// BT) x cluster blocks fit one wave of the card, else 4 (more waves)
+int split_bt(int batch, int hidden, int num_sms) {
+  for (int bt : {1, 2}) {
+    if (2 * ((batch + bt - 1) / bt) * (hidden / kUnits) <= num_sms) return bt;
+  }
+  return 4;
+}
+
+template <int H, int BT>
+cudaLaunchConfig_t split_config(int batch, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  constexpr int CL = Split<H>::kCluster;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL * ((batch + BT - 1) / BT), 2, 1);
+  cfg.blockDim = dim3(Split<H>::kThreads, 1, 1);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int H, int BT>
+int launch_split_kernel(const void* proj, const void* wp, void* out, int time, int batch, cudaStream_t s) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = split_config<H, BT>(batch, s, attr);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, lstm_sweep_split<H, BT>, static_cast<const float*>(proj),
+                                             static_cast<const float4*>(wp), static_cast<float*>(out), time, batch);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int H>
+int launch_split_h(int bt, const void* proj, const void* wp, void* out, int time, int batch, cudaStream_t s) {
+  switch (bt) {
+    case 1: return launch_split_kernel<H, 1>(proj, wp, out, time, batch, s);
+    case 2: return launch_split_kernel<H, 2>(proj, wp, out, time, batch, s);
+    default: return launch_split_kernel<H, 4>(proj, wp, out, time, batch, s);
+  }
+}
+
+int launch_split(const void* proj, const void* wp, void* out, int time, int batch, int hidden, int num_sms,
+                 cudaStream_t s) {
+  const int bt = split_bt(batch, hidden, num_sms);
+  if (hidden == 128) return launch_split_h<128>(bt, proj, wp, out, time, batch, s);
+  return launch_split_h<64>(bt, proj, wp, out, time, batch, s);
+}
+
+template <int BT>
+int max_clusters(int batch, int* clusters) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = split_config<128, BT>(batch, nullptr, attr);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, lstm_sweep_split<128, BT>, &cfg);
+}
+
+// --------------------------------------------------------------------- //
+// The FMA route's launch plan.
 
 struct Plan {
   int bt, ks, hp;
@@ -514,14 +820,15 @@ int launch(const void* proj, const void* wp, void* out, int time, int batch, int
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; route: 1 = tensor cores (wp in fragment
-// order), 0 = FMA (wp as [d][k][j][gate]) -- it must be the route
-// `lstm_sweep_plan` gives for this size; num_sms: the card's SM count (sizes
-// the FMA route's batch tile). Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16; route: 0 = FMA (wp as [d][k][j][gate]),
+// 1 = tensor cores (wp in fragment order), 2 = split (wp in its thread
+// order) -- it must be the route `lstm_sweep_plan` gives for this size;
+// num_sms: the card's SM count (sizes the batch tile). Returns the
+// cudaError_t of the launch.
 extern "C" int lstm_sweep_launch(const void* proj, const void* wp, void* out, int time, int batch,
                                  int hidden, int dtype, int route, int num_sms, void* stream) {
   if (time < 1 || batch < 1 || hidden < 1 || hidden > 256 || num_sms < 1 ||
-      (dtype != 0 && dtype != 1) || route != (int)mma_route(hidden, dtype))
+      (dtype != 0 && dtype != 1) || route != route_of(hidden, dtype))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) {
@@ -529,28 +836,45 @@ extern "C" int lstm_sweep_launch(const void* proj, const void* wp, void* out, in
       return launch_mma_kt<4>(hidden / 16, proj, wp, out, time, batch, s);
     return launch_mma_kt<8>(hidden / 16, proj, wp, out, time, batch, s);
   }
+  if (route == 2) return launch_split(proj, wp, out, time, batch, hidden, num_sms, s);
   if (dtype == 0) return launch<float>(proj, wp, out, time, batch, hidden, num_sms, s);
   return launch<__nv_bfloat16>(proj, wp, out, time, batch, hidden, num_sms, s);
 }
 
-// The launch plan for a sweep of this size, for reports: the route (1 =
-// tensor cores, 0 = FMA), batch rows per block, k groups (FMA route; 0
-// otherwise) and where w_hh lives during the sweep (2 = registers, 1 =
-// shared memory, 0 = global memory through L2).
-extern "C" void lstm_sweep_plan(int batch, int hidden, int dtype, int num_sms, int* route, int* bt,
-                                int* ks, int* w_home) {
-  if (mma_route(hidden, dtype)) {
-    *route = 1;
-    *bt = mma_rows(batch, num_sms);
-    *ks = 0;
-    *w_home = 2;
+// The launch plan for a sweep of this size, for reports: fields[0..7] =
+// the route (0 FMA, 1 tensor cores, 2 split), batch rows per block, k groups
+// (FMA route; 0 otherwise), where w_hh lives during the sweep (2 =
+// registers, 1 = shared memory, 0 = global memory through L2), blocks a
+// cluster, blocks, threads a block, and the threads that add to one unit's
+// sum (the split route's parts; the FMA route's k groups; 1 on the
+// tensor-core route, whose sums stay in one thread's accumulators).
+extern "C" void lstm_sweep_plan(int batch, int hidden, int dtype, int num_sms, int* fields) {
+  const int route = route_of(hidden, dtype);
+  if (route == 1) {
+    const int bt = mma_rows(batch, num_sms);
+    const int f[8] = {1, bt, 0, 2, 1, 2 * ((batch + bt - 1) / bt), 4 * hidden, 1};
+    for (int i = 0; i < 8; ++i) fields[i] = f[i];
+    return;
+  }
+  if (route == 2) {
+    const int bt = split_bt(batch, hidden, num_sms), cl = hidden / kUnits;
+    const int f[8] = {2, bt, 0, 2, cl, 2 * cl * ((batch + bt - 1) / bt), 4 * hidden, hidden / 16};
+    for (int i = 0; i < 8; ++i) fields[i] = f[i];
     return;
   }
   const Plan p = plan(batch, hidden, dtype == 0 ? 4 : 2, num_sms);
-  *route = 0;
-  *bt = p.bt;
-  *ks = p.ks;
-  *w_home = p.w_smem ? 1 : 0;
+  const int f[8] = {0, p.bt, p.ks, p.w_smem ? 1 : 0, 1, 2 * ((batch + p.bt - 1) / p.bt), p.ks * p.hp, p.ks};
+  for (int i = 0; i < 8; ++i) fields[i] = f[i];
+}
+
+// How many clusters of the split route at H = 128 the card holds at once
+// (cudaOccupancyMaxActiveClusters), for reports. Returns the cudaError_t.
+extern "C" int lstm_sweep_max_clusters(int batch, int num_sms, int* clusters) {
+  switch (split_bt(batch, 128, num_sms)) {
+    case 1: return max_clusters<1>(batch, clusters);
+    case 2: return max_clusters<2>(batch, clusters);
+    default: return max_clusters<4>(batch, clusters);
+  }
 }
 
 extern "C" const char* lstm_sweep_error_string(int err) {

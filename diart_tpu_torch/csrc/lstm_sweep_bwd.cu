@@ -395,24 +395,6 @@ struct SplitSmem {
   static constexpr int kBytes = 4 * kFloats;  // dynamic: 56 KB at H = 128, BT = 2
 };
 
-__device__ __forceinline__ void cluster_barrier() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-// the shared::cluster address of `addr` (a shared::cta address) in block `rank`
-__device__ __forceinline__ unsigned map_rank(unsigned addr, unsigned rank) {
-  unsigned out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-// 16 bytes into another block's shared memory, counted on its mbarrier
-__device__ __forceinline__ void st_async16(unsigned addr, const float4& v, unsigned bar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];\n"
-               ::"r"(addr), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(__float_as_uint(v.z)),
-               "r"(__float_as_uint(v.w)), "r"(bar)
-               : "memory");
-}
-
 // Phase A for the split route, in chunks of steps: every thread computes
 // the gates of kCellsA cells of chunk ch (their loads issued a chunk
 // ahead, kept raw until used) and tanh c of its cells of chunk ch - 2;
@@ -550,7 +532,7 @@ __global__ void __launch_bounds__(4 * H, 1) lstm_sweep_bwd_split(
       }
       // both blocks run and are past phase A, their mbarriers set: the
       // peer's shared memory may be written from here on
-      cluster_barrier();
+      hopper::cluster_barrier();
     } else {
       __syncthreads();  // phase A's stores are seen
     }
@@ -567,8 +549,8 @@ __global__ void __launch_bounds__(4 * H, 1) lstm_sweep_bwd_split(
     }
     unsigned peer_da = 0, peer_bar = 0;  // the peer's da buffer and mbarriers
     if constexpr (CL > 1) {
-      peer_da = map_rank(hopper::smem_u32(da_s), rank ^ 1);
-      peer_bar = map_rank(hopper::smem_u32(&mbar[0]), rank ^ 1);
+      peer_da = hopper::map_rank(hopper::smem_u32(da_s), rank ^ 1);
+      peer_bar = hopper::map_rank(hopper::smem_u32(&mbar[0]), rank ^ 1);
     }
 
     const size_t gsl = (size_t)batch * G, hsl = (size_t)batch * H;
@@ -622,7 +604,7 @@ __global__ void __launch_bounds__(4 * H, 1) lstm_sweep_bwd_split(
           const int off = cb * G + 4 * j;  // unit-major: the unit's four gates side by side
           *reinterpret_cast<float4*>(dab + off) = da;
           if constexpr (CL > 1)
-            st_async16(peer_da + 4u * ((s & 1) * BT * G + off), da, peer_bar + 8u * (s & 1));
+            hopper::st_async16(peer_da + 4u * ((s & 1) * BT * G + off), da, peer_bar + 8u * (s & 1));
         }
         if (cok) {
           float* gp = gates + gidx(tof(s), cb);
@@ -680,7 +662,7 @@ __global__ void __launch_bounds__(4 * H, 1) lstm_sweep_bwd_split(
       }
     }
     // every st.async into this block was waited for; no block leaves before its peer is done
-    if constexpr (CL > 1) cluster_barrier();
+    if constexpr (CL > 1) hopper::cluster_barrier();
   }
 }
 

@@ -14,6 +14,37 @@ gradient of :func:`lstm_sweep_reference` (what the JAX package's
 points. The packed operand is cut off from autograd, so a trained ``w_hh``
 goes in raw.
 
+The forward kernel has three routes, chosen by the stream dtype and H
+(:func:`_route` states the rule of ``csrc/lstm_sweep.cu``;
+:func:`launch_plan` reports the plan), and reads ``w_hh`` in a layout of
+each route's own: :func:`pack_w_hh` makes it (:class:`SweepWeights`) and
+``lstm_sweep_tm`` takes either the raw ``(2, 4H, H)`` tensor or the packed
+operand, so a model with fixed weights packs once instead of on every call.
+:func:`packed_gates` replays each route's recurrent product in its sum
+order. The layouts:
+
+* ``"mma"`` (bf16 stream, H = 128 or 64): the ``mma.sync``
+  m16n8k16 A fragments of ``w_hh``, ``[d][warp][tile][k tile][lane][reg][2]``.
+  Warp ``w`` owns hidden units ``8w .. 8w+7``; row ``r`` of its tile ``m`` is
+  gate ``2m + r // 8`` of unit ``8w + r % 8``, so one thread's accumulators
+  are the four gates of one unit. Lane ``l`` holds, in register ``q``, rows
+  ``l // 4 + 8 (q % 2)`` and columns ``2 (l % 4) + 8 (q // 2) + {0, 1}`` of
+  each 16 x 16 tile. The kernel keeps these registers for the whole sweep.
+* ``"split"`` (f32 stream, H = 128 or 64): w_hh held in registers for
+  the whole sweep, as f32; a block owns 64 hidden units and all four gate
+  rows of each over every k, so H = 128 takes a cluster of 2 blocks, which
+  send each other their units' new h through distributed shared memory.
+  The H / 16 threads of a unit (its "parts", lanes of one warp) each hold
+  its four gate rows over k = 8p .. 8p+7 of each half of the k range, the
+  block's own half (slot 0) first: ``(2, C, 16, 4H, 4)`` f32 (C = H / 64
+  blocks a cluster), ``[d][rank][4 g + 2 slot + e // 4][tid][e % 4] =
+  w_hh[d][g H + j][(slot ^ rank) H / 2 + 8 p + e]`` for thread ``tid = 32
+  warp + (H / 16) u + p`` of unit ``j = 64 rank + warp (512 / H) + u``. Each
+  part's sum is one chain over its own half's eight k, then the other
+  half's; the parts' sums are added as a balanced tree in part order.
+* ``"fma"`` (every other H, either dtype): ``[d][k][j][gate]``, so thread j
+  reads its four gate weights for one k as one vector.
+
 The backward kernel has two routes, chosen by H (:func:`backward_plan`
 reports them; :func:`pack_backward_w` lays ``w_hh`` out for each, and
 :func:`backward_product` replays each one's product in plain PyTorch):
@@ -29,21 +60,6 @@ reports them; :func:`pack_backward_w` lays ``w_hh`` out for each, and
   order before the one rounding to the stream dtype.
 * ``"column"`` (every other H <= 256): one thread a unit walks the 4H rows
   of its column, W in shared memory where it fits and through L2 beyond.
-
-The kernel reads ``w_hh`` in a layout of its own: :func:`pack_w_hh` makes it
-(:class:`SweepWeights`) and ``lstm_sweep_tm`` takes either the raw
-``(2, 4H, H)`` tensor or the packed operand, so a model with fixed weights
-packs once instead of on every call. Two layouts, by the kernel's route:
-
-* ``"mma"`` (bf16 stream, H = 128 or 64): the ``mma.sync``
-  m16n8k16 A fragments of ``w_hh``, ``[d][warp][tile][k tile][lane][reg][2]``.
-  Warp ``w`` owns hidden units ``8w .. 8w+7``; row ``r`` of its tile ``m`` is
-  gate ``2m + r // 8`` of unit ``8w + r % 8``, so one thread's accumulators
-  are the four gates of one unit. Lane ``l`` holds, in register ``q``, rows
-  ``l // 4 + 8 (q % 2)`` and columns ``2 (l % 4) + 8 (q // 2) + {0, 1}`` of
-  each 16 x 16 tile. The kernel keeps these registers for the whole sweep.
-* ``"fma"`` (f32 stream, or any other H): ``[d][k][j][gate]``, so thread j
-  reads its four gate weights for one k as one vector.
 """
 
 from __future__ import annotations
@@ -69,6 +85,7 @@ __all__ = [
     "lstm_sweep_backward_reference",
     "lstm_sweep_reference",
     "lstm_sweep_tm",
+    "max_clusters",
     "pack_backward_w",
     "pack_w_hh",
     "packed_gates",
@@ -76,7 +93,7 @@ __all__ = [
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ROUTES = {"fma": 0, "mma": 1}
+_ROUTES = {"fma": 0, "mma": 1, "split": 2}
 _W_HOME = ("global memory (L2)", "shared memory", "registers")
 KERNEL_MAX_HIDDEN = 256
 
@@ -108,24 +125,39 @@ def _signature(lib: ctypes.CDLL) -> None:
     p, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     lib.lstm_sweep_launch.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.lstm_sweep_launch.restype = i
-    lib.lstm_sweep_plan.argtypes = [i, i, i, i, ip, ip, ip, ip]
+    lib.lstm_sweep_plan.argtypes = [i, i, i, i, ip]
     lib.lstm_sweep_plan.restype = None
+    lib.lstm_sweep_max_clusters.argtypes = [i, i, ip]
+    lib.lstm_sweep_max_clusters.restype = i
 
 
 def launch_plan(batch: int, hidden: int, dtype: torch.dtype, device) -> dict:
-    """The kernel's launch plan for a sweep of this size on ``device``: the
-    route (``"mma"``: tensor cores, ``"fma"``), batch rows per block, k
-    groups per block (FMA route) and where w_hh lives during the sweep."""
+    """The kernel's launch plan for a sweep of this size on ``device``, as
+    the kernel's library computes it: the route (``"mma"``: tensor cores,
+    ``"split"``, ``"fma"``), batch rows per block, k groups per block (FMA
+    route), where w_hh lives during the sweep, blocks a cluster, blocks,
+    threads a block and the threads that add to one unit's sum."""
     lib = _build.library("lstm_sweep", _signature)
-    route, bt, ks, home = (ctypes.c_int() for _ in range(4))
-    lib.lstm_sweep_plan(batch, hidden, _DTYPES[dtype], _build.num_sms(device), route, bt, ks, home)
-    return {"route": "mma" if route.value else "fma", "rows_per_block": bt.value,
-            "k_groups": ks.value, "w_hh_in": _W_HOME[home.value]}
+    f = (ctypes.c_int * 8)()
+    lib.lstm_sweep_plan(batch, hidden, _DTYPES[dtype], _build.num_sms(device), f)
+    return {"route": {v: k for k, v in _ROUTES.items()}[f[0]], "rows_per_block": f[1], "k_groups": f[2],
+            "w_hh_in": _W_HOME[f[3]], "cluster": f[4], "blocks": f[5], "threads": f[6], "threads_per_unit": f[7]}
+
+
+def max_clusters(batch: int, device) -> int:
+    """How many clusters of the split route at H = 128 the card holds at
+    once (``cudaOccupancyMaxActiveClusters``), for reports."""
+    lib = _build.library("lstm_sweep", _signature)
+    n = ctypes.c_int()
+    with torch.cuda.device(device):
+        err = lib.lstm_sweep_max_clusters(batch, _build.num_sms(device), n)
+    _build.check(lib, "lstm_sweep", err)
+    return n.value
 
 
 class SweepWeights(NamedTuple):
-    """``w_hh`` laid out for the kernel's ``route`` (see the module's note),
-    in the stream dtype."""
+    """``w_hh`` laid out for the kernel's ``route`` (``"mma"``, ``"split"``
+    or ``"fma"``; see the module's note), in the stream dtype."""
 
     data: torch.Tensor
     hidden: int
@@ -133,8 +165,11 @@ class SweepWeights(NamedTuple):
 
 
 def _route(hidden: int, dtype: torch.dtype) -> str:
-    """The kernel's route for this size (the rule of ``csrc/lstm_sweep.cu``)."""
-    return "mma" if dtype == torch.bfloat16 and hidden in (64, 128) else "fma"
+    """The kernel's route for this size (the rule of ``csrc/lstm_sweep.cu``
+    ``route_of``)."""
+    if hidden not in (64, 128):
+        return "fma"
+    return "mma" if dtype == torch.bfloat16 else "split"
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,30 +185,68 @@ def _fragment_index(hidden: int, device: torch.device):
     return row.expand(shape).to(device), col.expand(shape).to(device)
 
 
+_SPLIT_UNITS = 64  # hidden units a block holds on the split routes (forward and backward)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_index(hidden: int, device: torch.device):
+    """(row, column) of ``w_hh[d]`` held at the split layout's
+    [rank][4 g + 2 slot + e // 4][tid][e % 4], as index tensors on ``device``."""
+    parts = hidden // 16
+    ar = torch.arange
+    rank, r = ar(hidden // _SPLIT_UNITS).view(-1, 1, 1, 1), ar(16).view(-1, 1, 1)
+    tid, c = ar(4 * hidden).view(-1, 1), ar(4)
+    lane = tid % 32
+    unit = _SPLIT_UNITS * rank + (tid // 32) * (32 // parts) + lane // parts
+    g, slot, e = r // 4, (r % 4) // 2, (r % 2) * 4 + c
+    row = g * hidden + unit
+    col = (slot ^ rank) * (hidden // 2) + 8 * (lane % parts) + e
+    shape = (hidden // _SPLIT_UNITS, 16, 4 * hidden, 4)
+    return row.expand(shape).to(device), col.expand(shape).to(device)
+
+
+def _layout_index(route: str, hidden: int, device: torch.device):
+    return (_fragment_index if route == "mma" else _split_index)(hidden, device)
+
+
+def _pack_fma(w_hh: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The FMA route's layout: (2, H, H, 4) in ``dtype``, ``[d][k][j][gate]``."""
+    hidden = w_hh.shape[-1]
+    return w_hh.to(dtype).view(2, 4, hidden, hidden).permute(0, 3, 2, 1).contiguous()
+
+
 def pack_w_hh(w_hh: torch.Tensor, dtype: torch.dtype) -> SweepWeights:
     """Lay ``w_hh`` (2, 4H, H) out for a stream of ``dtype``."""
     hidden = w_hh.shape[-1]
     if tuple(w_hh.shape) != (2, 4 * hidden, hidden):
         raise ValueError(f"w_hh must be (2, 4H, H); got {tuple(w_hh.shape)}")
     route = _route(hidden, dtype)
+    if route == "fma":
+        return SweepWeights(_pack_fma(w_hh, dtype), hidden, route)
     w = w_hh.to(dtype)
-    if route == "mma":
-        row, col = _fragment_index(hidden, w.device)
-        data = w[:, row, col].contiguous()
-    else:
-        data = w.view(2, 4, hidden, hidden).permute(0, 3, 2, 1).contiguous()
-    return SweepWeights(data, hidden, route)
+    row, col = _layout_index(route, hidden, w.device)
+    return SweepWeights(w[:, row, col].contiguous(), hidden, route)
 
 
 def unpack_w_hh(packed: SweepWeights) -> torch.Tensor:
     """The (2, 4H, H) ``w_hh`` (in the stream dtype) a pack was made from."""
     hidden = packed.hidden
-    if packed.route == "mma":
-        row, col = _fragment_index(hidden, packed.data.device)
-        w = torch.empty(2, 4 * hidden, hidden, dtype=packed.data.dtype, device=packed.data.device)
-        w[:, row, col] = packed.data
-        return w
-    return packed.data.permute(0, 3, 2, 1).reshape(2, 4 * hidden, hidden)
+    if packed.route == "fma":
+        return packed.data.permute(0, 3, 2, 1).reshape(2, 4 * hidden, hidden)
+    row, col = _layout_index(packed.route, hidden, packed.data.device)
+    w = torch.empty(2, 4 * hidden, hidden, dtype=packed.data.dtype, device=packed.data.device)
+    w[:, row, col] = packed.data
+    return w
+
+
+@functools.lru_cache(maxsize=None)
+def _split_k(hidden: int, device: torch.device) -> torch.Tensor:
+    """k of [unit j][part p][slot][e] on the split route: the unit's own
+    half of the k range (slot 0, the half its block computes) first."""
+    parts, ar = hidden // 16, torch.arange
+    rank = (ar(hidden) // _SPLIT_UNITS).view(-1, 1, 1, 1)
+    k = (ar(2).view(-1, 1) ^ rank) * (hidden // 2) + 8 * ar(parts).view(-1, 1, 1) + ar(8)
+    return k.to(device)
 
 
 def packed_gates(packed: SweepWeights, h: torch.Tensor) -> torch.Tensor:
@@ -181,10 +254,28 @@ def packed_gates(packed: SweepWeights, h: torch.Tensor) -> torch.Tensor:
     operand the way the kernel walks it: h (2, B, H) in the stream dtype ->
     (2, B, 4H) f32. On the ``"mma"`` route each warp's two 16-row tiles are
     rebuilt from the fragments, multiplied k tile by k tile, and the even
-    and the odd k tiles summed as two chains that meet at the end."""
+    and the odd k tiles summed as two chains that meet at the end. On the
+    ``"split"`` route each part p of unit j is one chain over its sixteen
+    k (its own half's eight, then the other half's), and the parts' sums
+    are added as a balanced tree in part order (the kernel's chains are
+    fused multiply-adds; these round the product and the sum apart)."""
     hidden, hf = packed.hidden, h.float()
     if packed.route == "fma":  # [d][k][j][gate]
         return torch.einsum("dbk,dkjg->dbgj", hf, packed.data.float()).reshape(2, -1, 4 * hidden)
+    if packed.route == "split":
+        parts = hidden // 16
+        # [d][rank][g][slot][e // 4][warp][u][p][e % 4] -> [d][j][p][g][slot][e]
+        wk = packed.data.float().view(2, hidden // _SPLIT_UNITS, 4, 2, 2, hidden // 8, 32 // parts, parts, 4)
+        wk = wk.permute(0, 1, 5, 6, 7, 2, 3, 4, 8).reshape(2, hidden, parts, 4, 2, 8)
+        hk = hf[:, :, _split_k(hidden, h.device)]  # (2, B, j, p, slot, e)
+        prod = wk[:, None] * hk[:, :, :, :, None]  # (2, B, j, p, g, slot, e)
+        acc = torch.zeros_like(prod[..., 0, 0])
+        for slot in range(2):
+            for e in range(8):
+                acc = acc + prod[..., slot, e]
+        while acc.shape[3] > 1:  # the balanced tree over the parts, in part order
+            acc = acc[:, :, :, 0::2] + acc[:, :, :, 1::2]
+        return acc[:, :, :, 0].transpose(2, 3).reshape(2, -1, 4 * hidden)
     warps, ktiles = hidden // 8, hidden // 16
     lane, reg, pair = torch.arange(32).view(-1, 1, 1), torch.arange(4).view(-1, 1), torch.arange(2)
     r = (lane // 4 + 8 * (reg % 2)).expand(32, 4, 2)
@@ -199,6 +290,24 @@ def packed_gates(packed: SweepWeights, h: torch.Tensor) -> torch.Tensor:
     # row r of tile m of warp w is gate 2m + r // 8 of unit 8w + r % 8
     acc = acc.view(2, warps, 2, 2, 8, -1).permute(0, 5, 2, 3, 1, 4)
     return acc.reshape(2, -1, 4 * hidden)
+
+
+def _split_walk(proj_t: torch.Tensor, packed: SweepWeights) -> torch.Tensor:
+    """The whole f32 sweep in the split route's order (for tests): each
+    step's product by :func:`packed_gates`, then the gate stream added to it
+    and the cell updated as the kernel does. (T, 2, B, 4H) -> (T, 2, B, H)."""
+    time, _, batch, gates4 = proj_t.shape
+    hidden = gates4 // 4
+    h = torch.zeros(2, batch, hidden, device=proj_t.device)
+    c = torch.zeros_like(h)
+    out = torch.empty(time, 2, batch, hidden, device=proj_t.device)
+    for t in range(time):
+        xt = torch.stack([proj_t[t, 0], proj_t[time - 1 - t, 1]]).float()
+        i, f, g, o = (xt + packed_gates(packed, h)).split(hidden, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        out[t, 0], out[time - 1 - t, 1] = h[0], h[1]
+    return out
 
 
 def _launch(proj_t: torch.Tensor, packed: SweepWeights) -> torch.Tensor:
@@ -326,7 +435,7 @@ def _bwd_signature(lib: ctypes.CDLL) -> None:
     lib.lstm_sweep_bwd_max_clusters.restype = i
 
 
-_SPLIT_UNITS, _SPLIT_ROWS, _SPLIT_COLS = 64, 16, 4  # units a block; rows, columns a thread
+_SPLIT_ROWS, _SPLIT_COLS = 16, 4  # the backward's split route: rows, columns of W a thread
 
 
 def _backward_route(hidden: int) -> str:

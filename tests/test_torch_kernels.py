@@ -39,7 +39,7 @@ def _sweep_inputs(seed, time, batch, hidden):
 # f32: atol 1e-5 — both sides compute the same f32 recurrence; only the
 # summation order of the h @ w_hh product differs.
 @pytest.mark.parametrize("block", [8, 0])
-@pytest.mark.parametrize("hidden", [8, 128])
+@pytest.mark.parametrize("hidden", [8, 64, 128])
 @pytest.mark.parametrize("batch", [1, 3])
 @pytest.mark.parametrize("time", [16, 21])
 def test_lstm_sweep_matches_pallas(time, batch, hidden, block):

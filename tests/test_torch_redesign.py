@@ -1,6 +1,7 @@
-"""What the tensor-core designs of the LSTM sweep and the SE-Res2Block add
-outside their CUDA kernels, held on the CPU: the fragment-order pack of
-``w_hh``, the BiLSTM's cache of it, and the time split of the group cascade
+"""What the redesigned kernels of the LSTM sweep and the SE-Res2Block add
+outside their CUDA kernels, held on the CPU: the packs of ``w_hh`` for each
+route of the sweep (fragment order, the split route's thread order, the FMA
+route's), the BiLSTM's cache of them, and the time split of the group cascade
 (tile, halo, reflection only at the sequence's ends). The kernels themselves
 are held against the plain versions on the card by chip_smoke.py.
 """
@@ -40,7 +41,9 @@ PACKS = [
     (16, torch.bfloat16, "fma"),  # a width the tensor-core route is not built for
     (24, torch.bfloat16, "fma"),  # not a multiple of 16
     (144, torch.bfloat16, "fma"),  # above the tensor-core route's 128
-    (128, torch.float32, "fma"),
+    (128, torch.float32, "split"),  # a cluster of 2 blocks
+    (64, torch.float32, "split"),  # one block
+    (136, torch.float32, "fma"),  # an f32 width the split route is not built for
     (8, torch.float32, "fma"),
 ]
 
@@ -53,6 +56,8 @@ def test_pack_w_hh_unpacks_exactly(hidden, dtype, route):
     assert packed.data.numel() == w_hh.numel() and packed.data.is_contiguous()
     if route == "mma":  # [d][warp][tile][k tile][lane][reg][2]: 16 bytes a lane
         assert tuple(packed.data.shape) == (2, hidden // 8, 2, hidden // 16, 32, 4, 2)
+    if route == "split":  # [d][rank][16 float4s][thread][4]: 64 registers a thread
+        assert tuple(packed.data.shape) == (2, hidden // 64, 16, 4 * hidden, 4)
     assert torch.equal(unpack_w_hh(packed), w_hh.to(dtype))
 
 
