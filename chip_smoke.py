@@ -33,10 +33,21 @@ Phases (any failure exits non-zero):
    SE-Res2Block at (64, 501, 512), scale 8,
    dilations 2, 3, 4 (bf16 and f32), with every stage of its stage mode,
    other batch sizes, and other lengths and time tiles of its cascade
-   (the result must not depend on the tile). Print each error beside its
+   (the result must not depend on the tile), bitwise over two calls, the
+   kernels it launched those its plan names. Print each error beside its
    tolerance, the kernel / plain / library times (CUDA events) and bounds,
    the LSTM sweep at B=256 and the SE-Res2Block at B=8, and the device
-   time of each of the block's launches by name.
+   time of each of the block's launches by name. In f32 the SE-Res2Block
+   and the stats head run on the TF32 tensor cores (3xTF32): ptxas' report
+   of those kernels (no spill, no stack frame) and their SASS (TF32 HGMMA,
+   the cascade's TF32 HMMA), both bounds (3xTF32, and the same work as
+   f32 FMAs), the product alone in true f32, and the FMA routes (built
+   under other names in ``build/smoke/``, held to the plain versions)
+   against them in A B B A turns: the block at B = 64 and 8, the stats
+   head at the x-vector's and XVector-SB's X; then the f32 policy's steps
+   (``Precision.portable()``, f32 models) with each route, A B B A: the
+   x-vector and ECAPA engines at B=64 (wall, device busy) and trainers at
+   B=32 (step wall, device busy).
 3. Drive each full-width engine for 64 streams over 14 hops of int16
    audio (warm-up, running hops, one paused stream, one slot reset):
    ``tpu/pyannet`` 4x128 + ``tpu/xvector`` 512/1500, then ``tpu/pyannet``
@@ -239,6 +250,10 @@ Phases (any failure exits non-zero):
    and on phase 10's training steps, its error, times and bound) and,
    last, ``{"ok": true, "device": ...}``.
 
+``--kernels NAMES`` runs only the build and phase 2's checks of NAMES
+(comma-separated of lstm, stats, attn, res2), each in bf16 and f32;
+``--f32-steps`` only the build and phase 2's f32 steps (after those
+checks when both are given).
 ``--families`` runs only the build and phase 7; ``--training`` only the
 build and phase 8; ``--scaleout`` only the build and phase 9
 (``--rank-child`` is phase 9's own way to start its processes);
@@ -502,6 +517,56 @@ def fma_launch(proj, wp):
     return out
 
 
+def res2_fma_block(x, k, dilation):
+    """The SE-Res2Block with every product on the FMA kernels (``tdnn_fma``,
+    ``res2_cascade_fma``; built in build/smoke/) on f32 CUDA tensors, ``k``
+    its ``Res2Operands``. Not counted: a comparison, not the path."""
+    import torch
+    from diart_tpu_torch.ops import _build, se_res2
+
+    batch, time_, chans = x.shape
+    groups, taps = k.wg.shape[:2]
+    out, cat = torch.empty_like(x), torch.empty_like(x)
+    part = torch.empty(batch, -(-time_ // 64), chans, device=x.device)
+    gate = torch.empty(batch, chans, device=x.device)
+    tile = se_res2.cascade_tile(batch, time_, x.dtype, _build.num_sms(x.device))
+    err = scratch_library("se_res2_fma")(
+        x.data_ptr(), out.data_ptr(), cat.data_ptr(), part.data_ptr(), gate.data_ptr(), *(t.data_ptr() for t in k),
+        batch, time_, chans, groups, taps, k.ws1.shape[1], dilation, tile, 0, _build.stream_handle(x.device))
+    if err != 0:
+        raise AssertionError(f"the SE-Res2Block's FMA route failed to launch: cudaError {err}")
+    return out
+
+
+def stats_fma(x, ops, wt, slope=0.01):
+    """``linear_stats_fma`` (built in build/smoke/) on f32 CUDA tensors with
+    the prepared ``ops``. Not counted: a comparison, not the path."""
+    import torch
+    from diart_tpu_torch.ops import _build
+
+    batch, time_, c_in = x.shape
+    s1 = torch.empty(batch, wt.shape[1], ops.channels, device=x.device)
+    s2 = torch.empty_like(s1)
+    err = scratch_library("linear_stats_fma")(
+        x.data_ptr(), ops.w.data_ptr(), ops.bias.data_ptr(), ops.scale.data_ptr(), ops.shift.data_ptr(),
+        wt.data_ptr(), s1.data_ptr(), s2.data_ptr(), batch, time_, c_in, ops.channels, ops.w.shape[1],
+        wt.shape[1], slope, _build.stream_handle(x.device))
+    if err != 0:
+        raise AssertionError(f"linear_stats_fma failed to launch: cudaError {err}")
+    return s1, s2
+
+
+def tf32_bounds(nbytes, tensor_flops, fma_flops=0.0):
+    """The 3xTF32 bound (three TF32 products of ``tensor_flops`` at the
+    tensor cores' peak, the ``fma_flops`` beside them on the f32 units, or
+    the bytes) and the bound of the same work as f32 FMAs: ((ms, by), (ms,
+    by))."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(3 * tensor_flops / PEAK_FLOPS["tf32"], fma_flops / PEAK_FLOPS["f32"])
+    return ((max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"),
+            bound_ms(nbytes, tensor_flops + fma_flops, "f32"))
+
+
 def bitwise_equal(a, b) -> bool:
     import torch
 
@@ -556,6 +621,8 @@ def check_stats(dtype, gen, shape=(B, T_EMB, C_IN, C_OUT, S), sweep=True, tag=""
     import torch
     from diart_tpu_torch.ops import linear_stats as ls
 
+    from diart_tpu_torch.ops import _numerics
+
     kind = "f32" if dtype == torch.float32 else "bf16"
     B, T_EMB, C_IN, C_OUT, S = shape
     x, w, b, scale, shift, wt = stats_inputs(B, T_EMB, C_IN, C_OUT, S, dtype, gen)
@@ -577,12 +644,17 @@ def check_stats(dtype, gen, shape=(B, T_EMB, C_IN, C_OUT, S), sweep=True, tag=""
     raw_ms = time_ms(lambda: ls.fused_linear_stats(x, w, b, scale, shift, wt), 20)
     plain_ms = time_ms(lambda: ls.linear_stats_reference(x, w, b, scale, shift, wt), 20)
     wl = w.to(dtype)
-    product_ms = time_ms(lambda: torch.matmul(x, wl), 20)  # yardstick: the product alone
+    with _numerics.true_f32(x.device):  # yardstick: the product alone (f32: true f32)
+        product_ms = time_ms(lambda: torch.matmul(x, wl), 20)
     nbytes = x.numel() * x.element_size() + sum(t.numel() * 4 for t in (w, b, scale, shift, wt))
     nbytes += 2 * B * S * C_OUT * 4
     gemm = 2.0 * B * T_EMB * C_IN * C_OUT
     flops = gemm + 6.0 * B * T_EMB * C_OUT + 4.0 * B * S * T_EMB * C_OUT
     bms, by = bound_ms(nbytes, flops, kind)
+    if plan["route"] != ("wgmma" if kind == "bf16" else "wgmma_tf32"):
+        raise AssertionError(f"linear_stats[{kind}{tag}] takes the {plan['route']} route")
+    if kind == "f32":  # three TF32 products beside the epilogue's f32 work; the same work as f32 FMAs
+        (bms, by), (fma_bms, fma_by) = tf32_bounds(nbytes, gemm, flops - gemm)
     log(
         f"linear_stats[{kind}{tag}] X=({B},{T_EMB},{C_IN}) W=({C_IN},{C_OUT}) S={S}: "
         f"max_abs_err={err:.3e} (tol {tol:.3e} = {STATS_TOL:g} x max|ref|) "
@@ -596,11 +668,25 @@ def check_stats(dtype, gen, shape=(B, T_EMB, C_IN, C_OUT, S), sweep=True, tag=""
     main = dict(max_abs_err=err, tol=tol, ms=ms, device_ms=device_ms, raw_operands_ms=raw_ms,
                 plain_ms=plain_ms, product_library_ms=product_ms, bound_ms=bms, bound_by=by,
                 library_ms=None, plan=plan, product_tflops=gemm / ms / 1e9, shape=shape)
+    if kind == "f32":
+        main.update(bound_ms_f32_fma=fma_bms, **stats_fma_turns(x, ops, wt, want, tol, tag))
+        log(f"  linear_stats[f32{tag}] bounds: 3xTF32 {bms:.5f} ms ({by}), the same work as f32 FMAs "
+            f"{fma_bms:.5f} ms ({fma_by})")
+        if sweep:
+            main["build"] = check_tf32_build("linear_stats")
+            args = stats_inputs(B, T_ECAPA, C_IN, C_OUT, S, dtype, gen)  # XVector-SB's head
+            xops = ls.prepare_stats_operands(*args[1:5], dtype)
+            ref = ls.linear_stats_reference(*args)
+            e, t = held_to(ls.fused_linear_stats(args[0], xops, weights=args[5]), ref, STATS_TOL)
+            if not e <= t:
+                raise AssertionError(f"linear_stats[f32] at XVector-SB's head disagrees: {e} > {t}")
+            main["xvect_sb"] = dict(max_abs_err=e, tol=t,
+                                    **stats_fma_turns(args[0], xops, args[5], ref, t, ", xvect-sb"))
     if not sweep:
         return main
     sweep_worst = 0.0
     sweep = []
-    for case in STATS_SWEEP if dtype == torch.bfloat16 else STATS_SWEEP[::3]:
+    for case in STATS_SWEEP:
         args = stats_inputs(*case, dtype, gen)
         batch, time_, c_in, channels, speakers = case
         cops = ls.prepare_stats_operands(*args[1:5], dtype)
@@ -608,6 +694,8 @@ def check_stats(dtype, gen, shape=(B, T_EMB, C_IN, C_OUT, S), sweep=True, tag=""
         e, t = held_to(got, ls.linear_stats_reference(*args), STATS_TOL)
         p = ls._plan(args[0], cops, speakers)
         same = bitwise_equal(got, ls.fused_linear_stats(args[0], cops, weights=args[5]))
+        if c_in % 8 and p["route"] != "fma" or not c_in % 8 and p["route"] not in ("wgmma", "wgmma_tf32"):
+            raise AssertionError(f"linear_stats[{kind}] at {case} takes the {p['route']} route")
         log(f"  linear_stats[{kind}] B={batch} T={time_} C_in={c_in} C={channels} S={speakers} "
             f"{p['route']} grid {p['grid']} x{p['streams_per_block']} smem {p['smem']}: "
             f"max_abs_err={e:.3e} (tol {t:.3e}), repeat bitwise {same}")
@@ -616,6 +704,25 @@ def check_stats(dtype, gen, shape=(B, T_EMB, C_IN, C_OUT, S), sweep=True, tag=""
         sweep_worst = max(sweep_worst, e / t)
         sweep.append(dict(case=case, max_abs_err=e, tol=t))
     return dict(main, sweep_cases=len(STATS_SWEEP), sweep_worst_err_over_tol=sweep_worst, sweep=sweep)
+
+
+def stats_fma_turns(x, ops, wt, want, tol, tag=""):
+    """The stats head's FMA route (built in build/smoke/) on f32 X, held to
+    ``want`` within ``tol``, against the port (the TF32 tensor cores) in A B
+    B A turns, with each one's device time."""
+    from diart_tpu_torch.ops import linear_stats as ls
+
+    fma_err = max((g - r).abs().max().item() for g, r in zip(stats_fma(x, ops, wt), want))
+    if not fma_err <= tol:
+        raise AssertionError(f"linear_stats_fma[f32{tag}] disagrees with the plain version: {fma_err} > {tol}")
+    a, b = abba(lambda: time_ms(lambda: stats_fma(x, ops, wt), 20),
+                lambda: time_ms(lambda: ls.fused_linear_stats(x, ops, weights=wt), 20))
+    fma_dev = device_times(lambda: stats_fma(x, ops, wt), "linear_stats_fma")[0][1]
+    log(f"linear_stats[f32{tag}] X={tuple(x.shape)} A B B A (A: linear_stats_fma, B: the TF32 tensor cores), ms: "
+        f"{a[0]:.4f} {b[0]:.4f} {b[1]:.4f} {a[1]:.4f}; the FMA route's device ms {fma_dev:.4f}, "
+        f"max_abs_err {fma_err:.3e}")
+    return dict(abba=dict(ms_turns=b, ms_fma_turns=a, ms=float(np.mean(b)), ms_fma=float(np.mean(a)),
+                          device_ms_fma=fma_dev, fma_max_abs_err=fma_err))
 
 
 # attn_stats: the logits are f32-accurate (3xTF32), the rest is the same f32
@@ -837,6 +944,8 @@ def check_res2(dtype, gen):
         want = se_res2.se_res2_block_reference(x, *params, d)
         torch.cuda.synchronize()
         errs[d] = held(got, want, f"block d={d}", residual=x)
+        if not torch.equal(got, se_res2.fused_se_res2_block(x, ops, d)):
+            failures.append(f"block d={d}: two calls differ")
         for stage in range(RES2_SCALE):
             got = se_res2.se_res2_staged(x, ops, d, stage)
             want = se_res2.se_res2_stage_reference(x, params, d, stage)
@@ -905,7 +1014,7 @@ def check_res2(dtype, gen):
     log(
         f"se_res2[{kind}] x=({B},{T_ECAPA},{C_ECAPA}) scale {RES2_SCALE}: block max_abs_err "
         + ", ".join(f"d={d} {e:.3e} (tol {t:.3e})" for d, (e, t) in errs.items())
-        + f"; {len(stage_errs)} stages max_abs_err={max(stage_errs):.3e}; batch 1/2/3/8 ok; "
+        + f"; bitwise over two calls; {len(stage_errs)} stages max_abs_err={max(stage_errs):.3e}; batch 1/2/3/8 ok; "
         + "time tiles ok (T=333, 5, 40, 501; the result does not depend on the tile); "
         + (f"mean abs err, worst against its tol: {worst_mean[0]:.3e} (tol {worst_mean[1]:.3e} = "
            f"2^-12 x mean|computed|); " if worst_mean else "")
@@ -920,12 +1029,58 @@ def check_res2(dtype, gen):
         + ", ".join(f"{name} {ms_:.4f} x{n:g}" for name, ms_, n in by_launch)
         + f"; sum {device_ms:.4f} (kernel_ms above is CUDA events around 20 calls: it also holds the "
         "gaps between the five launches when the host enqueues slower than the card runs)")
+    # the kernels the plan names are the ones that ran
+    plan = se_res2.launch_plan(B, T_ECAPA, C_ECAPA, 3, 2, dtype, sms)
+    ran = sorted(n.split("<")[0] for n, _, _ in by_launch)
+    if ran != sorted([plan["tdnn"], plan["cascade"], "se_gate", "se_residual"]):
+        raise AssertionError(f"se_res2[{kind}]: the block launched {ran}; its plan names {plan}")
     stage = dict(max_abs_err=max(stage_errs), stages_checked=len(stage_errs), ms=stage_ms,
                  plain_ms=stage_plain_ms, bound_ms=stage_bms, bound_by=stage_by)
-    return dict(max_abs_err=err, tol=tol, worst_mean_err=worst_mean, unrounded_gate_mean_err=mutant,
-                ms=ms, plain_ms=plain_ms, ms_b8=ms_b8, device_ms=device_ms,
-                by_launch=[dict(name=n, ms=m, per_block=c) for n, m, c in by_launch],
-                bound_ms=bms, bound_by=by, library_ms=None, stage=stage)
+    rec = dict(max_abs_err=err, tol=tol, worst_mean_err=worst_mean, unrounded_gate_mean_err=mutant,
+               ms=ms, plain_ms=plain_ms, ms_b8=ms_b8, device_ms=device_ms,
+               by_launch=[dict(name=n, ms=m, per_block=c) for n, m, c in by_launch],
+               bound_ms=bms, bound_by=by, library_ms=None, stage=stage, plan=plan)
+    if kind == "f32":
+        rec.update(res2_tf32_route(x, ops, params, flops, nbytes, rel_max))
+    return rec
+
+
+def res2_tf32_route(x, ops, params, flops, nbytes, rel_max):
+    """The f32 block on the TF32 tensor cores (3xTF32): the built kernels
+    (ptxas: no spill or stack frame; SASS: TF32 HGMMA / HMMA), both bounds
+    (3xTF32, and the same work as f32 FMAs), the two 1x1 products alone in
+    true f32 (a yardstick), and the FMA route (built in build/smoke/), held
+    to the plain version, against the port in A B B A turns at B = 64 and
+    8 with each route's device time by launch."""
+    import torch
+    from diart_tpu_torch.ops import _numerics, se_res2
+
+    build = check_tf32_build("se_res2")
+    (bms, by), (fma_bms, fma_by) = tf32_bounds(nbytes, flops)
+    w1, w2 = params[0], params[8]
+    with _numerics.true_f32(x.device):
+        product_ms = time_ms(lambda: (torch.matmul(x, w1), torch.matmul(x, w2)), 20)
+    want = se_res2.se_res2_block_reference(x, *params, 2)
+    fma_err = (res2_fma_block(x, ops, 2) - want).abs().max().item()
+    fma_tol = rel_max * max(want.abs().max().item(), 1.0)
+    if not fma_err <= fma_tol:
+        raise AssertionError(f"se_res2's FMA route [f32] disagrees with the plain version: {fma_err} > {fma_tol}")
+    turns = {}
+    for batch in (B, 8):
+        xb = x[:batch].contiguous()
+        a, b = abba(lambda: time_ms(lambda: res2_fma_block(xb, ops, 2), 20),
+                    lambda: time_ms(lambda: se_res2.fused_se_res2_block(xb, ops, 2), 20))
+        turns[f"B{batch}"] = dict(ms=float(np.mean(b)), ms_turns=b, ms_fma=float(np.mean(a)), ms_fma_turns=a)
+        log(f"se_res2[f32] B={batch} A B B A (A: the FMA route, B: the TF32 tensor cores), ms: "
+            f"{a[0]:.4f} {b[0]:.4f} {b[1]:.4f} {a[1]:.4f}")
+    fma_rows = device_times(lambda: res2_fma_block(x, ops, 2), "the SE-Res2Block's FMA route")
+    log(f"  se_res2[f32] the FMA route's device ms by launch: "
+        + ", ".join(f"{name} {ms_:.4f} x{n:g}" for name, ms_, n in fma_rows)
+        + f"; its max_abs_err {fma_err:.3e}. Bounds: 3xTF32 {bms:.5f} ms ({by}), the same work as f32 FMAs "
+        f"{fma_bms:.5f} ms ({fma_by}); the two 1x1 products alone (torch.matmul, true f32) {product_ms:.4f} ms")
+    return dict(bound_ms=bms, bound_by=by, bound_ms_f32_fma=fma_bms, product_library_ms=product_ms, abba=turns,
+                fma_max_abs_err=fma_err, fma_by_launch=[dict(name=n, ms=m, per_block=c) for n, m, c in fma_rows],
+                build=build)
 
 
 # --------------------------------------------------------------------- #
@@ -2891,9 +3046,47 @@ extern "C" int lstm_sweep_fma_launch(const void* proj, const void* wp, void* out
   return launch<float>(proj, wp, out, time, batch, hidden, num_sms, static_cast<cudaStream_t>(stream));
 }
 """
+# ... and the f32 FMA routes that the TF32 tensor-core routes replaced at
+# the main paths' widths: the SE-Res2Block with every product on FMAs
+# (`tdnn_fma`, `res2_cascade_fma`) and the stats head's `linear_stats_fma`
+RES2_FMA_SOURCE = """#include "se_res2.cu"
+
+extern "C" int se_res2_fma_block_launch(const void* x, void* out, void* cat, void* part, void* gate,
+                                        const void* w1, const void* v1, const void* wg, const void* vg,
+                                        const void* w2, const void* v2, const void* ws1, const void* bs1,
+                                        const void* ws2, const void* bs2, const void* w1s, const void* wgs,
+                                        const void* w2s, int batch, int time, int chans, int groups, int taps,
+                                        int hidden, int dilation, int tile, int dtype, void* stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const Operands k{w1, wg, w2, f(v1), f(vg), f(v2), f(ws1), f(bs1), f(ws2), f(bs2), f(w1s), f(wgs), f(w2s)};
+  return block(x, out, cat, static_cast<float*>(part), static_cast<float*>(gate), k, batch, time, chans,
+               groups, taps, hidden, dilation, tile, dtype, false, static_cast<cudaStream_t>(stream));
+}
+"""
+STATS_FMA_SOURCE = """#include "linear_stats.cu"
+
+extern "C" int linear_stats_fma_launch(const void* x, const void* w, const void* bias, const void* scale,
+                                       const void* shift, const void* wt, void* s1, void* s2, int batch,
+                                       int time, int cin, int channels, int ldw, int speakers, float slope,
+                                       void* stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o1 = static_cast<float*>(s1);
+  float* o2 = static_cast<float*>(s2);
+#define FMA_CASE(S_) \\
+  case S_:           \\
+    return launch_fma<float, S_>(x, w, f(bias), f(scale), f(shift), f(wt), o1, o2, batch, time, cin, channels, ldw, slope, s);
+  switch (speakers) {
+    FMA_CASE(1) FMA_CASE(2) FMA_CASE(3) FMA_CASE(4) FMA_CASE(5) FMA_CASE(6) FMA_CASE(7) FMA_CASE(8)
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+"""
 SCRATCH_KERNELS = {  # library -> (source, entry point, its ctypes argument kinds)
     "lstm_sweep_bwd_column": (COLUMN_SOURCE, "lstm_sweep_bwd_column_launch", "pppppiiiiip"),
     "lstm_sweep_fma": (FMA_SOURCE, "lstm_sweep_fma_launch", "pppiiiip"),
+    "se_res2_fma": (RES2_FMA_SOURCE, "se_res2_fma_block_launch", "p" * 18 + "i" * 9 + "p"),
+    "linear_stats_fma": (STATS_FMA_SOURCE, "linear_stats_fma_launch", "p" * 8 + "i" * 6 + "fp"),
 }
 SCRATCH_BUILDS = {}  # library -> the nvcc process and the library's path, started beside the package's builds
 BUILD_LOGS = {}  # the package's nvcc output (-Xptxas -v) by library
@@ -2935,7 +3128,7 @@ def scratch_library(name):
         lib = ctypes.CDLL(build["so"])
         _, entry, kinds = SCRATCH_KERNELS[name]
         fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_void_p if k == "p" else ctypes.c_int for k in kinds]
+        fn.argtypes = [dict(p=ctypes.c_void_p, i=ctypes.c_int, f=ctypes.c_float)[k] for k in kinds]
         fn.restype = ctypes.c_int
         build.update(lib=lib, fn=fn, log=text)
     return build["fn"]
@@ -3054,6 +3247,73 @@ def check_split_build(library="lstm_sweep_bwd"):
     if bad:
         raise AssertionError(f"the split route spills or keeps an array in local memory (W in registers): {bad}")
     return recs
+
+
+# the f32 routes on the TF32 tensor cores, by library: each kernel and the
+# tensor-core instruction its design issues (`wgmma`: HGMMA; `mma.sync`: HMMA)
+TF32_KERNELS = {
+    "se_res2": (("tdnn_wgmma_tf32", "HGMMA"), ("res2_cascade_tf32", "HMMA")),
+    "linear_stats": (("linear_stats_wgmma_tf32", "HGMMA"),),
+}
+
+
+def ptxas_entries(text):
+    """-Xptxas -v's record of every entry function in an nvcc log: its
+    mangled name, registers, shared memory, stack frame and spill bytes."""
+    recs, cur = [], None
+    for line in text.splitlines():
+        m = PTXAS_ENTRY.search(line)
+        if m:
+            cur = dict(entry=m.group(1))
+            recs.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return recs
+
+
+def check_tf32_build(library):
+    """The library's f32 tensor-core kernels (TF32_KERNELS) as built:
+    ptxas' report of every instantiation (none may spill or keep a stack
+    frame) and the SASS (``cuobjdump --dump-sass``): every instantiation
+    issues its design's tensor-core instruction on TF32 operands."""
+    from diart_tpu_torch.ops import _build
+
+    kernels = TF32_KERNELS[library]
+    recs = [dict(r, kernel=name) for r in ptxas_entries(BUILD_LOGS.get(library, ""))
+            for name, _ in kernels if name in r["entry"]]
+    for r in recs:
+        log(f"  [{library}] {r['entry']}: {r.get('registers')} registers, {r.get('smem')} bytes smem, stack frame "
+            f"{r.get('stack_frame')} bytes, spill stores {r.get('spill_stores')} / loads {r.get('spill_loads')}")
+    missing = [name for name, _ in kernels if not any(r["kernel"] == name for r in recs)]
+    bad = [r for r in recs if r.get("spill_stores") or r.get("spill_loads") or r.get("stack_frame")
+           or "registers" not in r]
+    if missing or bad:
+        raise AssertionError(f"{library}'s f32 tensor-core kernels: no ptxas record of {missing}, or a spill or "
+                             f"stack frame: {bad}")
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    so = str(_build.BUILD_DIR / f"lib{library}.so")
+    text = subprocess.run([tool, "--dump-sass", so], capture_output=True, text=True, timeout=120).stdout
+    funcs = re.split(r"\n\s*Function : ", text)[1:]
+    sass = {}
+    for name, op in kernels:
+        mine = [f for f in funcs if name in f.split("\n", 1)[0]]
+        found = [sorted(set(re.findall(rf"\b{op}\.[\w.]+", f))) for f in mine]
+        sass[name] = dict(instantiations=len(mine), instructions=sum(len(re.findall(rf"\b{op}\.", f)) for f in mine),
+                          forms=sorted({x for fs in found for x in fs}))
+        log(f"  [{library}] SASS of {name}: {len(mine)} instantiations, {sass[name]['instructions']} {op} "
+            f"instructions, forms {sass[name]['forms']}")
+        if not mine or not all(any("TF32" in x for x in fs) for fs in found):
+            raise AssertionError(f"{library}: every instantiation of {name} must issue {op} on TF32 operands: {sass[name]}")
+    return dict(ptxas=recs, sass=sass)
 
 
 def check_sweep_backward():
@@ -3978,6 +4238,113 @@ def quick_timing(engine, audio, steps=6):
     res.update(device_summary(prof, 3, top=6))
     res["idle_share"] = 1.0 - res["device_busy_ms"] / res["back_to_back_wall_ms"]
     return res
+
+
+@contextlib.contextmanager
+def f32_fma_routes():
+    """The f32 stats head and SE-Res2Block on their FMA kernels (the f32
+    routes before the TF32 tensor cores; scratch builds in build/smoke/) in
+    place of the port's launches, each counted as the port's launch, so a
+    step runs as the parent's did. bf16 calls are the port's."""
+    import torch
+    from diart_tpu_torch.ops import linear_stats, se_res2
+
+    real = (linear_stats._launch, se_res2._launch)
+
+    def stats(x, ops, weights, negative_slope):
+        if x.dtype != torch.float32:
+            return real[0](x, ops, weights, negative_slope)
+        out = stats_fma(x.contiguous(), ops, weights.float().contiguous(), negative_slope)
+        linear_stats.fused_linear_stats.launches += 1
+        return out
+
+    def res2(x, k, dilation):
+        if x.dtype != torch.float32:
+            return real[1](x, k, dilation)
+        out = res2_fma_block(se_res2._aligned(x), k, dilation)
+        se_res2.fused_se_res2_block.launches += 1
+        return out
+
+    linear_stats._launch, se_res2._launch = stats, res2
+    try:
+        yield
+    finally:
+        linear_stats._launch, se_res2._launch = real
+
+
+F32_TRAIN_STEPS = 6  # steps a turn of the f32 training A B B A (the first is not counted)
+
+
+def drive_f32_steps():
+    """The f32 policy's steps with the TF32 routes (B) against the FMA routes
+    (A, ``f32_fma_routes``) in A B B A turns: the x-vector and ECAPA engines
+    at B=64 with ``Precision.portable()`` and f32 models (back-to-back wall
+    and device busy a step, ``quick_timing``), and the x-vector and ECAPA
+    trainers with f32 models at B=32 after 3 warm-up steps (median wall of
+    F32_TRAIN_STEPS - 1 steps; device busy a step, and the part of it in
+    the kernels the routes change, from a profile of 3 steps)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from diart_tpu_torch.precision import Precision
+
+    routes = lambda fma: f32_fma_routes() if fma else contextlib.nullcontext()
+    out = {}
+    for emb in ("xvector", "ecapa"):
+        engine = build_engine("cuda", B, emb, seg_dtype="f32", emb_dtype="f32", precision=Precision.portable())
+        audio = make_audio(np.random.default_rng(4), WARMUP_HOPS + 14, B, 8000)
+
+        def turn(fma):
+            with routes(fma):
+                return quick_timing(engine, audio)
+
+        a, b = abba(lambda: turn(True), lambda: turn(False))
+        rec = {k: dict(fma=[r[k] for r in a], tf32=[r[k] for r in b])
+               for k in ("back_to_back_wall_ms", "device_busy_ms", "kernels_per_step")}
+        out[f"engine_{emb}"] = rec
+        log(f"f32 engine[{emb}] B={B} A B B A (A: the FMA routes, B: the TF32 routes): wall ms "
+            + " ".join(f"{v:.3f}" for v in (a[0]["back_to_back_wall_ms"], b[0]["back_to_back_wall_ms"],
+                                            b[1]["back_to_back_wall_ms"], a[1]["back_to_back_wall_ms"]))
+            + "; device busy ms " + " ".join(f"{v:.3f}" for v in (a[0]["device_busy_ms"], b[0]["device_busy_ms"],
+                                                                 b[1]["device_busy_ms"], a[1]["device_busy_ms"])))
+        del engine
+    mine = ("tdnn_", "res2_cascade", "linear_stats")  # the kernels whose route the turns change
+    for kind in ("xvector", "ecapa"):
+        model, state, opt, step = trainer(kind, "cuda", "f32")
+        waves, targets = speaker_batch(TRAIN_B, np.random.default_rng(3), "cuda")
+        held = dict(state=state)
+
+        def steps(n):
+            walls = []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                held["state"], _ = step(held["state"], waves, targets)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            return walls
+
+        steps(3)  # warm-up: the allocator's pools, cuDNN's and cuBLAS's plans
+
+        def turn(fma):
+            with routes(fma):
+                walls = steps(F32_TRAIN_STEPS)
+                with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    steps(3)
+            dev = device_summary(prof, 3, top=40)
+            own = sum(r["ms_per_step"] for r in dev["top_device_items"] if any(m in r["name"] for m in mine))
+            return dict(wall_ms=float(np.median(walls[1:])), device_busy_ms=dev["device_busy_ms"],
+                        route_kernels_ms=own)
+
+        a, b = abba(lambda: turn(True), lambda: turn(False))
+        out[f"train_{kind}"] = {k: dict(fma=[r[k] for r in a], tf32=[r[k] for r in b])
+                                for k in ("wall_ms", "device_busy_ms", "route_kernels_ms")}
+        log(f"f32 train[{kind}] B={TRAIN_B} A B B A (A: the FMA routes, B: the TF32 routes): step wall ms "
+            + " ".join(f"{r['wall_ms']:.3f}" for r in (a[0], b[0], b[1], a[1]))
+            + "; device busy ms " + " ".join(f"{r['device_busy_ms']:.3f}" for r in (a[0], b[0], b[1], a[1]))
+            + "; of it the routes' kernels " + " ".join(f"{r['route_kernels_ms']:.3f}" for r in (a[0], b[0], b[1], a[1])))
+        del model, state, opt, held
+    return out
 
 
 def cosines(a, b):
@@ -5172,6 +5539,10 @@ KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # the clusters the card holds, the A B B A against the FMA route, and the
 # other batch sizes
 SWEEP_F32_KEYS = ("plan", "device_ms", "max_clusters", "abba", "ms_b256", "ms_b528")
+# the f32 routes on the TF32 tensor cores (se_res2, linear_stats): the
+# same work's bound as f32 FMAs, the product alone in true f32, the A B B A
+# against the FMA route
+TF32_KEYS = ("bound_ms_f32_fma", "product_library_ms", "abba")
 # the statistics kernels' extra readings: prepared and raw operands, the
 # product alone (a yardstick, not the same function)
 STATS_KEYS = ("device_ms", "raw_operands_ms", "product_library_ms", "plan")
@@ -5183,6 +5554,27 @@ SWEEP_BWD_KEYS = ("device_ms", "backward_ms", "backward_launches", "backward_bou
                   "argued_latency_floor_ms", "plan", "ms_turns", "ms_column", "ms_column_turns", "phase_a_ms",
                   "phase_a_share", "phase_a_bound_ms", "cycles_a_step", "backward_ms_turns", "backward_ms_column",
                   "backward_ms_column_turns", "products_ms", "max_clusters")
+
+
+KERNEL_CHECKS = ("lstm", "stats", "attn", "res2")  # phase 2's checks, in the order they run
+
+
+def run_kernel_checks(names):
+    """Phase 2's checks of ``names`` (of KERNEL_CHECKS, run in that order),
+    each in bf16 and f32 with the generators a whole run gives them."""
+    import torch
+
+    gen = torch.Generator().manual_seed(0)
+    cgen = torch.Generator(device="cuda").manual_seed(0)  # the sweeps' large inputs, made on the card
+    bf16_f32 = (("bf16", torch.bfloat16), ("f32", torch.float32))
+    checks = dict(lstm=(check_lstm, gen, reversed(bf16_f32)), stats=(check_stats, cgen, bf16_f32),
+                  attn=(check_attn, cgen, bf16_f32), res2=(check_res2, gen, bf16_f32))
+    out = {}
+    for name in KERNEL_CHECKS:
+        if name in names:
+            check, g, kinds = checks[name]
+            out[name] = {k: check(dt, g) for k, dt in kinds}
+    return out
 
 
 def main() -> int:
@@ -5209,6 +5601,11 @@ def main() -> int:
                         help="only build the kernels and run the diart_tpu files and stacked frontend phase (10)")
     parser.add_argument("--surface", action="store_true",
                         help="only build the kernels and run the lazy models, DIART_TPU_* and log-mel phase (11)")
+    parser.add_argument("--kernels", default=None, metavar="NAMES",
+                        help="only build the kernels and run phase 2's checks of NAMES (comma-separated: "
+                             + ", ".join(KERNEL_CHECKS) + ")")
+    parser.add_argument("--f32-steps", action="store_true",
+                        help="only build the kernels and run phase 2's f32 steps (TF32 against FMA routes, A B B A)")
     parser.add_argument("--rank-child", nargs=4, metavar=("KIND", "RANK", "PORT", "DIR"),
                         help="one process of phase 9's process groups (started by the script itself)")
     parser.add_argument("--env-child", nargs=2, metavar=("CASE", "PATH"),
@@ -5282,12 +5679,18 @@ def main() -> int:
 
     from diart_tpu_torch import native
 
+    only = [k for k in (args.kernels or "").split(",") if k]
+    if any(k not in KERNEL_CHECKS for k in only):
+        parser.error(f"--kernels takes {', '.join(KERNEL_CHECKS)}; got {args.kernels}")
     t_start = t0 = time.perf_counter()
-    if not (args.families or args.scaleout or args.jax_files or args.surface or args.tf32_default):
-        start_scratch_builds()  # the A sides of phases 2's and 8's A B B A, beside the package's builds
+    if not (args.scaleout or args.jax_files or args.surface or args.tf32_default):
+        start_scratch_builds()  # the A sides of phases 2's, 7's and 8's A B B A, beside the package's builds
         atexit.register(stop_scratch_builds)
     logs = _build.build(force=True)
     BUILD_LOGS.update(logs)
+    if args.out:
+        with open(os.path.join(args.out, "build_logs.txt"), "w") as f:
+            f.write("\n".join(f"== {name}\n{text}" for name, text in logs.items()))
     native.build(force=True)
     log(f"built {', '.join(_build.KERNELS)} and the native RTTM assembler in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
@@ -5306,6 +5709,20 @@ def main() -> int:
             return 1
         log(f"gpu: {smi}")
         log(json.dumps({"tf32_default": {k: v for k, v in tf32.items() if k != "switches"}}))
+        return 0
+
+    if only or args.f32_steps:
+        tf32_off()
+        t0 = time.perf_counter()
+        checked = dict(kernels=run_kernel_checks(only))
+        log(f"kernel checks ({', '.join(only) or 'none'}) in {time.perf_counter() - t0:.1f} s")
+        if args.f32_steps:
+            checked["f32_steps"] = drive_f32_steps()
+        if args.out:
+            with open(os.path.join(args.out, "chip_smoke_kernels.json"), "w") as f:
+                json.dump(dict(gpu=smi, **checked), f, indent=1)
+        log(f"total {time.perf_counter() - t_start:.1f} s after start-up")
+        log(f"gpu: {smi}")
         return 0
 
     # phase 1's TF32 checks: torch's switches as they come; every later
@@ -5359,16 +5776,12 @@ def main() -> int:
         return 0
 
     t0 = time.perf_counter()
-    gen = torch.Generator().manual_seed(0)
-    bf16_f32 = (("bf16", torch.bfloat16), ("f32", torch.float32))
-    lstm = {k: check_lstm(dt, gen) for k, dt in reversed(bf16_f32)}
-    cgen = torch.Generator(device="cuda").manual_seed(0)  # the sweeps' large inputs, made on the card
-    stats = {k: check_stats(dt, cgen) for k, dt in bf16_f32}
-    attn = {k: check_attn(dt, cgen) for k, dt in bf16_f32}
-    res2 = {k: check_res2(dt, gen) for k, dt in bf16_f32}
+    checked = run_kernel_checks(KERNEL_CHECKS)
+    lstm, stats, attn, res2 = (checked[k] for k in KERNEL_CHECKS)
     int8 = check_int8()
+    f32_steps = drive_f32_steps()
     log(f"kernel checks in {time.perf_counter() - t0:.1f} s")
-    result = dict(gpu=smi, tf32_default=tf32, lstm=lstm, stats=stats, attn=attn, res2=res2)
+    result = dict(gpu=smi, tf32_default=tf32, lstm=lstm, stats=stats, attn=attn, res2=res2, f32_steps=f32_steps)
 
     runs, probes = {}, {}
     for emb in ("xvector", "ecapa"):
@@ -5486,6 +5899,7 @@ def main() -> int:
              at_xvect_sb=dict(at_shape(families["kernels"]["linear_stats_xvect_sb"]),
                               ms_f32=families["kernels"]["linear_stats_xvect_sb"]["f32"]["ms"]),
              **{k: stats["bf16"][k] for k in KEYS + STATS_KEYS}, ms_f32=stats["f32"]["ms"],
+             f32={k: stats["f32"][k] for k in KEYS + STATS_KEYS + TF32_KEYS + ("xvect_sb",)},
              **with_grad("linear_stats")),
         dict(name="attn_stats", route="cuda", source="diart_tpu_torch/csrc/attn_stats.cu",
              replaces="diart_tpu/ops/pallas_attn_stats.py:170", launches=ec["attn_stats"],
@@ -5505,7 +5919,10 @@ def main() -> int:
              launches_surface_paths=on_surface("se_res2"),
              **{k: res2["bf16"][k] for k in KEYS}, ms_b8=res2["bf16"]["ms_b8"],
              device_ms=res2["bf16"]["device_ms"],
-             ms_f32=res2["f32"]["ms"], by_launch=res2["bf16"]["by_launch"], **with_grad("se_res2"),
+             ms_f32=res2["f32"]["ms"], by_launch=res2["bf16"]["by_launch"],
+             f32={k: res2["f32"][k] for k in KEYS + TF32_KEYS + ("device_ms", "by_launch", "fma_by_launch", "ms_b8",
+                                                             "plan")},
+             **with_grad("se_res2"),
              stage_mode=dict(res2["bf16"]["stage"], entry="se_res2_staged",
                              replaces=["scripts/res2_stage_debug.py:141",
                                        "scripts/res2_stage_debug.py:49",

@@ -107,12 +107,6 @@ __device__ __forceinline__ float exp2_approx(float v) {
   return r;
 }
 
-__device__ __forceinline__ float tf32_rna(float v) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return __uint_as_float(r);
-}
-
 // TMA: the (32 H x 64 frames) box at (h0, t0, b) of the hidden map into a
 // 128-byte-swizzled tile; completion is counted on `bar`
 __device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap* map, int h0, int t0,
@@ -122,16 +116,6 @@ __device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap* map
       "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(h0), "r"(t0), "r"(b), "r"(bar)
       : "memory");
-}
-
-// d (64 x 64, f32) += A (64 x 8, registers) @ B (8 x 64, K-major), TF32
-__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[8][4], const unsigned (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
 // x: (B, T, C); hidden, through `hmap`: (B, T, H) f32, H % 8 == 0, H <= 32 NK;

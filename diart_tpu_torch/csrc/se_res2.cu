@@ -33,8 +33,20 @@
 //     the copies of the next slices are in flight while the products of
 //     this one run; the bias/ReLU/affine epilogue in registers, rounded to
 //     bf16 on store. Two blocks fit a multiprocessor and cover each other's
-//     prologue and epilogue. f32: `tdnn_fma`, 64 x 64 FMA tiles (true f32
-//     has no tensor-core form).
+//     prologue and epilogue. f32: `tdnn_wgmma_tf32`, the same 128 x 128
+//     tiles on the TF32 tensor cores at f32 accuracy (3xTF32: each operand
+//     split into hi = rna_tf32(v) and lo = rna_tf32(v - hi), each k8 step
+//     accumulating lo.hi + hi.lo + hi.hi, `wgmma` m64n128k8 .tf32; hi.hi
+//     and the small terms in two accumulators, since the tensor cores'
+//     f32 accumulation truncates, added to nearest at the end). A
+//     `wgmma` takes a .tf32 operand from shared memory only K-major, so W
+//     comes prepared by the wrapper as W^T (channels x k) already split;
+//     X, the A operand, is read from the ring into registers a k8 step at a
+//     time and split there, so its lo half never takes shared memory or
+//     bandwidth. Slices are 32 deep (128 bytes of f32); the A fragments of
+//     two slices live in registers at once, because a `wgmma` reads its A
+//     registers while it runs. `tdnn_fma` (64 x 64 FMA tiles) takes the
+//     widths that route does not (K or N not a multiple of 8).
 // (b) the 7 dependent group convolutions, split in time over
 //     (stream, tile) blocks so the whole card works at any batch size.
 //     y_7 at frame t needs z1 over t +- 7 pad, so a tile recomputes a halo
@@ -51,10 +63,23 @@
 //     address per lane, so the tap shift and the reflection are index
 //     arithmetic on that address and need no halo copy or im2col. The next
 //     group's z1 chunk and weights arrive by `cp.async` under the products.
-//     f32: `res2_cascade_fma`, FMAs (4 channels x up to 16 frames a thread).
+//     f32: `res2_cascade_tf32`, the same windows with 3xTF32 `mma.sync`
+//     m16n8k8 .tf32: the window sits in shared memory as f32 rows with
+//     their 16-byte chunks XOR-swizzled by the row (`ldmatrix` moves the
+//     32-bit values as pairs of 16-bit ones and reads 8 rows without a bank
+//     conflict), each group's taps as W^T hi and lo (prepared split by the
+//     wrapper, rows = output channels, swizzled alike), and each A fragment
+//     split into hi and lo in registers. The window and both halves of the
+//     taps fill shared memory, so the next group's z1 chunk is read from
+//     memory in the epilogue. `res2_cascade_fma` (FMAs, 4 channels x up to
+//     16 frames a thread) takes the windows whose shared memory the tensor
+//     route exceeds (more than 3 taps at long windows).
 // (c) z2 = TDNN(concat), the GEMM of (a), which also writes each
 //     (stream, row tile, channel) partial time sum of the rounded z2 in
 //     f32, in a fixed order.
+//
+// The f32 bound on this card: 3 x 39 GFLOP of TF32 at 495 TFLOP/s, 0.24 ms,
+// against 0.58 ms for the same work as f32 FMAs (67 TFLOP/s).
 // (d) `se_gate`: one block per stream sums the partials in a fixed order
 //     (the time mean) and runs the 512->128->512 gate MLP in f32;
 //     `se_residual` applies the gate and the residual in place over z2,
@@ -80,8 +105,15 @@ namespace {
 using hopper::cp_async16;
 using hopper::cp_async_commit;
 using hopper::cp_async_wait;
+using hopper::fence_async_shared;
 using hopper::smem_u32;
+using hopper::swizzle128;
+using hopper::tf32_split;
+using hopper::wgmma_commit;
 using hopper::wgmma_desc;
+using hopper::wgmma_fence;
+using hopper::wgmma_m64n128k8_tf32;
+using hopper::wgmma_wait;
 
 typedef __nv_bfloat16 bf16;
 
@@ -124,6 +156,26 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d (16 x 8, f32) += a (16 x 8) @ b (8 x 8), TF32
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, bf16 a, bf16 b) {
+  __nv_bfloat162 pair;
+  pair.x = a;
+  pair.y = b;
+  *reinterpret_cast<__nv_bfloat162*>(p) = pair;
 }
 
 // --------------------------------------------------------------------- //
@@ -234,6 +286,60 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[16][4], uint64_t da,
       : "l"(da), "l"(db));
 }
 
+// The epilogue of a 128 x 128 tile held as two warpgroups' m64n128
+// accumulators: acc[j][0..1] -> frame r0, [2..3] -> r0 + 8; columns n0 + 8 j
+// + 2 tig + {0, 1}. Y = dt(a * relu(acc + b) + c); part (when not null) gets
+// the column sums of the rounded Y over the tile's valid frames: the 8 row
+// groups of a warp by shuffles, then the 8 warps, in a fixed order.
+template <typename T>
+__device__ __forceinline__ void tdnn_tile_epilogue(const float (&acc)[16][4],
+                                                   const float* __restrict__ v, T* __restrict__ y,
+                                                   float* __restrict__ part, float* red, int time,
+                                                   int ndim, int n0, int t0, int b) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int r0 = t0 + warp * 16 + g;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int n = n0 + j * 8 + tig * 2;
+    float colsum[2] = {0.0f, 0.0f};
+    if (n < ndim) {  // ndim % 8 == 0: both columns in or both out
+      const float b0 = v[n], b1 = v[n + 1];
+      const float a0 = v[ndim + n], a1 = v[ndim + n + 1];
+      const float c0 = v[2 * ndim + n], c1 = v[2 * ndim + n + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = r0 + h * 8;
+        if (t >= time) continue;
+        const T o0 = from_f<T>(tdnn_epilogue(acc[j][2 * h], b0, a0, c0));
+        const T o1 = from_f<T>(tdnn_epilogue(acc[j][2 * h + 1], b1, a1, c1));
+        store2(&y[((size_t)b * time + t) * ndim + n], o0, o1);
+        colsum[0] += to_f(o0);
+        colsum[1] += to_f(o1);
+      }
+    }
+    if (part == nullptr) continue;
+    // sum the 8 row groups of a warp (lane bits 2..4); the 8 warps meet below
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      float s = colsum[p];
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (g == 0) red[warp * WBN + j * 8 + tig * 2 + p] = s;
+    }
+  }
+  if (part == nullptr) return;
+  __syncthreads();
+  if (tid < WBN && n0 + tid < ndim) {
+    float sum = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) sum += red[q * WBN + tid];
+    part[((size_t)b * gridDim.y + blockIdx.y) * ndim + n0 + tid] = sum;
+  }
+}
+
 __global__ void __launch_bounds__(WNT, 2) tdnn_wgmma(const bf16* __restrict__ x,
                                                      const bf16* __restrict__ w,
                                                      const float* __restrict__ v,
@@ -247,8 +353,7 @@ __global__ void __launch_bounds__(WNT, 2) tdnn_wgmma(const bf16* __restrict__ x,
 
   const int n0 = blockIdx.x * WBN, t0 = blockIdx.y * WBM, b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, wgrp = tid >> 7;
-  const int g = lane >> 2, tig = lane & 3;
+  const int wgrp = tid >> 7;
   const bf16* xb = x + (size_t)b * time * kdim;
 
   auto load = [&](int stage, int kb) {
@@ -305,47 +410,111 @@ __global__ void __launch_bounds__(WNT, 2) tdnn_wgmma(const bf16* __restrict__ x,
   }
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 
-  // epilogue: acc[j][0..1] -> frame r0, [2..3] -> r0 + 8; columns n0 + 8 j + 2 tig + {0, 1}
-  const int r0 = t0 + warp * 16 + g;
+  tdnn_tile_epilogue<bf16>(acc, v, y, part, red, time, ndim, n0, t0, b);
+}
+
+// f32 on the TF32 tensor cores (3xTF32); K % 8 == 0, N % 8 == 0. The tiles
+// of `tdnn_wgmma`; A, the X tile, from registers, B = W^T hi and lo (N x K,
+// k contiguous: `wt` holds hi, then lo) from shared memory, K-major. Slices
+// are copied TST - 2 ahead, so a stage is rewritten only after both
+// warpgroups' products of the slice before the last are done.
+constexpr int TBK = 32;                // k slice: 32 f32 = 128 bytes a row
+constexpr int TST = 4;                 // cp.async ring depth
+constexpr int T_X_BYTES = WBM * 128;   // 16 KB: 128 frames
+constexpr int T_W_BYTES = WBN * 128;   // 16 KB: 128 channels of W^T hi (or lo)
+constexpr int T_STAGE = T_X_BYTES + 2 * T_W_BYTES;
+constexpr size_t kTf32Smem = 1024 + (size_t)TST * T_STAGE + sizeof(float) * 8 * WBN;
+
+__global__ void __launch_bounds__(WNT, 1) tdnn_wgmma_tf32(const float* __restrict__ x,
+                                                          const float* __restrict__ wt,
+                                                          const float* __restrict__ v,
+                                                          float* __restrict__ y,
+                                                          float* __restrict__ part, int time,
+                                                          int kdim, int ndim) {
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* tiles = smem_raw + (base - smem_u32(smem_raw));
+  float* red = reinterpret_cast<float*>(tiles + TST * T_STAGE);  // [8][WBN]
+
+  const int n0 = blockIdx.x * WBN, t0 = blockIdx.y * WBM, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const float* xb = x + (size_t)b * time * kdim;
+  const float* wlo = wt + (size_t)ndim * kdim;
+
+  auto load = [&](int kb) {  // slice kb into stage kb % TST: X, W^T hi, W^T lo
+    const int k0 = kb * TBK;
+    unsigned char* xd = tiles + (kb % TST) * T_STAGE;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int n = n0 + j * 8 + tig * 2;
-    float colsum[2] = {0.0f, 0.0f};
-    if (n < ndim) {  // ndim % 8 == 0: both columns in or both out
-      const float b0 = v[n], b1 = v[n + 1];
-      const float a0 = v[ndim + n], a1 = v[ndim + n + 1];
-      const float c0 = v[2 * ndim + n], c1 = v[2 * ndim + n + 1];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int t = r0 + h * 8;
-        if (t >= time) continue;
-        __nv_bfloat162 pair;
-        pair.x = __float2bfloat16(tdnn_epilogue(acc[j][2 * h], b0, a0, c0));
-        pair.y = __float2bfloat16(tdnn_epilogue(acc[j][2 * h + 1], b1, a1, c1));
-        *reinterpret_cast<__nv_bfloat162*>(&y[((size_t)b * time + t) * ndim + n]) = pair;
-        colsum[0] += __bfloat162float(pair.x);
-        colsum[1] += __bfloat162float(pair.y);
-      }
+    for (int r = 0; r < WBM * 8 / WNT; ++r) {  // 128 rows x 8 chunks of 16 bytes each
+      const int e = tid + r * WNT;
+      const int row = e >> 3, c = e & 7;
+      const bool kin = k0 + c * 4 < kdim;
+      const bool xok = kin && t0 + row < time, wok = kin && n0 + row < ndim;
+      const size_t xat = xok ? (size_t)(t0 + row) * kdim + k0 + c * 4 : 0;
+      const size_t wat = wok ? (size_t)(n0 + row) * kdim + k0 + c * 4 : 0;
+      cp_async16(xd + swizzle128(row, c), xb + xat, xok ? 16 : 0);
+      cp_async16(xd + T_X_BYTES + swizzle128(row, c), wt + wat, wok ? 16 : 0);
+      cp_async16(xd + T_X_BYTES + T_W_BYTES + swizzle128(row, c), wlo + wat, wok ? 16 : 0);
     }
-    if (part == nullptr) continue;
-    // sum the 8 row groups of a warp (lane bits 2..4); the 8 warps meet below
+  };
+  // this thread's A rows: warp * 16 + g and + 8 (row % 8 == g: the swizzle),
+  // columns 8 ks + tig (+ 4): 16-byte chunk 2 ks (+ 1), 4-byte word tig
+  auto frags = [&](int kb, unsigned (&ah)[TBK / 8][4], unsigned (&al)[TBK / 8][4]) {
+    const float* xs = reinterpret_cast<const float*>(tiles + (kb % TST) * T_STAGE) + (warp * 16 + g) * 32;
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      float s = colsum[p];
-      s += __shfl_xor_sync(0xffffffffu, s, 4);
-      s += __shfl_xor_sync(0xffffffffu, s, 8);
-      s += __shfl_xor_sync(0xffffffffu, s, 16);
-      if (g == 0) red[warp * WBN + j * 8 + tig * 2 + p] = s;
+    for (int ks = 0; ks < TBK / 8; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        tf32_split(xs[(i & 1) * 8 * 32 + (((2 * ks + (i >> 1)) ^ g) << 2) + tig], ah[ks][i], al[ks][i]);
+  };
+
+  // hi . hi sums in acc, the small terms in lo_acc (the tensor cores' f32
+  // accumulation truncates: a sum 2^11 smaller loses 2^11 less), added
+  // once, to nearest, before the epilogue
+  float acc[16][4], lo_acc[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = lo_acc[j][i] = 0.0f;
+
+  const int nk = (kdim + TBK - 1) / TBK;
+#pragma unroll
+  for (int s = 0; s < TST - 2; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  auto slice = [&](int kb, unsigned (&ah)[TBK / 8][4], unsigned (&al)[TBK / 8][4]) {
+    cp_async_wait<TST - 3>();  // slice kb has landed (this thread's copies)
+    fence_async_shared();      // ... for the tensor cores
+    __syncthreads();           // ... every thread's; both warpgroups are done with slice kb - 2
+    if (kb + TST - 2 < nk) load(kb + TST - 2);  // into slice kb - 2's stage
+    cp_async_commit();
+    frags(kb, ah, al);  // the last products to read these registers, slice kb - 2's, are done
+    const unsigned wh = base + (kb % TST) * T_STAGE + T_X_BYTES, wl = wh + T_W_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < TBK / 8; ++ks) {  // lo . hi + hi . lo, and hi . hi
+      wgmma_m64n128k8_tf32(lo_acc, al[ks], wgmma_desc(wh + ks * 32, 16, 1024));
+      wgmma_m64n128k8_tf32(lo_acc, ah[ks], wgmma_desc(wl + ks * 32, 16, 1024));
+      wgmma_m64n128k8_tf32(acc, ah[ks], wgmma_desc(wh + ks * 32, 16, 1024));
     }
+    wgmma_commit();
+    wgmma_wait<1>();  // slice kb - 1 is done; slice kb runs on
+  };
+  // two register sets of A fragments, taken in turns
+  unsigned ah0[TBK / 8][4], al0[TBK / 8][4], ah1[TBK / 8][4], al1[TBK / 8][4];
+  for (int kb = 0; kb < nk; kb += 2) {
+    slice(kb, ah0, al0);
+    if (kb + 1 < nk) slice(kb + 1, ah1, al1);
   }
-  if (part == nullptr) return;
-  __syncthreads();
-  if (tid < WBN && n0 + tid < ndim) {
-    float sum = 0.0f;
+  wgmma_wait<0>();
 #pragma unroll
-    for (int q = 0; q < 8; ++q) sum += red[q * WBN + tid];
-    part[((size_t)b * gridDim.y + blockIdx.y) * ndim + n0 + tid] = sum;
-  }
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = __fadd_rn(acc[j][i], lo_acc[j][i]);
+  tdnn_tile_epilogue<float>(acc, v, y, part, red, time, ndim, n0, t0, b);
 }
 
 // --------------------------------------------------------------------- //
@@ -626,6 +795,160 @@ __global__ void __launch_bounds__(CNT) res2_cascade_fma(
   }
 }
 
+// f32 on the TF32 tensor cores (3xTF32). 8 warps: 4 along frames x 2 along
+// channels; a warp owns up to JT 16-row tiles (interleaved over the frame
+// warps) of 32 channels, so a block covers windows of up to 64 JT rows.
+// wgs (G, 2, taps, 64, 64): each group's taps as W^T (output channel, k),
+// hi then lo. Shared memory from a 1024-byte boundary: the window's group
+// input [rows_cap][64] f32, then the group's taps, hi then lo; every row is
+// 256 bytes with 16-byte chunk c stored at c ^ (row % 8), so an `ldmatrix`
+// address is the row's address XOR'ed with the k step's chunk bits.
+constexpr int CT_NT = 256;  // threads of the tf32 cascade
+
+__host__ __device__ constexpr size_t cascade_tf32_smem(int rows_cap, int taps) {
+  return 1024 + (size_t)rows_cap * 256 + (size_t)2 * taps * WIDTH * WIDTH * sizeof(float);
+}
+
+template <int JT>
+__global__ void __launch_bounds__(CT_NT, 1)
+    res2_cascade_tf32(const float* __restrict__ z1, float* __restrict__ cat,
+                      const float* __restrict__ wgs, const float* __restrict__ vg, int time,
+                      int chans, int taps, int dilation, int run_groups, int zero_rest, int tile,
+                      int rows_cap) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const unsigned raw = smem_u32(smem_raw);
+  const unsigned base = (raw + 1023u) & ~1023u;
+  unsigned char* inp = smem_raw + (base - raw);  // [rows_cap][256 B] group input, in place
+  const int tap_bytes = taps * WIDTH * WIDTH * (int)sizeof(float);  // one group's taps, hi or lo
+  const unsigned whi = base + rows_cap * 256;
+
+  const Window w = tile_window(tile, time, taps, dilation, run_groups);
+  const int wrows = w.whi - w.wlo;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int g = lane >> 2, tig = lane & 3;
+  const int mat = lane >> 3, mrow = lane & 7;
+  const float* zb = z1 + (size_t)blockIdx.y * time * chans;
+  float* cb = cat + (size_t)blockIdx.y * time * chans;
+
+  auto load_chunk = [&](int gi) {  // chunk gi of z1 over the window
+    for (int e = tid; e < wrows * 16; e += CT_NT) {
+      const int r = e >> 4, c = e & 15;
+      cp_async16(inp + r * 256 + ((c ^ (r & 7)) << 4),
+                 zb + (size_t)(w.wlo + r) * chans + gi * WIDTH + c * 4);
+    }
+  };
+  auto load_taps = [&](int gi) {  // the taps of group gi (1-based), hi and lo: 2 taps x 64 rows
+    const float* src = wgs + (size_t)(gi - 1) * 2 * taps * WIDTH * WIDTH;
+    unsigned char* dst = inp + rows_cap * 256;
+    for (int e = tid; e < 2 * taps * WIDTH * 16; e += CT_NT) {
+      const int r = e >> 4, c = e & 15;
+      cp_async16(dst + r * 256 + ((c ^ (r & 7)) << 4), src + r * WIDTH + c * 4);
+    }
+  };
+
+  load_taps(1);
+  load_chunk(1);
+  cp_async_commit();
+  pass_and_zero<float>(zb, cb, w, chans, run_groups, zero_rest);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int gi = 1; gi <= run_groups; ++gi) {
+    const int lo = max(0, w.t0 - (run_groups - gi) * w.pad);
+    const int hi = min(time, w.t1 + (run_groups - gi) * w.pad);
+    const int nmt = (hi - lo + 15) >> 4;
+
+    float acc[JT][4][4];
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][nt][i] = 0.0f;
+
+    for (int tap = 0; tap < taps; ++tap) {
+      const int shift = tap * dilation - w.pad;
+      // this lane's ldmatrix row of each A tile (rows (mat & 1) * 8 + mrow,
+      // k chunk mat >> 1 of the step): shifted, reflected at the sequence's
+      // ends; rows past hi are computed and dropped
+      unsigned arow[JT];
+#pragma unroll
+      for (int j = 0; j < JT; ++j) {
+        const int t = lo + (wm + 4 * j) * 16 + (mat & 1) * 8 + mrow;
+        const int r = min(max(reflect_row(t + shift, time), w.wlo), w.whi - 1) - w.wlo;
+        arow[j] = base + r * 256 + (((mat >> 1) ^ (r & 7)) << 4);
+      }
+      // ... and of the B tiles: output channels wn * 32 + 16 np + (mat >> 1) * 8
+      // + mrow, k chunk mat & 1 of the step
+      unsigned brow[2];
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        brow[np] = whi + tap * WIDTH * 256 + (wn * 32 + np * 16 + (mat >> 1) * 8 + mrow) * 256 +
+                   (((mat & 1) ^ mrow) << 4);
+#pragma unroll 2
+      for (int kk = 0; kk < WIDTH / 8; ++kk) {
+        // b[np]: {b0, b1} of channel tile 2 np, then of 2 np + 1
+        unsigned bh[2][4], bl[2][4];
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          ldmatrix_x4(brow[np] ^ (kk << 5), bh[np]);
+          ldmatrix_x4((brow[np] + tap_bytes) ^ (kk << 5), bl[np]);
+        }
+#pragma unroll
+        for (int j = 0; j < JT; ++j) {
+          if (wm + 4 * j >= nmt) continue;  // the same for the whole warp
+          unsigned a[4], ah[4], al[4];
+          ldmatrix_x4(arow[j] ^ (kk << 5), a);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) tf32_split(__uint_as_float(a[i]), ah[i], al[i]);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {  // the small terms first, then hi . hi
+            const int np = nt >> 1, q = (nt & 1) * 2;
+            mma_tf32(acc[j][nt], al, bh[np][q], bh[np][q + 1]);
+            mma_tf32(acc[j][nt], ah, bl[np][q], bl[np][q + 1]);
+            mma_tf32(acc[j][nt], ah, bh[np][q], bh[np][q + 1]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every read of inp and of the taps is done
+    if (gi < run_groups) load_taps(gi + 1);  // under the epilogue
+    cp_async_commit();
+
+    // y_i; its tile rows go out, and g_{i+1} + y_i (g_{i+1} read from z1)
+    // replaces the group input in place
+    const float* vgi = vg + (size_t)(gi - 1) * 3 * WIDTH;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int n = wn * 32 + nt * 8 + tig * 2;
+      const float b0 = vgi[n], b1 = vgi[n + 1];
+      const float a0 = vgi[WIDTH + n], a1 = vgi[WIDTH + n + 1];
+      const float c0 = vgi[2 * WIDTH + n], c1 = vgi[2 * WIDTH + n + 1];
+#pragma unroll
+      for (int j = 0; j < JT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int t = lo + (wm + 4 * j) * 16 + g + h * 8;
+          if (t >= hi) continue;
+          const float y0 = tdnn_epilogue(acc[j][nt][2 * h], b0, a0, c0);
+          const float y1 = tdnn_epilogue(acc[j][nt][2 * h + 1], b1, a1, c1);
+          const size_t at = (size_t)t * chans + gi * WIDTH + n;
+          if (t >= w.t0 && t < w.t1) store2(cb + at, y0, y1);
+          if (gi < run_groups) {
+            const float2 gv = *reinterpret_cast<const float2*>(zb + at + WIDTH);
+            const int r = t - w.wlo;
+            store2(reinterpret_cast<float*>(inp + r * 256 + (((n >> 2) ^ (r & 7)) << 4)) + (n & 3),
+                   __fadd_rn(gv.x, y0), __fadd_rn(gv.y, y1));
+          }
+        }
+    }
+    cp_async_wait<0>();  // the next taps have landed
+    __syncthreads();     // the next group's input is complete
+  }
+}
+
 // --------------------------------------------------------------------- //
 // (d) SE gate from the partial time sums, one block per stream, then the
 // gate and residual elementwise.
@@ -719,30 +1042,46 @@ int launch_with_smem(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t
   return (int)cudaGetLastError();
 }
 
+// The f32 routes, chosen by width (the wrapper's `launch_plan` states the
+// same rules): the TDNNs take the TF32 tensor cores where K and N are
+// multiples of 8, the cascade where its window and taps fit shared memory;
+// any other width takes the FMA kernels. `tensor` = false takes the FMA
+// kernels at every width (the C interface always passes true; the FMA
+// route is kept reachable for comparisons). bf16 always takes its tensor
+// cores.
+bool tf32_tdnn(int kdim, int ndim) { return kdim % 8 == 0 && ndim % 8 == 0; }
+bool tf32_cascade(int rows_cap, int taps) { return cascade_tf32_smem(rows_cap, taps) <= kMaxSmem; }
+
 // row tiles of the TDNN for T frames: the rows of `part`
 template <typename T>
-constexpr int tdnn_tile() { return sizeof(T) == 2 ? WBM : FT; }
+int tdnn_tile(bool tensor, int kdim, int ndim) {
+  return sizeof(T) == 2 || (tensor && tf32_tdnn(kdim, ndim)) ? WBM : FT;
+}
 
+// wt: f32 only, W^T (N, K) split, hi then lo (the tensor-core route's B)
 template <typename T>
-int launch_tdnn(const T* x, const T* w, const float* v, T* y, float* part, int batch, int time,
-                int kdim, int ndim, cudaStream_t st) {
+int launch_tdnn(const T* x, const T* w, const float* wt, const float* v, T* y, float* part,
+                int batch, int time, int kdim, int ndim, bool tensor, cudaStream_t st) {
+  const dim3 grid((ndim + WBN - 1) / WBN, (time + WBM - 1) / WBM, batch);
   if constexpr (sizeof(T) == 2) {
-    const dim3 grid((ndim + WBN - 1) / WBN, (time + WBM - 1) / WBM, batch);
     return launch_with_smem(tdnn_wgmma, grid, WNT, kWgmmaSmem, st, x, w, v, y, part, time, kdim,
                             ndim);
   } else {
-    const dim3 grid((ndim + FT - 1) / FT, (time + FT - 1) / FT, batch);
-    tdnn_fma<<<grid, FNT, 0, st>>>(x, w, v, y, part, time, kdim, ndim);
+    if (tensor && tf32_tdnn(kdim, ndim))
+      return launch_with_smem(tdnn_wgmma_tf32, grid, WNT, kTf32Smem, st, x, wt, v, y, part, time,
+                              kdim, ndim);
+    const dim3 fgrid((ndim + FT - 1) / FT, (time + FT - 1) / FT, batch);
+    tdnn_fma<<<fgrid, FNT, 0, st>>>(x, w, v, y, part, time, kdim, ndim);
   }
   return (int)cudaGetLastError();
 }
 
 // `tile`: frames of one time tile (the wrapper's plan); any value >= 1 gives
-// the same result.
+// the same result. wgs: f32 only, the taps split (the tensor-core route's).
 template <typename T>
-int launch_cascade(const T* z1, T* cat, const T* wg, const float* vg, int batch, int time,
-                   int chans, int groups, int taps, int dilation, int run_groups, int zero_rest,
-                   int tile, cudaStream_t st) {
+int launch_cascade(const T* z1, T* cat, const T* wg, const float* wgs, const float* vg, int batch,
+                   int time, int chans, int groups, int taps, int dilation, int run_groups,
+                   int zero_rest, int tile, bool tensor, cudaStream_t st) {
   tile = std::min(std::max(tile, 1), time);
   const int pad = (taps - 1) * dilation / 2;
   const int rows_cap = (int)std::min((long long)time, (long long)tile + 2LL * run_groups * pad);
@@ -755,6 +1094,14 @@ int launch_cascade(const T* z1, T* cat, const T* wg, const float* vg, int batch,
     return launch_with_smem(res2_cascade_mma<16>, grid, 512, smem, st, z1, cat, wg, vg, time, chans,
                             taps, dilation, run_groups, zero_rest, tile, rows_cap);
   } else {
+    if (tensor && tf32_cascade(rows_cap, taps)) {
+      const size_t smem = cascade_tf32_smem(rows_cap, taps);
+      if (rows_cap <= 256)
+        return launch_with_smem(res2_cascade_tf32<4>, grid, CT_NT, smem, st, z1, cat, wgs, vg, time,
+                                chans, taps, dilation, run_groups, zero_rest, tile, rows_cap);
+      return launch_with_smem(res2_cascade_tf32<8>, grid, CT_NT, smem, st, z1, cat, wgs, vg, time,
+                              chans, taps, dilation, run_groups, zero_rest, tile, rows_cap);
+    }
     const size_t smem =
         sizeof(float) * (((size_t)rows_cap * LDI + 3) / 4 * 4 + (size_t)taps * WIDTH * WIDTH);
     return launch_with_smem(res2_cascade_fma, grid, CNT, smem, st, z1, cat, wg, vg, time, chans,
@@ -770,26 +1117,31 @@ int check_shapes(int batch, int time, int chans, int groups, int taps, int dilat
   return 0;
 }
 
+// The block's operands as the kernels read them (see se_res2_block_launch).
+struct Operands {
+  const void *w1, *wg, *w2;
+  const float *v1, *vg, *v2, *ws1, *bs1, *ws2, *bs2, *w1s, *wgs, *w2s;
+};
+
 template <typename T>
-int block_t(const void* x, void* out, void* cat, float* part, float* gate, const void* w1,
-            const float* v1, const void* wg, const float* vg, const void* w2, const float* v2,
-            const float* ws1, const float* bs1, const float* ws2, const float* bs2, int batch,
-            int time, int chans, int groups, int taps, int hidden, int dilation, int tile,
-            cudaStream_t st) {
+int block_t(const void* x, void* out, void* cat, float* part, float* gate, const Operands& k,
+            int batch, int time, int chans, int groups, int taps, int hidden, int dilation,
+            int tile, bool tensor, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);  // z1, then z2, then the block's output
   T* ct = static_cast<T*>(cat);
-  int err = launch_tdnn<T>(xt, static_cast<const T*>(w1), v1, ot, nullptr, batch, time, chans,
-                           chans, st);
+  int err = launch_tdnn<T>(xt, static_cast<const T*>(k.w1), k.w1s, k.v1, ot, nullptr, batch, time,
+                           chans, chans, tensor, st);
   if (err) return err;
-  err = launch_cascade<T>(ot, ct, static_cast<const T*>(wg), vg, batch, time, chans, groups, taps,
-                          dilation, groups, 0, tile, st);
+  err = launch_cascade<T>(ot, ct, static_cast<const T*>(k.wg), k.wgs, k.vg, batch, time, chans,
+                          groups, taps, dilation, groups, 0, tile, tensor, st);
   if (err) return err;
-  err = launch_tdnn<T>(ct, static_cast<const T*>(w2), v2, ot, part, batch, time, chans, chans, st);
+  err = launch_tdnn<T>(ct, static_cast<const T*>(k.w2), k.w2s, k.v2, ot, part, batch, time, chans,
+                       chans, tensor, st);
   if (err) return err;
-  const int ntiles = (time + tdnn_tile<T>() - 1) / tdnn_tile<T>();
+  const int rows = tdnn_tile<T>(tensor, chans, chans);
   se_gate<<<batch, GATE_NT, sizeof(float) * (chans + (1 + GATE_KP) * hidden), st>>>(
-      part, ntiles, time, ws1, bs1, ws2, bs2, gate, chans, hidden);
+      part, (time + rows - 1) / rows, time, k.ws1, k.bs1, k.ws2, k.bs2, gate, chans, hidden);
   err = (int)cudaGetLastError();
   if (err) return err;
   const size_t vectors = (size_t)batch * time * chans * sizeof(T) / 16;
@@ -798,16 +1150,30 @@ int block_t(const void* x, void* out, void* cat, float* part, float* gate, const
   return (int)cudaGetLastError();
 }
 
+// the block on the routes `tensor` gives (see tf32_tdnn)
+int block(const void* x, void* out, void* cat, float* part, float* gate, const Operands& k,
+          int batch, int time, int chans, int groups, int taps, int hidden, int dilation, int tile,
+          int dtype, bool tensor, cudaStream_t st) {
+  int err = check_shapes(batch, time, chans, groups, taps, dilation, tile);
+  if (err || hidden < 1) return err ? err : (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return block_t<float>(x, out, cat, part, gate, k, batch, time, chans, groups, taps, hidden,
+                          dilation, tile, tensor, st);
+  if (dtype == 1)
+    return block_t<bf16>(x, out, cat, part, gate, k, batch, time, chans, groups, taps, hidden,
+                         dilation, tile, tensor, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
-int staged_t(const void* x, void* out, void* z1, const void* w1, const float* v1, const void* wg,
-             const float* vg, int batch, int time, int chans, int groups, int taps, int dilation,
-             int stage, int tile, cudaStream_t st) {
+int staged_t(const void* x, void* out, void* z1, const Operands& k, int batch, int time, int chans,
+             int groups, int taps, int dilation, int stage, int tile, cudaStream_t st) {
   T* first = static_cast<T*>(stage == 0 ? out : z1);
-  int err = launch_tdnn<T>(static_cast<const T*>(x), static_cast<const T*>(w1), v1, first, nullptr,
-                           batch, time, chans, chans, st);
+  int err = launch_tdnn<T>(static_cast<const T*>(x), static_cast<const T*>(k.w1), k.w1s, k.v1,
+                           first, nullptr, batch, time, chans, chans, true, st);
   if (err || stage == 0) return err;
-  return launch_cascade<T>(first, static_cast<T*>(out), static_cast<const T*>(wg), vg, batch, time,
-                           chans, groups, taps, dilation, stage, 1, tile, st);
+  return launch_cascade<T>(first, static_cast<T*>(out), static_cast<const T*>(k.wg), k.wgs, k.vg,
+                           batch, time, chans, groups, taps, dilation, stage, 1, tile, true, st);
 }
 
 }  // namespace
@@ -817,50 +1183,43 @@ int staged_t(const void* x, void* out, void* z1, const void* w1, const float* v1
 // aligned; cat is scratch (the concat), and out holds z1 and z2 on the way;
 // part (B, ceil(T/64), C) f32 and gate (B, C) f32 scratch; w1/w2 (C, C);
 // v1/v2 (3, C) = [b; a; c] f32; wg (G, taps, 64, 64); vg (G, 3, 64) f32;
-// ws1 (C, H), bs1 (H), ws2 (H, C), bs2 (C) f32. All contiguous. tile: frames
-// per time tile of the cascade. Returns the first failing launch's
-// cudaError_t, else 0.
+// ws1 (C, H), bs1 (H), ws2 (H, C), bs2 (C) f32; f32 only (else unread):
+// w1s/w2s (2, C, C), w1^T / w2^T split into TF32 hi and lo, and wgs (G, 2,
+// taps, 64, 64), each group's taps transposed (output, input) and split.
+// All contiguous. tile: frames per time tile of the cascade. Returns the
+// first failing launch's cudaError_t, else 0.
 extern "C" int se_res2_block_launch(const void* x, void* out, void* cat, void* part, void* gate,
                                     const void* w1, const void* v1, const void* wg,
                                     const void* vg, const void* w2, const void* v2,
                                     const void* ws1, const void* bs1, const void* ws2,
-                                    const void* bs2, int batch, int time, int chans, int groups,
+                                    const void* bs2, const void* w1s, const void* wgs,
+                                    const void* w2s, int batch, int time, int chans, int groups,
                                     int taps, int hidden, int dilation, int tile, int dtype,
                                     void* stream) {
-  int err = check_shapes(batch, time, chans, groups, taps, dilation, tile);
-  if (err || hidden < 1) return err ? err : (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  float* pt = static_cast<float*>(part);
-  float* gt = static_cast<float*>(gate);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return block_t<float>(x, out, cat, pt, gt, w1, f(v1), wg, f(vg), w2, f(v2), f(ws1), f(bs1),
-                          f(ws2), f(bs2), batch, time, chans, groups, taps, hidden, dilation, tile,
-                          st);
-  if (dtype == 1)
-    return block_t<bf16>(x, out, cat, pt, gt, w1, f(v1), wg, f(vg), w2, f(v2), f(ws1), f(bs1),
-                         f(ws2), f(bs2), batch, time, chans, groups, taps, hidden, dilation, tile,
-                         st);
-  return (int)cudaErrorInvalidValue;
+  const Operands k{w1, wg, w2, f(v1), f(vg), f(v2), f(ws1), f(bs1), f(ws2), f(bs2), f(w1s), f(wgs), f(w2s)};
+  return block(x, out, cat, static_cast<float*>(part), static_cast<float*>(gate), k, batch, time,
+               chans, groups, taps, hidden, dilation, tile, dtype, true,
+               static_cast<cudaStream_t>(stream));
 }
 
 // Stage mode: out (B, T, C) gets z1 (stage 0) or cat(g0, y1..y_stage,
 // zeros) (1 <= stage <= G); z1 (B, T, C) is scratch for stage >= 1.
 // Other arguments as above.
 extern "C" int se_res2_staged_launch(const void* x, void* out, void* z1, const void* w1,
-                                     const void* v1, const void* wg, const void* vg, int batch,
-                                     int time, int chans, int groups, int taps, int dilation,
-                                     int stage, int tile, int dtype, void* stream) {
+                                     const void* v1, const void* wg, const void* vg,
+                                     const void* w1s, const void* wgs, int batch, int time,
+                                     int chans, int groups, int taps, int dilation, int stage,
+                                     int tile, int dtype, void* stream) {
   int err = check_shapes(batch, time, chans, groups, taps, dilation, tile);
   if (err || stage < 0 || stage > groups) return err ? err : (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const Operands k{w1, wg, nullptr, f(v1), f(vg), nullptr, nullptr, nullptr, nullptr, nullptr, f(w1s), f(wgs), nullptr};
   if (dtype == 0)
-    return staged_t<float>(x, out, z1, w1, f(v1), wg, f(vg), batch, time, chans, groups, taps,
-                           dilation, stage, tile, st);
+    return staged_t<float>(x, out, z1, k, batch, time, chans, groups, taps, dilation, stage, tile, st);
   if (dtype == 1)
-    return staged_t<bf16>(x, out, z1, w1, f(v1), wg, f(vg), batch, time, chans, groups, taps,
-                          dilation, stage, tile, st);
+    return staged_t<bf16>(x, out, z1, k, batch, time, chans, groups, taps, dilation, stage, tile, st);
   return (int)cudaErrorInvalidValue;
 }
 

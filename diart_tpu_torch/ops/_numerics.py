@@ -1,4 +1,5 @@
-"""True f32 on the card, whatever torch's TF32 switches say.
+"""True f32 on the card, whatever torch's TF32 switches say; and the TF32
+split of the kernels' f32 routes.
 
 ``torch.backends.cudnn.allow_tf32`` is True by default, so a float32
 convolution on CUDA runs in TF32 (about three decimal digits) unless the
@@ -18,6 +19,13 @@ convolutions run without TF32. In the port one thread queues the card's
 work at a time: the server's single dispatch thread (``runtime/server.py``)
 and the cohort scheduler's thread (``parallel/cohort.py``) run every step;
 their harvest threads fetch and assemble text and run no convolution.
+
+The hand-written kernels' f32 routes run on the TF32 tensor cores at f32
+accuracy (3xTF32): each operand ``v`` is split into ``hi``, ``v`` rounded
+to TF32, and ``lo``, ``v - hi`` rounded the same way, and a product
+accumulates ``lo.hi + hi.lo + hi.hi`` in f32. :func:`split_tf32` makes the
+split of the weights they read prepared; the kernels split activations
+the same way on the card (``csrc/hopper.cuh`` ``tf32_split``).
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ import threading
 
 import torch
 
-__all__ = ["conv_scope", "true_f32"]
+__all__ = ["conv_scope", "split_tf32", "true_f32"]
 
 _LOCK = threading.Lock()
 _open = 0
@@ -63,3 +71,18 @@ def conv_scope(device, dtype):
     is float32; a bf16 convolution has no TF32 to turn off and gets no
     scope."""
     return true_f32(device) if dtype == torch.float32 else contextlib.nullcontext()
+
+
+def split_tf32(v: torch.Tensor):
+    """``(hi, lo)`` of f32 ``v`` as the kernels split it: ``hi`` is ``v``
+    rounded to TF32 (10 mantissa bits, to nearest, ties away from zero: PTX
+    ``cvt.rna.tf32.f32``, emulated with integer bit operations) and ``lo``
+    is ``v - hi`` rounded the same way; both f32 with the low 13 bits zero."""
+
+    def rna(u: torch.Tensor) -> torch.Tensor:
+        bits = u.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    v = v.float()
+    hi = rna(v)
+    return hi, rna(v - hi)

@@ -27,6 +27,7 @@ import torch
 
 from . import _build
 from ._grad import plain_vjp, refuse_trained_operands, wants_grad
+from ._numerics import split_tf32
 
 __all__ = [
     "AttnOperands",
@@ -65,21 +66,6 @@ def _stats_from_logits(x, logits, weights):
     s1 = torch.einsum("btc,bst->bsc", ax, wt)
     s2 = torch.einsum("btc,bst->bsc", ax * xf, wt)
     return den, s1, s2
-
-
-def split_tf32(v: torch.Tensor):
-    """``(hi, lo)`` of f32 ``v`` as the kernel splits it: ``hi`` is ``v``
-    rounded to TF32 (10 mantissa bits, to nearest, ties away from zero: PTX
-    ``cvt.rna.tf32.f32``, emulated with integer bit operations) and ``lo``
-    is ``v - hi`` rounded the same way; both f32 with the low 13 bits zero."""
-
-    def rna(u: torch.Tensor) -> torch.Tensor:
-        bits = u.contiguous().view(torch.int32)
-        return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-    v = v.float()
-    hi = rna(v)
-    return hi, rna(v - hi)
 
 
 class AttnOperands(NamedTuple):

@@ -19,7 +19,11 @@ ws2 (H, C), bs2 (C,). The 1x1 and group weights are rounded to the
 activation dtype, as the TPU kernel's wrapper does; the gate MLP stays f32.
 :func:`kernel_operands` lays the tuple out for the kernel once; the
 wrappers take either form, so a model with fixed weights prepares its
-operands once instead of on every call.
+operands once instead of on every call. In f32 the block's products run on
+the TF32 tensor cores at f32 accuracy (3xTF32), which read the 1x1 and
+group weights transposed and split into TF32 ``hi`` and ``lo``
+(:func:`split_tf32`); the layout holds them too. :func:`launch_plan` states
+the kernels' route rule.
 
 The kernel splits the group cascade in time: :func:`cascade_tile` gives the
 frames of one tile for a batch on a card, and :func:`cascade_tiled` is the
@@ -36,6 +40,7 @@ import torch
 
 from . import _build
 from ._grad import plain_vjp, refuse_trained_operands, wants_grad
+from ._numerics import split_tf32
 from .functional import reflect_index
 
 __all__ = [
@@ -45,6 +50,7 @@ __all__ = [
     "cascade_tiled",
     "fused_se_res2_block",
     "kernel_operands",
+    "launch_plan",
     "se_res2_block_reference",
     "se_res2_stage_reference",
     "se_res2_staged",
@@ -54,6 +60,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_WIDTH = 64  # the cascade kernel takes 64-wide groups (C = 64 * scale)
 KERNEL_MAX_TIME = 512  # and at most 512 frames (a tile's window of one group in shared memory)
 MIN_TILE = 64  # frames: shorter tiles mostly recompute halos
+MAX_SMEM = 232448  # bytes of shared memory a block may have (227 KB)
+TDNN_ROWS = {"tdnn_wgmma": 128, "tdnn_wgmma_tf32": 128, "tdnn_fma": 64}  # frames of a TDNN tile
 
 
 def _tdnn(v, w, b, a, c):
@@ -94,6 +102,30 @@ def cascade_tile(batch: int, time: int, dtype: torch.dtype, num_sms: int) -> int
     slots = num_sms * (2 if dtype == torch.bfloat16 else 1)
     tiles = max(1, min(slots // batch, time // MIN_TILE))
     return -(-time // tiles)
+
+
+def launch_plan(batch: int, time: int, chans: int, taps: int, dilation: int, dtype: torch.dtype,
+                num_sms: int) -> dict:
+    """The kernels a block's call launches, by the rules of
+    ``csrc/se_res2.cu`` (``tf32_tdnn``, ``tf32_cascade``): bf16 takes its
+    tensor-core kernels (``tdnn_wgmma``, ``res2_cascade_mma``); f32 takes
+    the TF32 tensor cores (3xTF32) for the 1x1 TDNNs where C is a multiple
+    of 8 (``tdnn_wgmma_tf32``, else ``tdnn_fma``) and for the cascade where
+    its window (``window_rows`` of 256 bytes) and the group's taps, hi and
+    lo, fit a block's shared memory (``res2_cascade_tf32``, else
+    ``res2_cascade_fma``). Also the cascade's time tile and the TDNN's row
+    tile (the rows of the partial sums the gate reads). Pure arithmetic."""
+    tile = cascade_tile(batch, time, dtype, num_sms)
+    pad = (taps - 1) * dilation // 2
+    rows = min(time, tile + 2 * (chans // KERNEL_WIDTH - 1) * pad)
+    if dtype == torch.bfloat16:
+        tdnn, cascade, smem = "tdnn_wgmma", "res2_cascade_mma", None
+    else:
+        smem = 1024 + rows * 256 + 2 * taps * KERNEL_WIDTH * KERNEL_WIDTH * 4
+        tdnn = "tdnn_wgmma_tf32" if chans % 8 == 0 else "tdnn_fma"
+        cascade = "res2_cascade_tf32" if smem <= MAX_SMEM else "res2_cascade_fma"
+    return dict(tdnn=tdnn, cascade=cascade, time_tile=tile, window_rows=rows, cascade_smem=smem,
+                tdnn_row_tile=TDNN_ROWS[tdnn])
 
 
 def cascade_tiled(z1, wg, bg, ag, cg, dilation: int, run_groups: int, tile: int):
@@ -163,7 +195,11 @@ def se_res2_stage_reference(x, params: Sequence[torch.Tensor], dilation: int, st
 class Res2Operands(NamedTuple):
     """The block's parameters laid out for the kernel: the 1x1 and group
     weights in the activation dtype, each (bias, scale, shift) triple
-    stacked in f32 — v1/v2 (3, C), vg (G, 3, W) — and the gate MLP in f32."""
+    stacked in f32 — v1/v2 (3, C), vg (G, 3, W) — and the gate MLP in f32.
+    In f32 also the weights the tensor cores read (:func:`split_tf32`):
+    w1s/w2s (2, C, C), w1^T and w2^T (output, input) split, hi then lo, and
+    wgs (G, 2, K, W, W), each group's taps transposed (output, input) and
+    split; empty in bf16."""
 
     w1: torch.Tensor
     v1: torch.Tensor
@@ -175,6 +211,9 @@ class Res2Operands(NamedTuple):
     bs1: torch.Tensor
     ws2: torch.Tensor
     bs2: torch.Tensor
+    w1s: torch.Tensor
+    wgs: torch.Tensor
+    w2s: torch.Tensor
 
     def params(self):
         """The 16-tuple these operands were made from (weights rounded)."""
@@ -188,11 +227,16 @@ def kernel_operands(params: Sequence[torch.Tensor], dtype: torch.dtype) -> Res2O
         raise ValueError(f"params must be the 16-tuple of the block; got {len(params)} entries")
     w1, b1, a1, c1, wg, bg, ag, cg, w2, b2, a2, c2, ws1, bs1, ws2, bs2 = params
     f32 = lambda v: v.float().contiguous()
+    if dtype == torch.float32:  # transposed to (output, input) and split for TF32
+        split = lambda v, dim: torch.stack(split_tf32(v.float().transpose(-1, -2)), dim=dim).contiguous()
+        w1s, wgs, w2s = split(w1, 0), split(wg, 1), split(w2, 0)
+    else:
+        w1s = wgs = w2s = w1.new_empty(0, dtype=torch.float32)
     return Res2Operands(
         w1=w1.to(dtype).contiguous(), v1=f32(torch.stack([b1, a1, c1])),
         wg=wg.to(dtype).contiguous(), vg=f32(torch.stack([bg, ag, cg], dim=1)),
         w2=w2.to(dtype).contiguous(), v2=f32(torch.stack([b2, a2, c2])),
-        ws1=f32(ws1), bs1=f32(bs1), ws2=f32(ws2), bs2=f32(bs2),
+        ws1=f32(ws1), bs1=f32(bs1), ws2=f32(ws2), bs2=f32(bs2), w1s=w1s, wgs=wgs, w2s=w2s,
     )
 
 
@@ -201,9 +245,9 @@ Params = Union[Sequence[torch.Tensor], Res2Operands]
 
 def _signature(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.se_res2_block_launch.argtypes = [p] * 15 + [i] * 9 + [p]
+    lib.se_res2_block_launch.argtypes = [p] * 18 + [i] * 9 + [p]
     lib.se_res2_block_launch.restype = i
-    lib.se_res2_staged_launch.argtypes = [p] * 7 + [i] * 9 + [p]
+    lib.se_res2_staged_launch.argtypes = [p] * 9 + [i] * 9 + [p]
     lib.se_res2_staged_launch.restype = i
 
 
@@ -336,7 +380,7 @@ def se_res2_staged(x, params: Params, dilation: int, stage: int):
     with torch.cuda.device(x.device):
         err = lib.se_res2_staged_launch(
             xc.data_ptr(), out.data_ptr(), z1.data_ptr(), k.w1.data_ptr(), k.v1.data_ptr(),
-            k.wg.data_ptr(), k.vg.data_ptr(), batch, time, chans, groups, taps,
+            k.wg.data_ptr(), k.vg.data_ptr(), k.w1s.data_ptr(), k.wgs.data_ptr(), batch, time, chans, groups, taps,
             int(dilation), stage, tile, _DTYPES[x.dtype], _build.stream_handle(x.device),
         )
     _build.check(lib, "se_res2", err)

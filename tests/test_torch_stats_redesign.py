@@ -216,16 +216,20 @@ def _coverage(plan, batch, channels):
     return count
 
 
-# (T, C, shared memory) with the shared memory that the kernels' sources
-# give each call (``linear_stats_wgmma_smem`` / ``attn_stats_smem``; 0: the
-# FMA route). The plans are pure arithmetic on it; the layout and the 227 KB
-# budget are the sources' own (linear_stats.cu's route rule, attn_stats.cu's
-# static_assert). linear_stats: bf16 at C_in = 512 with S = 4 and 8, C_in =
-# 200 with S = 1; then f32, C_in = 60 and C_in = 1024 (too wide), all FMA.
+# (T, C, shared memory, X's dtype) with the shared memory that the kernels'
+# sources give each call (``linear_stats_wgmma_smem`` / ``attn_stats_smem``;
+# 0: the FMA route). The plans are pure arithmetic on it; the layout and the
+# 227 KB budget are the sources' own (linear_stats.cu's route rule,
+# attn_stats.cu's static_assert). linear_stats: bf16 at C_in = 512 with S =
+# 4 and 8, C_in = 200 with S = 1; then the FMA route: f32 at C_in = 60,
+# bf16 at C_in = 1024 (too wide), f32 at C_in = 100; then the TF32 route
+# (f32, C_in % 8 == 0: the X ring and the weights only) with S = 4 and 8.
 # attn_stats: bf16 x with S = 4, then f32 x with S = 8.
+BF16, F32 = torch.bfloat16, torch.float32
 STATS_PLAN_CASES = [
-    (279, 1500, 208128), (37, 100, 210432), (600, 1536, 140864),
-    (279, 1500, 0), (279, 1500, 0), (9, 100, 0),
+    (279, 1500, 208128, BF16), (37, 100, 210432, BF16), (600, 1536, 140864, BF16),
+    (279, 1500, 0, F32), (279, 1500, 0, BF16), (9, 100, 0, F32),
+    (279, 1500, 187648, F32), (600, 1536, 189952, F32),
 ]
 ATTN_PLAN_CASES = [(501, 1536, 149488), (37, 100, 166896), (600, 1500, 166896), (1, 1536, 166896)]
 
@@ -233,10 +237,11 @@ ATTN_PLAN_CASES = [(501, 1536, 149488), (37, 100, 166896), (600, 1500, 166896), 
 @pytest.mark.parametrize("batch", [1, 3, 64, 256])
 @pytest.mark.parametrize("case", range(len(STATS_PLAN_CASES)))
 def test_linear_stats_plan_covers_every_output_once(batch, case):
-    time, channels, smem = STATS_PLAN_CASES[case]
-    plan = linear_stats.launch_plan(batch, time, channels, smem, 132)
+    time, channels, smem, dtype = STATS_PLAN_CASES[case]
+    plan = linear_stats.launch_plan(batch, time, channels, smem, 132, dtype)
     assert (_coverage(plan, batch, channels) == 1).all()
-    assert plan["smem"] == smem and plan["route"] == ("wgmma" if smem else "fma")
+    route = {BF16: "wgmma", F32: "wgmma_tf32"}[dtype] if smem else "fma"
+    assert plan["smem"] == smem and plan["route"] == route
     assert plan["frame_tiles"] * plan["frame_tile"] >= time
     if smem:  # about one block a multiprocessor
         assert plan["grid"][0] * plan["grid"][1] <= max(132, plan["grid"][0])
