@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import precision as precision_policy
+from .. import tracing
 from ..models.base import EmbeddingModel, SegmentationModel, same_device
 from ..models.fbank import (
     FbankRingSpec,
@@ -247,6 +248,7 @@ class MultiStreamEngine:
         self.precision = precision if precision is not None else precision_policy.active()
         self.normalize_weights = normalize_embedding_weights
         self._shards: List["MultiStreamEngine"] = []  # one a shard slot, with a mesh
+        self._shard: Optional[int] = None  # a shard slot's index, which its phase spans carry
         if segmentation.host_only or (embedding is not None and embedding.host_only):
             raise RuntimeError(
                 "MultiStreamEngine requires device models; host-only (ONNX) models run "
@@ -323,6 +325,7 @@ class MultiStreamEngine:
                     normalize_embedding_weights=normalize_embedding_weights, batch_size=per,
                     precision=self.precision,
                 ))
+                self._shards[-1]._shard = len(self._shards) - 1
 
     # ------------------------------------------------------------------ #
     def set_hyperparameters(
@@ -497,23 +500,35 @@ class MultiStreamEngine:
         """(B, samples) -> (segmentation (B, F, K), embeddings (B, K, E)).
         ``emb_raw``: the frame ring's raw log-mel frames, which the
         embedding then takes instead of the waveform."""
-        wave = window[:, None, :]
-        seg_kw, emb_kw = {}, {}
-        if self._stacked is not None:
-            seg_pooled, emb_pooled = self._stacked_frontend(wave)
-            seg_kw, emb_kw = {"sinc_pooled": seg_pooled}, {"sinc_pooled": emb_pooled}
-        seg = self._seg(wave, **seg_kw)
+        seg, emb_kw = self._segment(window)
         if self.is_vad:
             return seg, torch.zeros(seg.shape[0], 1, 1, dtype=seg.dtype, device=seg.device)
+        return seg, self._embed(window, seg, gamma, beta, emb_raw, emb_kw)
+
+    def _segment(self, window: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+        """(B, samples) -> (segmentation (B, F, K), the embedding's keyword
+        arguments: the stacked frontend's pooled half where it runs)."""
+        wave = window[:, None, :]
+        if self._stacked is None:
+            return self._seg(wave), {}
+        seg_pooled, emb_pooled = self._stacked_frontend(wave)
+        return self._seg(wave, sinc_pooled=seg_pooled), {"sinc_pooled": emb_pooled}
+
+    def _embed(
+        self, window: torch.Tensor, seg: torch.Tensor, gamma, beta,
+        emb_raw: Optional[torch.Tensor], emb_kw: dict,
+    ) -> torch.Tensor:
+        """A window's L2-normalized embeddings (B, K, E), weighted by its
+        segmentation's overlapped-speech penalty."""
         weights = overlapped_speech_penalty(seg, gamma, beta)
         if self.normalize_weights:
             weights = min_max_normalize(weights, dim=-2)
         if emb_raw is not None:
             frames = self._emb.trunk_from_raw_fbank(emb_raw)
         else:
-            frames = self._emb.trunk(wave, **emb_kw)
+            frames = self._emb.trunk(window[:, None, :], **emb_kw)
         emb = self._emb.head(frames, weights.transpose(1, 2))
-        return seg, normalize_embeddings(emb, 1.0)
+        return normalize_embeddings(emb, 1.0)
 
     def _stacked_frontend(self, wave: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Both models' ``|sinc conv|`` max-pooled, from one convolution of
@@ -533,44 +548,62 @@ class MultiStreamEngine:
         return pooled[:, : fs.shape[0]], pooled[:, fs.shape[0] :]
 
     def _step_impl(
-        self, state: StreamState, blocks: torch.Tensor, audio_mask, run_mask
+        self, state: StreamState, blocks, audio_mask, run_mask
     ) -> Tuple[StreamState, StepOutput]:
-        """audio_mask: streams that received a new block (ring advances);
+        """blocks, audio_mask, run_mask: as :meth:`step` takes them.
+        audio_mask: streams that received a new block (ring advances);
         run_mask: streams whose window is full (chunk is processed). During
         the first duration/step - 1 hops a stream warms up with
-        audio_mask=True, run_mask=False."""
+        audio_mask=True, run_mask=False.
+
+        Inside a recorded hop (``tracing``) the step's three phases are
+        spans, ``step.segmentation``, ``step.embedding`` and
+        ``step.clustering``, and on a card four events bound them on the
+        device."""
         tau, rho, delta, gamma, beta = self._hparams
-        audio, window, emb_raw = self._advance_audio(state.audio, blocks, audio_mask)
-        seg, emb = self._frame_scores(window, gamma, beta, emb_raw)
+        marks = tracing.device_marks(self.device, self._shard)
+        marks.mark()
+        with tracing.span("step.segmentation", shard=self._shard):
+            blocks = to_device(blocks, self.device)
+            audio_mask, run_mask = self._masks(blocks.shape[0], audio_mask, run_mask)
+            audio, window, emb_raw = self._advance_audio(state.audio, blocks, audio_mask)
+            seg, emb_kw = self._segment(window)
+            marks.mark()
+        if not self.is_vad:
+            with tracing.span("step.embedding", shard=self._shard):
+                emb = self._embed(window, seg, gamma, beta, emb_raw, emb_kw)
+        marks.mark()
 
         def keep(new, old):
             return torch.where(run_mask.view((-1,) + (1,) * (new.dim() - 1)), new, old)
 
-        if self.is_vad:
-            permuted = seg.amax(dim=-1, keepdim=True)
-            new_centers, new_active, new_init = (
-                state.centers, state.center_active, state.initialized
-            )
-        else:
-            cstate = ClusteringState(state.centers, state.center_active, state.initialized)
-            new_cstate, permuted, _ = cluster_step(
-                cstate, seg, emb, ClusteringParams(tau, rho, delta)
-            )
-            new_centers = keep(new_cstate.centers, state.centers)
-            new_active = keep(new_cstate.active, state.center_active)
-            new_init = keep(new_cstate.initialized, state.initialized)
+        with tracing.span("step.clustering", shard=self._shard):
+            if self.is_vad:
+                permuted = seg.amax(dim=-1, keepdim=True)
+                new_centers, new_active, new_init = (
+                    state.centers, state.center_active, state.initialized
+                )
+            else:
+                cstate = ClusteringState(state.centers, state.center_active, state.initialized)
+                new_cstate, permuted, _ = cluster_step(
+                    cstate, seg, emb, ClusteringParams(tau, rho, delta)
+                )
+                new_centers = keep(new_cstate.centers, state.centers)
+                new_active = keep(new_cstate.active, state.center_active)
+                new_init = keep(new_cstate.initialized, state.initialized)
 
-        ring = torch.cat([permuted[:, None].to(state.ring.dtype), state.ring[:, :-1]], dim=1)
-        count = state.chunk_count + run_mask.to(state.chunk_count.dtype)
-        agg = aggregate(self.geometry, ring, count, self._plan)
-        new_state = StreamState(
-            audio=audio,
-            ring=keep(ring, state.ring),
-            centers=new_centers,
-            center_active=new_active,
-            initialized=new_init,
-            chunk_count=count,
-        )
+            ring = torch.cat([permuted[:, None].to(state.ring.dtype), state.ring[:, :-1]], dim=1)
+            count = state.chunk_count + run_mask.to(state.chunk_count.dtype)
+            agg = aggregate(self.geometry, ring, count, self._plan)
+            new_state = StreamState(
+                audio=audio,
+                ring=keep(ring, state.ring),
+                centers=new_centers,
+                center_active=new_active,
+                initialized=new_init,
+                chunk_count=count,
+            )
+            marks.mark()
         return new_state, StepOutput(aggregated=agg, newest=permuted, chunk_index=count - 1)
 
     # ------------------------------------------------------------------ #
@@ -596,8 +629,6 @@ class MultiStreamEngine:
                 st, _rows(blocks, lo, hi), _rows(audio_mask, lo, hi), _rows(run_mask, lo, hi)
             ), state, join=False))
             return _join(list(states)), _join(list(outs))
-        blocks = to_device(blocks, self.device)
-        audio_mask, run_mask = self._masks(blocks.shape[0], audio_mask, run_mask)
         with precision_policy.use(self.precision):
             return self._step_impl(state, blocks, audio_mask, run_mask)
 

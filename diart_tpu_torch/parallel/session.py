@@ -13,7 +13,10 @@ Dispatch and harvest are split (:meth:`MultiStreamSession.push_begin` /
 binarize-and-pack and the device-to-host copies (``non_blocking``, into
 pinned memory) and records one CUDA event a device; it never waits for the
 card. The harvest waits on those events before it reads any fetched byte,
-then assembles the text on the host.
+then assembles the text on the host. While a recording is open
+(:mod:`..tracing`), the dispatch is the span ``session.dispatch`` that starts
+a hop, and the harvest's wait and assembly are ``session.wait_card`` and
+``session.assemble``.
 
 A sharded engine (``mesh``) hands back :class:`~.engine.Sharded` outputs:
 each shard is packed and fetched on its own device, and the harvest joins
@@ -25,21 +28,19 @@ from __future__ import annotations
 
 import json
 import threading
-import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .. import flaxio, native
+from .. import flaxio, native, tracing
 from ..core.annotation import Annotation
 from ..core.segment import SlidingWindow, SlidingWindowFeature
 from ..models.base import ZIP_MAGIC
 from ..ops import _build
 from ..ops.binarize import binarize, binarize_rttm, pack_binarized_bits
-from ..utils import Chronometer
 from .engine import MultiStreamEngine, Sharded, StreamState, to_device
 
 __all__ = ["MultiStreamSession"]
@@ -103,7 +104,7 @@ class _PendingHop:
     # reachable for the annotation route either way
     bits: bool = False
     device_aggregated: Optional[torch.Tensor] = None
-    t0: float = field(default_factory=time.monotonic)
+    hop: Optional[tracing.HopKey] = None  # the hop's key in an open recording
 
 
 class MultiStreamSession:
@@ -152,8 +153,6 @@ class MultiStreamSession:
 
         self.state: StreamState = engine.init_state()
         self.blocks_seen = np.zeros(b, np.int64)
-        # wall clock from dispatch to harvest of each hop
-        self.chronometer = Chronometer("step")
         self.warmup_blocks = int(round(engine.duration / engine.step_duration))
         # dispatched-but-unharvested hops, for the collect_audio guard of
         # push_begin; incremented on the dispatching thread and decremented
@@ -328,6 +327,11 @@ class MultiStreamSession:
         bits instead of the scores; False (``push_finish``) fetches the
         scores.
         """
+        with tracing.hop("session.dispatch", self) as hop:
+            return self._dispatch(blocks, present, rttm, hop)
+
+    def _dispatch(self, blocks, present, rttm: bool, hop) -> Optional[_PendingHop]:
+        """``push_begin``'s work; ``hop``: its key in an open recording."""
         b = self.batch_size
         present = np.ones(b, bool) if present is None else np.asarray(present, bool)
         if self.collect_audio and self._inflight_hops:
@@ -343,7 +347,6 @@ class MultiStreamSession:
         run_mask = present & (self.blocks_seen >= self.warmup_blocks)
 
         device_blocks = self._quantize(blocks) if self.quantize_transfer else blocks
-        t0 = time.monotonic()
         self.state, out = self.engine.step(self.state, device_blocks, present, run_mask)
         if self.collect_audio:
             # after the step is queued: a copy of blocks on the card waits
@@ -389,7 +392,7 @@ class MultiStreamSession:
             shifts=list(self.shifts),
             bits=bits,
             device_aggregated=out.aggregated,
-            t0=t0,
+            hop=hop,
         )
 
     @staticmethod
@@ -434,8 +437,10 @@ class MultiStreamSession:
         agg_rows)``: ``main`` is the aggregated scores, or the packed bits
         in ``binarize_on_device`` mode (where ``agg_rows`` carries the
         aggregated rows of first-chunk streams)."""
-        for event in pending.events:
-            event.synchronize()
+        with tracing.span("session.wait_card", hop=pending.hop):
+            for event in pending.events:
+                event.synchronize()
+        tracing.settle(pending.hop)
         fetch = [g[0].numpy() if len(g) == 1 else np.concatenate([t.numpy() for t in g])
                  for g in pending.fetch]
         main = fetch[0]
@@ -444,7 +449,6 @@ class MultiStreamSession:
             newest_rows = {int(r): fetch[1][k] for k, r in enumerate(pending.first_rows)}
             if pending.bits:
                 agg_rows = {int(r): fetch[2][k] for k, r in enumerate(pending.first_rows)}
-        self.chronometer.history.append(time.monotonic() - pending.t0)
         with self._inflight_lock:
             self._inflight_hops = max(0, self._inflight_hops - 1)
         return main, newest_rows, agg_rows
@@ -453,9 +457,14 @@ class MultiStreamSession:
         self, pending: _PendingHop
     ) -> List[Optional[Tuple[Annotation, Optional[SlidingWindowFeature]]]]:
         """Wait for a pending hop's copies and assemble its annotations."""
+        aggregated, newest_rows, _ = self._harvest(pending)
+        with tracing.span("session.assemble", hop=pending.hop):
+            return self._annotations(pending, aggregated, newest_rows)
+
+    def _annotations(self, pending: _PendingHop, aggregated, newest_rows):
+        """``push_finish``'s assembly of a harvested hop."""
         run_mask = pending.run_mask
         chunk_index = pending.chunk_index
-        aggregated, newest_rows, _ = self._harvest(pending)
         if pending.bits:
             # the annotation route needs the scores, which a bits hop did not
             # fetch: fetch them now (serving loops take the RTTM routes)
@@ -518,11 +527,15 @@ class MultiStreamSession:
         the packed bits or the scores), the first-chunk streams through the
         per-stream route (their prepended window has its own length and
         resolution). String-identical to ``push_finish(...)[i][0].to_rttm()``."""
+        main, newest_rows, agg_rows = self._harvest(pending)
+        with tracing.span("session.assemble", hop=pending.hop):
+            return self._texts(pending, main, newest_rows, agg_rows)
+
+    def _texts(self, pending: _PendingHop, main, newest_rows, agg_rows) -> List[Optional[str]]:
+        """``push_finish_rttm``'s assembly of a harvested hop."""
         b = self.batch_size
         run_mask = pending.run_mask
         chunk_index = pending.chunk_index
-        main, newest_rows, agg_rows = self._harvest(pending)
-
         geometry = self.engine.geometry
         eng = self.engine
         outputs: List[Optional[str]] = [None] * b

@@ -38,7 +38,7 @@ from diart_tpu_torch import (
     MultiStreamSession,
     SegmentationModel,
 )
-from diart_tpu_torch import native
+from diart_tpu_torch import native, tracing
 from diart_tpu_torch.core import annotation, segment
 from diart_tpu_torch.ops import binarize
 from diart_tpu_torch.parallel.engine import to_device
@@ -647,20 +647,22 @@ def _state_tensors(state):
 def test_inflight_count_under_threads(models):
     """The in-flight count is raised on the dispatching thread and lowered on
     harvest threads; with many harvest threads and a short switch interval
-    no update is lost."""
+    no update is lost, nor a harvest's span."""
     session = MultiStreamSession(_engine(models, batch=2), tau_active=TAU, collect_audio=False)
     blocks = _blocks(40, hops=16, batch=2)
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        with ThreadPoolExecutor(8) as pool:
+        with tracing.recording() as record, ThreadPoolExecutor(8) as pool:
             pendings = [session.push_begin(blk) for blk in blocks]
             futures = [pool.submit(session.push_finish_rttm, p) for p in pendings if p is not None]
             results = [f.result(timeout=120) for f in futures]
     finally:
         sys.setswitchinterval(old)
     assert len(results) == 15 and all(isinstance(t, str) for r in results for t in r)
-    assert session._inflight_hops == 0 and len(session.chronometer.history) == 15
+    assembled = [s for s in record.spans if s.name == "session.assemble"]
+    assert session._inflight_hops == 0 and len(assembled) == 15
+    assert len({s.hop for s in assembled}) == 15
 
 
 @pytest.mark.parametrize("vad", [False, True], ids=["xvector", "vad"])
@@ -710,8 +712,9 @@ def test_warm_is_side_effect_free(models):
     def run(warm):
         session = MultiStreamSession(_engine(models), tau_active=TAU)
         if warm:
-            session.warm()
-            assert session.blocks_seen.sum() == 0 and session.chronometer.history == []
+            with tracing.recording() as record:
+                session.warm()
+            assert session.blocks_seen.sum() == 0 and record.spans == []
             assert session.uris == [f"stream{i}" for i in range(BATCH)]
         return _drive(session, blocks, "rttm")
 
