@@ -34,7 +34,11 @@ Phases (any failure exits non-zero):
    dilations 2, 3, 4 (bf16 and f32), with every stage of its stage mode,
    other batch sizes, and other lengths and time tiles of its cascade
    (the result must not depend on the tile), bitwise over two calls, the
-   kernels it launched those its plan names. Print each error beside its
+   kernels it launched those its plan names; SincNet's first stage
+   (``sinc_frontend``) at 5 s windows, B = 64 and 256, one bank and the
+   stacked pair, with ``bf16_frontend`` on and off, beside cuDNN's
+   true-f32 convolution plus ``frontend_pool`` and the bounds, and over
+   other batches and lengths. Print each error beside its
    tolerance, the kernel / plain / library times (CUDA events) and bounds,
    the LSTM sweep at B=256 and the SE-Res2Block at B=8, and the device
    time of each of the block's launches by name. In f32 the SE-Res2Block
@@ -822,6 +826,162 @@ def check_attn(dtype, gen, shape=(B, T_ECAPA, C_MFA, H_ATT, S), sweep=True, tag=
         sweep.append(dict(case=case, max_abs_err=e, tol=t))
         del x_, h_, w_, b_, wt_, got
     return dict(main, sweep_cases=len(ATTN_SWEEP), sweep_worst_err_over_tol=sweep_worst, sweep=sweep)
+
+
+# sinc_frontend: the kernel folds each filter about its centre tap and sums
+# in its own order (one fused multiply-add a pair step), so only the order
+# and the pairing of the f32 sums differ from cuDNN's true-f32 convolution:
+# relative to the outputs' scale. Under bf16_frontend both round each pooled
+# value to bf16 once; a last-bit difference of the f32 value flips such a
+# rounding now and then: one bf16 step, at most 2^-7 of the value.
+SINC_TOL = 1e-5
+SINC_BF16_STEP = 2.0**-7
+# (B, F) at 5 s windows: chip_smoke's B=64 and the benchmark's B=256, one
+# bank (PyanNet's and the x-vector's) and the stacked pair of the engine
+SINC_CASES = ((64, 80), (256, 80), (64, 160), (256, 160))
+# (B, S, F) beside them: the pipelines' B=1, the widest batch the plan
+# takes, a single pooled frame, partial last tiles, a length of no whole tile
+SINC_SWEEP = ((1, 80000, 80), (528, 80000, 80), (3, 271, 80), (2, 16007, 160), (5, 300, 160),
+              (1, 80000, 160), (7, 24011, 80))
+
+
+def sinc_case(batch, samples, filters, gen):
+    """A standardized waveform (B, 1, S) on the card and the prepared bank:
+    at F=80 the perturbed mel bank (the benchmark's x-vector), at F=160
+    the engine's stacked pair, the waveform norms folded in (a bias)."""
+    import torch
+    from diart_tpu_torch.models.sincnet import SincNet
+    from diart_tpu_torch.ops import sinc_frontend as sf
+
+    x = torch.randn(batch, 1, samples, device="cuda", generator=gen)
+    x = (x - x.mean(-1, keepdim=True)) * torch.rsqrt(x.var(-1, keepdim=True, correction=0) + 1e-5)
+    seg, emb = SincNet().cuda(), SincNet().cuda()
+    perturb_sincnet(emb)
+    with torch.no_grad():
+        if filters == 80:
+            return x, sf.prepare_sinc_operands(emb.sinc.filters())
+        fs, fe = seg.sinc.filters(), emb.sinc.filters()
+        bank = torch.cat([fs * seg.wav_norm_scale, fe * emb.wav_norm_scale])
+        bias = torch.cat([seg.wav_norm_bias * fs.sum(dim=1), emb.wav_norm_bias * fe.sum(dim=1)])
+        return x, sf.prepare_sinc_operands(bank, bias, banks=2)
+
+
+def sinc_held(got, want, bf16):
+    """(max abs error, its allowance, the worst ratio of an element's error
+    to its own allowance): SINC_TOL x max|want|, and under bf16 one bf16
+    step of each value beside it."""
+    scale = want.abs().max().item()
+    room = SINC_TOL * scale + (SINC_BF16_STEP * want.abs() if bf16 else 0.0)
+    diff = (got - want).abs()
+    worst = (diff / room).max().item() if bf16 else diff.max().item() / room
+    return diff.max().item(), SINC_TOL * scale, worst
+
+
+def sinc_sass():
+    """Instruction counts of the kernel's SASS (``cuobjdump``): its FMAs
+    against the rest of the loop, a record."""
+    from diart_tpu_torch.ops import _build
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "--dump-sass", str(_build.BUILD_DIR / "libsinc_frontend.so")],
+                          capture_output=True, text=True, timeout=120).stdout
+    ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", text, re.M)
+    counts = {}
+    for op in ops:
+        counts[op] = counts.get(op, 0) + 1
+    top = dict(sorted(counts.items(), key=lambda kv: -kv[1])[:12])
+    log(f"  [sinc_frontend] SASS: {len(ops)} instructions, by opcode {top}")
+    return dict(instructions=len(ops), by_opcode=top)
+
+
+def check_sinc(dtype, gen):
+    """SincNet's first stage (``sinc_frontend``) at 5 s windows, B = 64
+    and 256, F = 80 (one bank) and 160 (the stacked pair, with a bias), with
+    ``bf16_frontend`` on (``dtype`` bf16) or off (f32): against the plain
+    version (cuDNN's true-f32 convolution, then ``frontend_pool``) within
+    SINC_TOL, bitwise over two calls, a stream alone bitwise its row of the
+    batch; its time (CUDA events and the profiler's device time) beside the
+    plain version's, cuDNN's convolution alone and the bounds; then the
+    sweep of SINC_SWEEP. In f32 also ptxas' report of the kernel (no spill
+    or stack frame) and its SASS's instruction counts."""
+    import torch
+    import torch.nn.functional as F
+    from diart_tpu_torch import precision
+    from diart_tpu_torch.ops import _build, _numerics
+    from diart_tpu_torch.ops import sinc_frontend as sf
+
+    bf16 = dtype == torch.bfloat16
+    kind = "bf16" if bf16 else "f32"
+    lib = _build.library("sinc_frontend", sf._signature)
+    rec, failures = {}, []
+    with precision.use(precision.Precision(bf16_frontend=bf16), force=True):
+        for batch, filters in SINC_CASES:
+            x, ops = sinc_case(batch, 80000, filters, gen)
+            run = lambda: sf.sinc_frontend(x, ops, sf.STRIDE)
+            plain = lambda: sf.sinc_frontend_reference(x, ops.filters, sf.STRIDE, ops.bias)
+            before = sf.sinc_frontend.launches
+            got = run()
+            want = plain()
+            torch.cuda.synchronize()
+            err, tol, worst = sinc_held(got, want, bf16)
+            same = torch.equal(got, run())
+            alone = torch.equal(sf.sinc_frontend(x[37:38], ops, sf.STRIDE), got[37:38])
+            launched = sf.sinc_frontend.launches - before
+            plan = sf.launch_plan(batch, 80000, filters, _build.num_sms(x.device))
+            ms = time_ms(run, 20)
+            device = device_times(run, "sinc_frontend")
+            plain_ms = time_ms(plain, 10)
+            with _numerics.true_f32(x.device):
+                library_ms = time_ms(lambda: F.conv1d(x, ops.filters[:, None, :], ops.bias, stride=sf.STRIDE), 10)
+            flops = 2.0 * (filters // 2 * 126 + filters // 2 * 125) * sf.POOL * plan["pooled"] * batch
+            nbytes = 4.0 * batch * 80000 + 4.0 * batch * filters * plan["pooled"]
+            (bms, by), (fma_ms, fma_by) = tf32_bounds(nbytes, flops)
+            smem = lib.sinc_frontend_smem(filters)
+            tag = f"B{batch}_F{filters}"
+            log(f"sinc_frontend[{kind}] wave ({batch}, 1, 80000) F={filters}: max_abs_err={err:.3e} (tol {tol:.3e} = "
+                f"{SINC_TOL:g} x max|ref|{' + one bf16 step of each value' if bf16 else ''}; worst element "
+                f"{worst:.3f} of its room) bitwise over two calls {same}, stream 37 alone bitwise {alone}; "
+                f"kernel_ms={ms:.4f} (device {device[0][1]:.4f} as {device[0][0]}; {flops / ms / 1e9:.1f} "
+                f"TFLOP/s folded) plain_ms={plain_ms:.4f} (cuDNN true f32 + frontend_pool) "
+                f"library_ms={library_ms:.4f} (cuDNN's convolution alone) bound_ms={bms:.4f} ({by}, the f32 "
+                f"product peak 165 TFLOP/s) fma_bound_ms={fma_ms:.4f} ({fma_by}, 67 TFLOP/s) plan={plan} "
+                f"library smem {smem}")
+            if not (worst <= 1.0 and same and alone and launched == 3 and smem == plan["smem"]
+                    and device[0][0].startswith("sinc_frontend")):
+                failures.append(f"{tag}: worst {worst}, repeat {same}, alone {alone}, launches {launched}, "
+                                f"smem {smem} / {plan['smem']}, device {device[0][0]}")
+            rec[tag] = dict(max_abs_err=err, tol=tol, worst=worst, ms=ms, device_ms=device[0][1],
+                            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=by,
+                            bound_ms_f32_fma=fma_ms, plan=plan, tflops=flops / ms / 1e9)
+            del x, ops, got, want
+        sweep = []
+        for batch, samples, filters in SINC_SWEEP:
+            x, ops = sinc_case(batch, samples, filters, gen)
+            got = sf.sinc_frontend(x, ops, sf.STRIDE)
+            want = sf.sinc_frontend_reference(x, ops.filters, sf.STRIDE, ops.bias)
+            err, tol, worst = sinc_held(got, want, bf16)
+            same = torch.equal(got, sf.sinc_frontend(x, ops, sf.STRIDE))
+            plan = sf.launch_plan(batch, samples, filters, _build.num_sms(x.device))
+            log(f"  sinc_frontend[{kind}] B={batch} S={samples} F={filters} -> {tuple(got.shape)}: "
+                f"max_abs_err={err:.3e} (tol {tol:.3e}; worst {worst:.3f}) repeat bitwise {same}; "
+                f"grid {plan['grid']}, {plan['items']} items of {plan['tile']} pooled frames")
+            if not (worst <= 1.0 and same and got.shape == want.shape):
+                failures.append(f"sweep {(batch, samples, filters)}: worst {worst}, repeat {same}")
+            sweep.append(dict(case=(batch, samples, filters), max_abs_err=err, tol=tol, worst=worst))
+            del x, ops, got, want
+    main = dict(rec["B64_F80"], at_b256=rec["B256_F80"], cases=rec, sweep=sweep)
+    if not bf16:
+        recs = [r for r in ptxas_entries(BUILD_LOGS.get("sinc_frontend", "")) if "sinc_frontend" in r["entry"]]
+        for r in recs:
+            log(f"  [sinc_frontend] {r['entry']}: {r.get('registers')} registers, {r.get('smem')} bytes smem, "
+                f"stack frame {r.get('stack_frame')} bytes, spill stores {r.get('spill_stores')} / loads "
+                f"{r.get('spill_loads')}")
+        if not recs or any(r.get("spill_stores") or r.get("spill_loads") or r.get("stack_frame") for r in recs):
+            failures.append(f"ptxas: no record, or a spill or stack frame: {recs}")
+        main.update(ptxas=recs, sass=sinc_sass())
+    if failures:
+        raise AssertionError(f"sinc_frontend[{kind}]: " + "; ".join(failures))
+    return main
 
 
 def res2_params(gen, dev):
@@ -5556,7 +5716,7 @@ SWEEP_BWD_KEYS = ("device_ms", "backward_ms", "backward_launches", "backward_bou
                   "backward_ms_column_turns", "products_ms", "max_clusters")
 
 
-KERNEL_CHECKS = ("lstm", "stats", "attn", "res2")  # phase 2's checks, in the order they run
+KERNEL_CHECKS = ("lstm", "stats", "attn", "res2", "sinc")  # phase 2's checks, in the order they run
 
 
 def run_kernel_checks(names):
@@ -5568,7 +5728,8 @@ def run_kernel_checks(names):
     cgen = torch.Generator(device="cuda").manual_seed(0)  # the sweeps' large inputs, made on the card
     bf16_f32 = (("bf16", torch.bfloat16), ("f32", torch.float32))
     checks = dict(lstm=(check_lstm, gen, reversed(bf16_f32)), stats=(check_stats, cgen, bf16_f32),
-                  attn=(check_attn, cgen, bf16_f32), res2=(check_res2, gen, bf16_f32))
+                  attn=(check_attn, cgen, bf16_f32), res2=(check_res2, gen, bf16_f32),
+                  sinc=(check_sinc, cgen, bf16_f32))
     out = {}
     for name in KERNEL_CHECKS:
         if name in names:
@@ -5777,11 +5938,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     checked = run_kernel_checks(KERNEL_CHECKS)
-    lstm, stats, attn, res2 = (checked[k] for k in KERNEL_CHECKS)
+    lstm, stats, attn, res2, sinc = (checked[k] for k in KERNEL_CHECKS)
     int8 = check_int8()
     f32_steps = drive_f32_steps()
     log(f"kernel checks in {time.perf_counter() - t0:.1f} s")
-    result = dict(gpu=smi, tf32_default=tf32, lstm=lstm, stats=stats, attn=attn, res2=res2, f32_steps=f32_steps)
+    result = dict(gpu=smi, tf32_default=tf32, lstm=lstm, stats=stats, attn=attn, res2=res2, sinc=sinc,
+                  f32_steps=f32_steps)
 
     runs, probes = {}, {}
     for emb in ("xvector", "ecapa"):
@@ -5932,6 +6094,10 @@ def main() -> int:
                              max_abs_err=max(res2[k]["stage"]["max_abs_err"] for k in res2),
                              library_ms=None)),
         dict(int8_entry(scaleout), launches_surface_paths=on_surface("int8_conv")),
+        dict(name="sinc_frontend", route="cuda", source="diart_tpu_torch/csrc/sinc_frontend.cu",
+             replaces="diart_tpu/models/sincnet.py:138 and :212 (XLA's convolution and frontend_pool)",
+             **{k: sinc["bf16"][k] for k in KEYS}, ms_f32=sinc["f32"]["ms"],
+             at_b256={k: sinc["bf16"]["at_b256"][k] for k in KEYS}, ptxas=sinc["f32"]["ptxas"]),
     ]
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

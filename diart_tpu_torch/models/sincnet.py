@@ -16,6 +16,12 @@ package does. Their sin/cos arguments reach ~400 rad, where one f32 ulp of
 the argument is ~3e-5 rad, so filter taps agree with the JAX synthesis to
 ~1e-5 relative, not bit for bit (stated in tests/test_torch_models.py).
 
+The first stage (sinc convolution, |.|, max-pool(3) and the bf16 storage
+of ``bf16_frontend``) is one call of ``ops/sinc_frontend.py``: on a card
+one hand-written kernel that writes only the pooled result, on the CPU
+``frontend_pool`` of the convolution below. ``SincNet`` holds the
+filterbank's operands for that kernel once per version of the cutoffs.
+
 Every convolution computed in f32 (the sinc filterbank always, the k=5
 ones at ``compute_dtype=float32``) runs in true f32 on the card, whatever
 torch's TF32 switches say (``ops/_numerics.py``), as JAX's does off the
@@ -34,6 +40,8 @@ from torch import nn
 
 from .. import precision
 from ..ops import _numerics
+from ..ops.sinc_frontend import prepare_sinc_operands, sinc_frontend
+from .common import held_operands, trained
 
 __all__ = [
     "SincConv",
@@ -183,6 +191,7 @@ class SincNet(nn.Module):
         self.conv3 = nn.Conv1d(60, 60, 5)
         self.norm3_scale = nn.Parameter(torch.ones(60))
         self.norm3_bias = nn.Parameter(torch.zeros(60))
+        self._sinc_ops = {}  # () -> (key, SincOperands)
 
     def forward(self, waveform: torch.Tensor, pooled: Optional[torch.Tensor] = None) -> torch.Tensor:
         """waveform (batch, 1, samples) -> (batch, 60, frames). ``pooled``
@@ -192,7 +201,12 @@ class SincNet(nn.Module):
         convolution are then skipped."""
         if pooled is None:
             x = _instance_norm(waveform.float(), self.wav_norm_scale, self.wav_norm_bias)
-            pooled = frontend_pool(self.sinc(x))
+            # the filterbank's operands, made once per version of the cutoffs
+            # and held, or from the raw cutoffs in a call that trains them
+            cutoffs = (self.sinc.low_hz, self.sinc.band_hz)
+            make = lambda: prepare_sinc_operands(self.sinc.filters())
+            ops = make() if trained(cutoffs) else held_operands(self._sinc_ops, (), cutoffs, make)
+            pooled = sinc_frontend(x, ops, self.sinc.stride)
         x = pooled
         x = F.leaky_relu(_instance_norm(x, self.norm1_scale, self.norm1_bias), 0.01)
         cd = self.compute_dtype

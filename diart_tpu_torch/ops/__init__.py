@@ -24,6 +24,7 @@ from .se_res2 import (
     se_res2_stage_reference,
     se_res2_staged,
 )
+from .sinc_frontend import SincFrontendFunction, SincOperands, prepare_sinc_operands, sinc_frontend_reference
 
 __all__ = [
     "AggregationGeometry",
@@ -34,6 +35,8 @@ __all__ = [
     "LinearStatsFunction",
     "Res2Operands",
     "SERes2Function",
+    "SincFrontendFunction",
+    "SincOperands",
     "SweepFunction",
     "SweepWeights",
     "aggregate",
@@ -57,10 +60,12 @@ __all__ = [
     "normalize_embeddings",
     "overlapped_speech_penalty",
     "pack_w_hh",
+    "prepare_sinc_operands",
     "quantize_per_sample",
     "quantize_weight",
     "resample",
     "se_res2_block_reference",
     "se_res2_stage_reference",
     "se_res2_staged",
+    "sinc_frontend_reference",
 ]

@@ -26,7 +26,8 @@ __all__ = ["KERNELS", "build", "check", "library", "num_sms", "require_cuda", "s
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-KERNELS = ("lstm_sweep", "lstm_sweep_bwd", "linear_stats", "attn_stats", "se_res2", "int8_conv")
+KERNELS = ("lstm_sweep", "lstm_sweep_bwd", "linear_stats", "attn_stats", "se_res2", "int8_conv",
+           "sinc_frontend")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),

@@ -40,7 +40,8 @@ filterbanks of one geometry (real checkpoint pairs; the registry's share
 their mel init, and identical filterbanks do not stack), the engine folds
 each model's waveform-norm affine into its filters and bias
 (``conv(z s + b) = s conv(z) + b sum(filters)``) and runs one 160-channel
-sinc convolution, in true f32, on the shared standardized waveform; the
+sinc first stage (``ops/sinc_frontend.py``: true f32 on the CPU, the
+hand-written kernel on a card) on the shared standardized waveform; the
 models take the pooled halves (``sinc_pooled``), as JAX's do.
 
 Difference from the JAX engine: no phase-major audio ring (a TPU layout
@@ -59,6 +60,7 @@ import torch
 from .. import precision as precision_policy
 from .. import tracing
 from ..models.base import EmbeddingModel, SegmentationModel, same_device
+from ..models.common import held_operands, trained
 from ..models.fbank import (
     FbankRingSpec,
     fbank_block_raw,
@@ -67,8 +69,7 @@ from ..models.fbank import (
     fbank_ring_fill,
     fbank_ring_spec,
 )
-from ..models.sincnet import SincNet, frontend_pool
-from ..ops import _numerics
+from ..models.sincnet import SincNet
 from ..ops.aggregation import AggregationGeometry, aggregate, build_geometry
 from ..ops.clustering import ClusteringParams, ClusteringState, cluster_step
 from ..ops.functional import (
@@ -76,6 +77,7 @@ from ..ops.functional import (
     normalize_embeddings,
     overlapped_speech_penalty,
 )
+from ..ops.sinc_frontend import prepare_sinc_operands, sinc_frontend
 
 from .mesh import StreamsMesh
 
@@ -286,6 +288,7 @@ class MultiStreamEngine:
         # (segmentation's SincNet, embedding's SincNet) when the stacked
         # frontend runs (see the module docstring), else None
         self._stacked: Optional[Tuple[SincNet, SincNet]] = None
+        self._stacked_ops = {}  # () -> (key, SincOperands of the stacked banks)
         with precision_policy.use(self.precision):
             stack_on = precision_policy.enabled("stack_frontend", self.device)
         if stack_on and not self.is_vad and _stackable(_sincnet(segmentation), _sincnet(embedding)):
@@ -539,13 +542,19 @@ class MultiStreamEngine:
         mean = wave.mean(dim=-1, keepdim=True)
         var = wave.var(dim=-1, keepdim=True, correction=0)
         z = (wave - mean) * torch.rsqrt(var + 1e-5)
-        fs, fe = seg.sinc.filters(), emb.sinc.filters()
-        filters = torch.cat([fs * seg.wav_norm_scale, fe * emb.wav_norm_scale])
-        bias = torch.cat([seg.wav_norm_bias * fs.sum(dim=1), emb.wav_norm_bias * fe.sum(dim=1)])
-        with _numerics.true_f32(z.device):
-            y = torch.nn.functional.conv1d(z, filters[:, None, :], bias, stride=seg.sinc.stride)
-        pooled = frontend_pool(y)
-        return pooled[:, : fs.shape[0]], pooled[:, fs.shape[0] :]
+        params = [m.get_parameter(n) for m in (seg, emb)
+                  for n in ("sinc.low_hz", "sinc.band_hz", "wav_norm_scale", "wav_norm_bias")]
+
+        def make():
+            fs, fe = seg.sinc.filters(), emb.sinc.filters()
+            filters = torch.cat([fs * seg.wav_norm_scale, fe * emb.wav_norm_scale])
+            bias = torch.cat([seg.wav_norm_bias * fs.sum(dim=1), emb.wav_norm_bias * fe.sum(dim=1)])
+            return prepare_sinc_operands(filters, bias, banks=2)
+
+        ops = make() if trained(params) else held_operands(self._stacked_ops, (), params, make)
+        pooled = sinc_frontend(z, ops, seg.sinc.stride)
+        half = ops.filters.shape[0] // 2
+        return pooled[:, :half], pooled[:, half:]
 
     def _step_impl(
         self, state: StreamState, blocks, audio_mask, run_mask
