@@ -519,19 +519,25 @@ class MultiStreamEngine:
 
     def _embed(
         self, window: torch.Tensor, seg: torch.Tensor, gamma, beta,
-        emb_raw: Optional[torch.Tensor], emb_kw: dict,
+        emb_raw: Optional[torch.Tensor], emb_kw: dict, marks=tracing.NO_MARKS,
     ) -> torch.Tensor:
         """A window's L2-normalized embeddings (B, K, E), weighted by its
-        segmentation's overlapped-speech penalty."""
+        segmentation's overlapped-speech penalty. Inside a recorded hop the
+        trunk and the head are the spans ``embedding.trunk`` and
+        ``embedding.head``, and ``marks`` (the step's device events) times
+        the trunk's return."""
         weights = overlapped_speech_penalty(seg, gamma, beta)
         if self.normalize_weights:
             weights = min_max_normalize(weights, dim=-2)
-        if emb_raw is not None:
-            frames = self._emb.trunk_from_raw_fbank(emb_raw)
-        else:
-            frames = self._emb.trunk(window[:, None, :], **emb_kw)
-        emb = self._emb.head(frames, weights.transpose(1, 2))
-        return normalize_embeddings(emb, 1.0)
+        with tracing.span("embedding.trunk", shard=self._shard, inner=True):
+            if emb_raw is not None:
+                frames = self._emb.trunk_from_raw_fbank(emb_raw)
+            else:
+                frames = self._emb.trunk(window[:, None, :], **emb_kw)
+            marks.mark_trunk()
+        with tracing.span("embedding.head", shard=self._shard, inner=True):
+            emb = self._emb.head(frames, weights.transpose(1, 2))
+            return normalize_embeddings(emb, 1.0)
 
     def _stacked_frontend(self, wave: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Both models' ``|sinc conv|`` max-pooled, from one convolution of
@@ -580,7 +586,7 @@ class MultiStreamEngine:
             marks.mark()
         if not self.is_vad:
             with tracing.span("step.embedding", shard=self._shard):
-                emb = self._embed(window, seg, gamma, beta, emb_raw, emb_kw)
+                emb = self._embed(window, seg, gamma, beta, emb_raw, emb_kw, marks)
         marks.mark()
 
         def keep(new, old):

@@ -5,7 +5,8 @@
 
     with tracing.recording() as record:
         ...  # serve hops
-    record.spans   # every Span, in the order they closed
+    record.spans   # the hop's spans down to the step's phases, in the order they closed
+    record.inner   # the spans inside a phase (``embedding.trunk``, ``embedding.head``)
     record.phases  # the DevicePhases of each hop run on a card
 
 The session and the engine mark where a hop's time goes:
@@ -19,7 +20,10 @@ The session and the engine mark where a hop's time goes:
     and frame ring advance, the stacked frontend where on, and the
     segmentation model;
   * ``step.embedding``: the overlapped-speech weights, the trunk, the head
-    and the normalization (a VAD engine has none);
+    and the normalization (a VAD engine has none). Inside it, kept apart
+    in ``Record.inner``: ``embedding.trunk`` (the embedding model's trunk,
+    from the waveform or the frame ring's raw frames) and
+    ``embedding.head`` (the statistics head and the normalization);
   * ``step.clustering``: ``cluster_step`` and its keeps, the score ring,
     the aggregation and the new state.
 
@@ -37,9 +41,10 @@ before the recording opened) records nothing.
 
 On a CUDA device the engine also records four timing events on the step's
 stream: at the step's start, after the segmentation, after the embedding
-and at the step's end. The harvest reads the three intervals once the
-hop's fetch event, queued after them, has completed, so reading them adds
-no synchronization (``settle``): :class:`DevicePhases`, one a shard.
+and at the step's end, and a fifth where the embedding's trunk returns
+(``mark_trunk``). The harvest reads the intervals once the hop's fetch
+event, queued after them, has completed, so reading them adds no
+synchronization (``settle``): :class:`DevicePhases`, one a shard.
 
 The recorder also records while ``torch.profiler`` runs, with no
 recording open: the hops dispatched in a profile go to a record of their
@@ -107,6 +112,7 @@ class DevicePhases(NamedTuple):
     segmentation_ms: float  # step start -> after the segmentation
     embedding_ms: float  # -> after the embedding (0 in a VAD engine)
     clustering_ms: float  # -> the step's end
+    trunk_ms: Optional[float] = None  # after the segmentation -> the trunk's return (None: no trunk event)
 
 
 NOOP = contextlib.nullcontext()
@@ -116,6 +122,9 @@ class _NoMarks:
     __slots__ = ()
 
     def mark(self) -> None:
+        pass
+
+    def mark_trunk(self) -> None:
         pass
 
 
@@ -142,12 +151,13 @@ def _current() -> Optional["Record"]:
 
 
 class Record:
-    """What one recording, or one profile, holds: ``spans`` and
-    ``phases``, in memory until the recording closes (a profile's: until
+    """What one recording, or one profile, holds: ``spans``, ``inner``
+    and ``phases``, in memory until the recording closes (a profile's: until
     a later profile starts a new one)."""
 
     def __init__(self):
         self.spans: List[Span] = []
+        self.inner: List[Span] = []
         self.phases: List[DevicePhases] = []
         self._ids = itertools.count()
         self._lock = threading.Lock()
@@ -177,10 +187,10 @@ class Record:
 class _Open:
     """A span being timed; recorded when it closes, even by an exception."""
 
-    __slots__ = ("_record", "_name", "_hop", "_shard", "_parent", "_id", "_start")
+    __slots__ = ("_record", "_name", "_hop", "_shard", "_parent", "_id", "_start", "_into")
 
-    def __init__(self, record: Record, name: str, key: HopKey, shard, parent):
-        self._record, self._name, self._hop, self._shard = record, name, key, shard
+    def __init__(self, record: Record, name: str, key: HopKey, shard, parent, into: List[Span]):
+        self._record, self._name, self._hop, self._shard, self._into = record, name, key, shard, into
         self._parent = None if parent is None else parent._id
         self._id = next(record._ids)
 
@@ -192,28 +202,36 @@ class _Open:
     def __exit__(self, *exc) -> bool:
         end = time.perf_counter()
         self._record._stack().pop()
-        self._record.spans.append(Span(self._name, self._start, end, threading.get_ident(), self._hop,
-                                       self._parent, self._id, self._shard))
+        self._into.append(Span(self._name, self._start, end, threading.get_ident(), self._hop,
+                               self._parent, self._id, self._shard))
         return False
 
 
 class _Marks:
-    """One step's timing events on its device's current stream."""
+    """One step's timing events on its device's current stream: the four
+    phase boundaries in order, and the trunk's return apart."""
 
-    __slots__ = ("_device", "_shard", "_events")
+    __slots__ = ("_device", "_shard", "_events", "_trunk")
 
     def __init__(self, device: torch.device, shard: Optional[int]):
-        self._device, self._shard, self._events = device, shard, []
+        self._device, self._shard, self._events, self._trunk = device, shard, [], None
 
-    def mark(self) -> None:
+    def _event(self) -> torch.cuda.Event:
         event = torch.cuda.Event(enable_timing=True)
         event.record(torch.cuda.current_stream(self._device))
-        self._events.append(event)
+        return event
+
+    def mark(self) -> None:
+        self._events.append(self._event())
+
+    def mark_trunk(self) -> None:
+        self._trunk = self._event()
 
     def read(self, key: HopKey) -> DevicePhases:
         start, seg, emb, end = self._events
+        trunk = None if self._trunk is None else seg.elapsed_time(self._trunk)
         return DevicePhases(key, self._shard, start.elapsed_time(seg), seg.elapsed_time(emb),
-                            emb.elapsed_time(end))
+                            emb.elapsed_time(end), trunk)
 
 
 def last_profile() -> Optional[Record]:
@@ -254,12 +272,14 @@ def hop(name: str, owner):
                     _profiled, _profile_live = Record(), True
         record = _profiled
     stack = record._stack()
-    return _Open(record, name, record._new_hop(owner), None, stack[-1] if stack else None)
+    return _Open(record, name, record._new_hop(owner), None, stack[-1] if stack else None, record.spans)
 
 
-def span(name: str, hop: Optional[HopKey] = None, shard: Optional[int] = None):
+def span(name: str, hop: Optional[HopKey] = None, shard: Optional[int] = None, inner: bool = False):
     """A span of ``hop``, or of the hop of the innermost span open on this
-    thread; the no-op where that is no hop of the open recording."""
+    thread; the no-op where that is no hop of the open recording.
+    ``inner``: a span inside one of the step's phases, kept in
+    ``Record.inner`` rather than ``Record.spans``."""
     record = _current()
     if record is None:
         return NOOP
@@ -269,12 +289,13 @@ def span(name: str, hop: Optional[HopKey] = None, shard: Optional[int] = None):
         hop = parent._hop
     if hop is None or record._issued.get(hop) is not hop:
         return NOOP
-    return _Open(record, name, hop, shard, parent)
+    return _Open(record, name, hop, shard, parent, record.inner if inner else record.spans)
 
 
 def device_marks(device: torch.device, shard: Optional[int] = None):
-    """The step's timing events (``mark()`` at each phase boundary): on a
-    CUDA device inside a recorded hop, else ``NO_MARKS``."""
+    """The step's timing events (``mark()`` at each phase boundary,
+    ``mark_trunk()`` where the embedding's trunk returns): on a CUDA device
+    inside a recorded hop, else ``NO_MARKS``."""
     record = _current()
     if record is None or device.type != "cuda":
         return NO_MARKS
