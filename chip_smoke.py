@@ -6,7 +6,7 @@ Run from the repository root with no arguments (``python3 chip_smoke.py``);
 
 Phases (any failure exits non-zero):
 
-1. Build the six hand-written kernels (``diart_tpu_torch/csrc/*.cu``, one
+1. Build the hand-written kernels (``diart_tpu_torch/csrc/*.cu``, one
    ``nvcc`` each, in parallel) and print the card's name and power limit.
    Then, with torch's TF32 switches as a process gets them (no
    ``NVIDIA_TF32_OVERRIDE``; the script turns both off for every later
@@ -38,7 +38,12 @@ Phases (any failure exits non-zero):
    (``sinc_frontend``) at 5 s windows, B = 64 and 256, one bank and the
    stacked pair, with ``bf16_frontend`` on and off, beside cuDNN's
    true-f32 convolution plus ``frontend_pool`` and the bounds, and over
-   other batches and lengths. Print each error beside its
+   other batches and lengths; ResNet34's trunk convolutions
+   (``resnet_conv``, bf16) at every distinct geometry of the trunk at
+   B = 256 against the plain version (within the summation order's room,
+   at most 0.1% of the outputs differing at all), timed beside cuDNN's
+   convolution alone and the least, then the whole trunk against the
+   composition it replaced, A B B A. Print each error beside its
    tolerance, the kernel / plain / library times (CUDA events) and bounds,
    the LSTM sweep at B=256 and the SE-Res2Block at B=8, and the device
    time of each of the block's launches by name. In f32 the SE-Res2Block
@@ -255,7 +260,8 @@ Phases (any failure exits non-zero):
    last, ``{"ok": true, "device": ...}``.
 
 ``--kernels NAMES`` runs only the build and phase 2's checks of NAMES
-(comma-separated of lstm, stats, attn, res2), each in bf16 and f32;
+(comma-separated of lstm, stats, attn, res2, sinc, resnet), each in bf16
+and f32 (resnet in bf16);
 ``--f32-steps`` only the build and phase 2's f32 steps (after those
 checks when both are given).
 ``--families`` runs only the build and phase 7; ``--training`` only the
@@ -984,6 +990,302 @@ def check_sinc(dtype, gen):
     return main
 
 
+# ResNet34's trunk convolutions (``ops/resnet_conv.py``, ``csrc/
+# resnet_conv.cu``) at the benchmark's B = 256 and 5 s windows (498 kaldi
+# frames x 80 mels), published widths: each distinct geometry of the trunk
+# as (name, C_in, C_out, window, stride, (T, F) in, residual, ReLU); the
+# padding is 1 for a 3x3 window and 0 for the 1x1 downsamples
+RESNET_B = 256
+RESNET_CASES = (
+    ("stem", 1, 32, 3, 1, (498, 80), False, True),
+    ("s1.conv1", 32, 32, 3, 1, (498, 80), False, True),
+    ("s1.conv2", 32, 32, 3, 1, (498, 80), True, True),
+    ("s2.conv1", 32, 64, 3, 2, (498, 80), False, True),
+    ("s2.down", 32, 64, 1, 2, (498, 80), False, False),
+    ("s2.conv2", 64, 64, 3, 1, (249, 40), True, True),
+    ("s3.conv1", 64, 128, 3, 2, (249, 40), False, True),
+    ("s3.down", 64, 128, 1, 2, (249, 40), False, False),
+    ("s3.conv2", 128, 128, 3, 1, (125, 20), True, True),
+    ("s4.conv1", 128, 256, 3, 2, (125, 20), False, True),
+    ("s4.down", 128, 256, 1, 2, (125, 20), False, False),
+    ("s4.conv2", 256, 256, 3, 1, (63, 10), True, True),
+)
+# beside them, (case, batch): the test family's 8 and 16 channels (a K slice
+# of 16 that reads channels past C_in as the tensor map's zeros), 24 in /
+# 40 out (C_pad 32, a tile wider than C_out) over 77 mels (ragged boxes),
+# two 256-wide channel tiles of 320 outputs at stride 2, one stream alone
+RESNET_SWEEP = (
+    (("c8.stem", 1, 8, 3, 1, (37, 20), False, True), 3),
+    (("c8.s1", 8, 8, 3, 1, (37, 20), True, True), 3),
+    (("c8.s2", 8, 16, 3, 2, (37, 20), False, True), 3),
+    (("c8.down", 8, 16, 1, 2, (37, 20), False, False), 3),
+    (("c24.s1", 24, 40, 3, 1, (29, 77), True, True), 2),
+    (("c256.s2", 256, 320, 3, 2, (31, 13), False, True), 2),
+    (("b1.s1", 32, 32, 3, 1, (498, 80), True, True), 1),
+)
+RESNET_ROUNDING = 2.0**-7  # a bf16 rounding flip: one step, at most 2^-7 of the value
+# the share of outputs that may differ from the plain version at all: the
+# summation order alone flips the convolution's bf16 rounding of at most
+# 0.015% of them at any geometry (an H100, `resnet_held`), while a rounding
+# step out of place (a product and a sum fused into one rounding) moves
+# 8-28% of them, within the room of each
+RESNET_DIFFER_MAX = 1e-3
+
+
+def resnet_case(case, batch, gen, dev="cuda"):
+    """The inputs of one convolution: x (B, T, F, C_in) bf16 channels-last
+    (the stem: the f32 features), the weight (C_out, C_in, k, k) at a
+    1 / sqrt(fan in) scale, a batch norm's folded (a, b) from random
+    statistics, the residual (B, T', F', C_out) bf16 or None."""
+    import torch
+    from diart_tpu_torch.models.common import InferenceBatchNorm
+
+    _, c_in, c_out, k, stride, (t, f), has_res, _ = case
+    n = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    x = n(batch, t, f, c_in)
+    x = x if c_in == 1 else x.to(torch.bfloat16)
+    weight = n(c_out, c_in, k, k) / (c_in * k * k) ** 0.5
+    bn = InferenceBatchNorm(c_out).to(dev)
+    with torch.no_grad():
+        bn.scale.copy_(1 + 0.1 * n(c_out))
+        bn.bias.copy_(0.1 * n(c_out))
+        bn.mean.copy_(0.1 * n(c_out))
+        bn.var.copy_(0.5 + torch.rand(c_out, generator=gen, device=dev))
+        a, b = bn.folded()
+    pad = k // 2
+    o1, o2 = (t + 2 * pad - k) // stride + 1, (f + 2 * pad - k) // stride + 1
+    res = n(batch, o1, o2, c_out).to(torch.bfloat16) if has_res else None
+    return x, weight, a, b, res, stride, pad
+
+
+def resnet_allowance(x, weight, a, b, res, stride, pad):
+    """Each output's room for the summation order alone. The kernel's f32
+    sum and the plain version's, taken in other orders, each lie within
+    (K - 1) 2^-24 of the sum of |products| of the exact sum, so they differ
+    by up to 2 (K - 1) 2^-24 sum |x w| (|a| times that after the scale);
+    the plain version's convolution c then rounds to bf16 one step either
+    way of the kernel's where they straddle a rounding boundary (|a c| 2^-7
+    after the scale), and that can flip each later rounding (x a, + b, +
+    residual) by one step of its own value. So 2 (K - 1) 2^-24 |a| sum |x
+    w| + 2^-7 (2 |a c| + |bf16(a c) + b| + |out before ReLU|)."""
+    import torch
+    import torch.nn.functional as F
+
+    dt = torch.bfloat16
+    k = weight.shape[1] * weight.shape[2] * weight.shape[3]
+    xc = x.to(dt).permute(0, 3, 1, 2)
+    c = F.conv2d(xc, weight.to(dt), stride=stride, padding=pad).float()
+    mags = F.conv2d(xc.float().abs(), weight.to(dt).float().abs(), stride=stride, padding=pad)
+    av, bv = a.to(dt).float().view(1, -1, 1, 1), b.to(dt).float().view(1, -1, 1, 1)
+    y1 = (c * av).to(dt).float()
+    y2 = (y1 + bv).to(dt).float()
+    y3 = y2 if res is None else (y2 + res.permute(0, 3, 1, 2).float()).to(dt).float()
+    room = 2.0 * (k - 1) * 2.0**-24 * mags * av.abs() + RESNET_ROUNDING * (2 * (av * c).abs() + y2.abs() + y3.abs())
+    return room.permute(0, 2, 3, 1)
+
+
+def resnet_held(got, want, room):
+    """(worst ratio of an element's error to its room, max abs error, the
+    share of elements that differ at all, mean error over mean |want|)."""
+    diff = (got.float() - want.float()).abs()
+    worst = (diff / room.clamp_min(1e-30)).max().item() if diff.max().item() > 0 else 0.0
+    differ = (diff > 0).float().mean().item()
+    mean_rel = diff.mean().item() / max(want.float().abs().mean().item(), 1e-30)
+    return worst, diff.max().item(), differ, mean_rel
+
+
+def resnet_least_ms(case, batch):
+    """``portbench/work/resnet34.py``'s least of one convolution: the larger
+    of its bf16 products at 989 TFLOP/s and its input read, output written
+    and weights read once over HBM (the residual read not counted)."""
+    _, c_in, c_out, k, stride, (t, f), _, _ = case
+    pad = k // 2
+    p_in = t * f
+    p_out = ((t + 2 * pad - k) // stride + 1) * ((f + 2 * pad - k) // stride + 1)
+    ops = 2.0 * batch * c_in * c_out * k * k * p_out / PEAK_FLOPS["bf16"]
+    nbytes = 2.0 * (batch * (c_in * p_in + c_out * p_out) + c_in * c_out * k * k) / HBM_BYTES_PER_S
+    return max(ops, nbytes) * 1e3, "operations" if ops > nbytes else "bytes"
+
+
+def resnet_sass():
+    """The built library's SASS (``cuobjdump --dump-sass``): every
+    convolution kernel (``resnet_conv_taps``, ``resnet_conv_halo``) holds a
+    warpgroup MMA (``HGMMA``)."""
+    from diart_tpu_torch.ops import _build
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "--dump-sass", str(_build.BUILD_DIR / "libresnet_conv.so")],
+                          capture_output=True, text=True, timeout=120).stdout
+    funcs = re.split(r"\n\s*Function : ", text)[1:]
+    conv = [fn for fn in funcs if re.search(r"resnet_conv_(taps|halo)", fn.split("\n", 1)[0])]
+    rec = dict(functions=len(funcs), conv_kernels=len(conv),
+               with_hgmma=sum(bool(re.search(r"\bHGMMA", fn)) for fn in conv),
+               hgmma_instructions=sum(len(re.findall(r"\bHGMMA\S*", fn)) for fn in conv))
+    log(f"  [resnet_conv] SASS: {rec['conv_kernels']} convolution kernels, {rec['with_hgmma']} with HGMMA "
+        f"({rec['hgmma_instructions']} instructions)")
+    return rec
+
+
+def resnet_refusals(gen):
+    """The kernel's wrapper raises on CUDA calls it does not take: f32
+    activations, channels not a multiple of 8, activations not
+    channels-last, a gradient."""
+    import torch
+    from diart_tpu_torch.ops.resnet_conv import resnet_conv
+
+    x, weight, a, b, _, _, _ = resnet_case(("r", 16, 16, 3, 1, (9, 8), False, True), 2, gen)
+    odd_x, odd_w, oa, ob, _, _, _ = resnet_case(("r", 12, 16, 3, 1, (9, 8), False, True), 2, gen)
+    calls = dict(
+        float32=lambda: resnet_conv(x.float(), weight, a, b, padding=1),
+        channels=lambda: resnet_conv(odd_x, odd_w, oa, ob, padding=1),
+        channels_first=lambda: resnet_conv(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), weight, a, b,
+                                           padding=1),
+        gradient=lambda: resnet_conv(x, weight.requires_grad_(), a, b, padding=1),
+    )
+    refused = {}
+    for what, call in calls.items():
+        try:
+            call()
+            refused[what] = False
+        except ValueError:
+            refused[what] = True
+    weight.requires_grad_(False)
+    log(f"  [resnet_conv] refuses on the card: {refused}")
+    return refused
+
+
+def check_resnet(dtype, gen):
+    """ResNet34's trunk convolutions (``resnet_conv``) at every distinct
+    geometry of the trunk at B = 256 and published widths, in bf16: against
+    the plain version on the card (cuDNN's bf16 convolution on the NCHW
+    view, then the norm, the add and ReLU as PyTorch's ops) within the room
+    of the summation order (``resnet_allowance``), bitwise over two calls;
+    its time (CUDA events, the profiler's device time) beside its least
+    (``portbench/work/resnet34.py``), the plain version's and cuDNN's
+    convolution alone on channels-last tensors; then RESNET_SWEEP, the
+    refusals, ptxas' report and the SASS, and the whole trunk at B = 256
+    through the kernel and through the composition it replaced, A B B A."""
+    import torch
+    import torch.nn.functional as F
+    from diart_tpu_torch.ops import _build
+    from diart_tpu_torch.ops import resnet_conv as rc
+
+    if dtype != torch.bfloat16:
+        raise ValueError("the ResNet34 kernel computes in bf16 only")
+    rec, failures, sweep = {}, [], []
+
+    def one(case, batch, timed):
+        name, c_in, c_out, k, _, _, _, relu = case
+        x, weight, a, b, res, stride, pad = resnet_case(case, batch, gen)
+        ops = rc.prepare_conv_operands(weight, a, b)
+        run = lambda: rc.resnet_conv(x, weight, a, b, stride, pad, res, relu, torch.bfloat16, operands=ops)
+        plain = lambda: rc.resnet_conv_reference(x, weight, a, b, stride, pad, res, relu, torch.bfloat16)
+        before = rc.resnet_conv.launches
+        got = run()
+        want = plain()
+        torch.cuda.synchronize()
+        launched = rc.resnet_conv.launches - before
+        worst, err, differ, mean_rel = resnet_held(got, want, resnet_allowance(x, weight, a, b, res, stride, pad))
+        same = torch.equal(got, run())
+        alone = torch.equal(rc.resnet_conv(x[-1:], weight, a, b, stride, pad, None if res is None else res[-1:],
+                                           relu, torch.bfloat16, operands=ops), got[-1:])
+        entry = dict(shape=tuple(got.shape), max_abs_err=err, worst=worst, differ_share=differ,
+                     mean_rel_err=mean_rel, bitwise_repeat=same, stream_alone=alone)
+        ok = worst <= 1.0 and differ <= RESNET_DIFFER_MAX and same and alone and launched == 1 and got.shape == want.shape
+        plan = None if c_in == 1 else rc.conv_plan(c_out, got.shape[1], got.shape[2], c_in, (k, k), (stride,) * 2,
+                                                   (pad,) * 2)
+        if timed:
+            least, by = resnet_least_ms(case, batch)
+            ms = time_ms(run, 10)
+            device = device_times(run, f"resnet_conv {name}")
+            plain_ms = time_ms(plain, 5)
+            xl = x.permute(0, 3, 1, 2)  # cuDNN on the same memory: NHWC tensors, no transposes
+            wl = weight.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            library_ms = time_ms(lambda: F.conv2d(xl.to(torch.bfloat16), wl, stride=stride, padding=pad), 10)
+            entry.update(ms=ms, device_ms=device[0][1], device_kernel=device[0][0], plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=least, bound_by=by, roofline=100.0 * least / ms)
+        log(f"resnet_conv[{name}] x {tuple(x.shape)} -> {tuple(got.shape)}: worst {worst:.3f} of the room, "
+            f"max_abs_err={err:.3e}, {100 * differ:.3f}% of elements differ, mean err {mean_rel:.2e} of "
+            f"mean|want|; repeat bitwise {same}, last stream alone bitwise {alone}; plan {plan}"
+            + (f"; kernel_ms={entry['ms']:.4f} (device {entry['device_ms']:.4f} as {entry['device_kernel']}) "
+               f"bound_ms={entry['bound_ms']:.4f} ({entry['bound_by']}; {entry['roofline']:.1f}%) "
+               f"plain_ms={entry['plain_ms']:.4f} library_ms={entry['library_ms']:.4f} (cuDNN's convolution "
+               f"alone, channels-last)" if timed else ""))
+        if not ok:
+            failures.append(f"{name}: worst {worst}, differing share {differ}, repeat {same}, alone {alone}, "
+                            f"launches {launched}")
+        return entry
+
+    for case in RESNET_CASES:
+        rec[case[0]] = one(case, RESNET_B, True)
+        torch.cuda.empty_cache()
+    for case, batch in RESNET_SWEEP:
+        sweep.append(dict(one(case, batch, False), case=case[0], batch=batch))
+    refused = resnet_refusals(gen)
+    if not all(refused.values()):
+        failures.append(f"refusals {refused}")
+    ptx = [r for r in ptxas_entries(BUILD_LOGS.get("resnet_conv", "")) if "resnet_" in r["entry"]]
+    for r in ptx:
+        log(f"  [resnet_conv] {r['entry']}: {r.get('registers')} registers, {r.get('smem')} bytes smem, "
+            f"stack frame {r.get('stack_frame')} bytes, spill stores {r.get('spill_stores')} / loads "
+            f"{r.get('spill_loads')}")
+    if not ptx or any(r.get("spill_stores") or r.get("spill_loads") for r in ptx):
+        failures.append(f"ptxas: no record, or a spill: {ptx}")
+    sass = resnet_sass()
+    if not (sass["conv_kernels"] and sass["with_hgmma"] == sass["conv_kernels"]):
+        failures.append(f"SASS: every convolution kernel must use HGMMA: {sass}")
+    trunk = resnet_trunk_abba(gen)
+    total = dict(ms=sum(r["ms"] for r in rec.values()), bound_ms=sum(r["bound_ms"] for r in rec.values()))
+    log(f"resnet_conv: the {len(rec)} geometries' kernel ms sum to {total['ms']:.3f} against a least of "
+        f"{total['bound_ms']:.3f}")
+    if failures:
+        raise AssertionError("resnet_conv: " + "; ".join(failures))
+    main = dict(rec["s1.conv2"], cases=rec, sweep=sweep, refused=refused, ptxas=ptx, sass=sass, trunk=trunk)
+    return main
+
+
+def resnet_trunk_abba(gen):
+    """The seeded full-width ResNet34 trunk (bf16) at B = 256 from 498
+    frames of 80 mels: through the kernel (36 launches) and through the
+    composition it replaced (the model's NCHW route, forced), A B B A with
+    CUDA events; the two outputs' gap (36 layers of bf16 apart) as a
+    record."""
+    import torch
+    from diart_tpu_torch import EmbeddingModel
+    from diart_tpu_torch.ops import resnet_conv as rc
+
+    module = EmbeddingModel.from_registry("tpu/resnet34", device="cuda", seed=1, dtype="bf16").module
+    feats = torch.randn(RESNET_B, 498, 80, generator=gen, device="cuda")
+    feats = feats - feats.mean(dim=1, keepdim=True)
+    kernel = lambda: module.trunk_from_features(feats)
+
+    def composition():
+        module.channels_last = lambda f: False
+        try:
+            return module.trunk_from_features(feats)
+        finally:
+            del module.channels_last
+
+    with torch.no_grad():
+        before = rc.resnet_conv.launches
+        new = kernel()
+        launched = rc.resnet_conv.launches - before
+        old = composition()
+        torch.cuda.synchronize()
+        gap = (new.float() - old.float()).abs()
+        scale = old.float().abs().max().item()
+        turns = [time_ms(f, 5) for f in (composition, kernel, kernel, composition)]
+    rec = dict(launches=launched, max_gap=gap.max().item(), max_gap_rel=gap.max().item() / scale,
+               mean_gap_rel=gap.mean().item() / old.float().abs().mean().item(), ms_turns=turns,
+               ms=(turns[1] + turns[2]) / 2, ms_composition=(turns[0] + turns[3]) / 2)
+    log(f"resnet34 trunk at B={RESNET_B} (498 x 80): {launched} kernel launches; A B B A ms (A: the composition "
+        f"it replaced, B: the kernel) {' '.join(f'{t:.3f}' for t in turns)}; outputs apart by "
+        f"{rec['max_gap_rel']:.3e} of the largest at most, {rec['mean_gap_rel']:.3e} in the mean")
+    if launched != 36:
+        raise AssertionError(f"resnet34 trunk: expected 36 kernel launches; got {launched}")
+    return rec
+
+
 def res2_params(gen, dev):
     """Unit-gain SE-Res2Block parameters at the ECAPA geometry (0.5/sqrt(fan_in)
     weight scales, as tests/test_pallas_res2.py: larger random weights make
@@ -1269,7 +1571,7 @@ def build_engine(device, batch, emb="xvector", seg_dtype="f32", emb_dtype="bf16"
 
 def launch_counters() -> dict:
     """Each kernel's wrapper, which counts its launches."""
-    from diart_tpu_torch.ops import attn_stats, linear_stats, lstm_sweep, se_res2
+    from diart_tpu_torch.ops import attn_stats, linear_stats, lstm_sweep, resnet_conv, se_res2
 
     return {
         "lstm_sweep": lstm_sweep.lstm_sweep_tm,
@@ -1278,6 +1580,7 @@ def launch_counters() -> dict:
         "attn_stats": attn_stats.fused_attentive_stats,
         "se_res2": se_res2.fused_se_res2_block,
         "se_res2_staged": se_res2.se_res2_staged,
+        "resnet_conv": resnet_conv.resnet_conv,
     }
 
 
@@ -1286,7 +1589,7 @@ def path_launches(kind, lstm_layers: int) -> dict:
     path ``kind`` (``xvector``, ``ecapa`` or ``vad``)."""
     return {"lstm_sweep": lstm_layers, "lstm_sweep_bwd": 0, "linear_stats": int(kind == "xvector"),
             "attn_stats": int(kind == "ecapa"), "se_res2": 3 * int(kind == "ecapa"),
-            "se_res2_staged": 0}
+            "se_res2_staged": 0, "resnet_conv": 0}
 
 
 def device_summary(prof, steps: int, top: int = 12) -> dict:
@@ -2798,9 +3101,11 @@ def family_launches(family) -> dict:
     """Each counted kernel's launches in one step of ``family``'s engine:
     the 4-layer PyanNet's sweeps, and the embedding's statistics kernel
     (TitaNet: attention statistics; XVector-SB and the x-vector beside the
-    powerset model: the fused stats head; ResNet34: none)."""
+    powerset model: the fused stats head; ResNet34: its 36 convolutions, each
+    one launch of ``resnet_conv``)."""
     return {"lstm_sweep": 4, "lstm_sweep_bwd": 0, "linear_stats": int(family in ("xvect-sb", "powerset")),
-            "attn_stats": int(family == "titanet"), "se_res2": 0, "se_res2_staged": 0}
+            "attn_stats": int(family == "titanet"), "se_res2": 0, "se_res2_staged": 0,
+            "resnet_conv": 36 * int(family == "resnet34")}
 
 
 def drive_family(family, native, audio):
@@ -3048,9 +3353,12 @@ CPU_LOSS_TOL, CPU_GRAD_TOL = 1e-4, 5e-2
 # the sweep's backward kernel (one a layer); the other kernels' backwards
 # are their plain versions' autograd
 TRAIN_LAUNCHES = {
-    "seg": dict(lstm_sweep=4, lstm_sweep_bwd=4, linear_stats=0, attn_stats=0, se_res2=0, se_res2_staged=0),
-    "xvector": dict(lstm_sweep=0, lstm_sweep_bwd=0, linear_stats=1, attn_stats=0, se_res2=0, se_res2_staged=0),
-    "ecapa": dict(lstm_sweep=0, lstm_sweep_bwd=0, linear_stats=0, attn_stats=1, se_res2=3, se_res2_staged=0),
+    "seg": dict(lstm_sweep=4, lstm_sweep_bwd=4, linear_stats=0, attn_stats=0, se_res2=0, se_res2_staged=0,
+                resnet_conv=0),
+    "xvector": dict(lstm_sweep=0, lstm_sweep_bwd=0, linear_stats=1, attn_stats=0, se_res2=0, se_res2_staged=0,
+                    resnet_conv=0),
+    "ecapa": dict(lstm_sweep=0, lstm_sweep_bwd=0, linear_stats=0, attn_stats=1, se_res2=3, se_res2_staged=0,
+                  resnet_conv=0),
 }
 TUNE_SECONDS = (10, 13, 16, 20)  # the tuning corpus, one file each
 TUNE_TRIALS = 3
@@ -4178,7 +4486,8 @@ INT8_FAMILIES = ("xvector", "ecapa", "resnet34", "titanet", "xvect-sb")
 # the x-vector families' last TDNN run in se_res2 / linear_stats)
 INT8_SITES = {"xvector": 4, "ecapa": 2, "resnet34": 35, "titanet": 14, "xvect-sb": 4}
 INT8_OTHER_LAUNCHES = {  # the other kernels' launches a step beside tpu/pyannet's 4 sweeps
-    "xvector": dict(linear_stats=1), "ecapa": dict(attn_stats=1, se_res2=3), "resnet34": {},
+    "xvector": dict(linear_stats=1), "ecapa": dict(attn_stats=1, se_res2=3),
+    "resnet34": dict(resnet_conv=0),  # the int8 trunk keeps int8_conv: no channels-last launch
     "titanet": dict(attn_stats=1), "xvect-sb": dict(linear_stats=1)}
 INT8_HOPS = 12
 INT8_COS = 0.999  # tests/test_quant.py's embedding fidelity bound
@@ -5716,12 +6025,13 @@ SWEEP_BWD_KEYS = ("device_ms", "backward_ms", "backward_launches", "backward_bou
                   "backward_ms_column_turns", "products_ms", "max_clusters")
 
 
-KERNEL_CHECKS = ("lstm", "stats", "attn", "res2", "sinc")  # phase 2's checks, in the order they run
+KERNEL_CHECKS = ("lstm", "stats", "attn", "res2", "sinc", "resnet")  # phase 2's checks, in the order they run
 
 
 def run_kernel_checks(names):
     """Phase 2's checks of ``names`` (of KERNEL_CHECKS, run in that order),
-    each in bf16 and f32 with the generators a whole run gives them."""
+    each in bf16 and f32 (ResNet34's convolutions in bf16 only) with the
+    generators a whole run gives them."""
     import torch
 
     gen = torch.Generator().manual_seed(0)
@@ -5729,7 +6039,7 @@ def run_kernel_checks(names):
     bf16_f32 = (("bf16", torch.bfloat16), ("f32", torch.float32))
     checks = dict(lstm=(check_lstm, gen, reversed(bf16_f32)), stats=(check_stats, cgen, bf16_f32),
                   attn=(check_attn, cgen, bf16_f32), res2=(check_res2, gen, bf16_f32),
-                  sinc=(check_sinc, cgen, bf16_f32))
+                  sinc=(check_sinc, cgen, bf16_f32), resnet=(check_resnet, cgen, bf16_f32[:1]))
     out = {}
     for name in KERNEL_CHECKS:
         if name in names:
@@ -5938,12 +6248,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     checked = run_kernel_checks(KERNEL_CHECKS)
-    lstm, stats, attn, res2, sinc = (checked[k] for k in KERNEL_CHECKS)
+    lstm, stats, attn, res2, sinc, resnet = (checked[k] for k in KERNEL_CHECKS)
     int8 = check_int8()
     f32_steps = drive_f32_steps()
     log(f"kernel checks in {time.perf_counter() - t0:.1f} s")
     result = dict(gpu=smi, tf32_default=tf32, lstm=lstm, stats=stats, attn=attn, res2=res2, sinc=sinc,
-                  f32_steps=f32_steps)
+                  resnet=resnet, f32_steps=f32_steps)
 
     runs, probes = {}, {}
     for emb in ("xvector", "ecapa"):
@@ -6098,6 +6408,12 @@ def main() -> int:
              replaces="diart_tpu/models/sincnet.py:138 and :212 (XLA's convolution and frontend_pool)",
              **{k: sinc["bf16"][k] for k in KEYS}, ms_f32=sinc["f32"]["ms"],
              at_b256={k: sinc["bf16"]["at_b256"][k] for k in KEYS}, ptxas=sinc["f32"]["ptxas"]),
+        dict(name="resnet_conv", route="cuda", source="diart_tpu_torch/csrc/resnet_conv.cu",
+             replaces="diart_tpu/models/resnet.py (XLA's conv_general_dilated, the batch norms, ReLU and the adds)",
+             launches_family_paths=on_family("resnet_conv"),
+             **{k: resnet["bf16"][k] for k in KEYS}, at_b256={n: {k: r[k] for k in KEYS}
+                                                              for n, r in resnet["bf16"]["cases"].items()},
+             trunk_b256=resnet["bf16"]["trunk"], ptxas=resnet["bf16"]["ptxas"]),
     ]
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

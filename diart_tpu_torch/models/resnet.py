@@ -6,10 +6,17 @@ mean normalization, a 2-D ResNet34 over the (time, mel) plane, temporal
 statistics pooling of the flattened (channels, freq) maps and a linear
 projection. Submodules and parameters carry the flax names.
 
-The trunk runs in ``compute_dtype`` as NCHW with H = time and W = mel; its
-convolutions are plain ``torch.nn.functional.conv2d`` (the JAX package runs
-them outside any Pallas kernel as well). The head pools in f32 with the
-external per-speaker frame weights (uniform weights give wespeaker's TSTP).
+The trunk runs in ``compute_dtype`` over the (time, mel) plane. On a card
+in bf16 (``int8_trunk`` off, no parameter trained) its activations are
+channels-last, (B, T, F, C) as the JAX package keeps them, and each of its
+36 convolutions is one launch of :func:`~diart_tpu_torch.ops.resnet_conv.
+resnet_conv` with its batch norm, the block's residual add and ReLU in the
+kernel's epilogue (the JAX package leaves the trunk to XLA, which fuses
+the same). Every other call (the CPU, f32, the int8 trunk, training) runs
+the composition of ``QuantizableConv``, ``InferenceBatchNorm``, the add and
+ReLU over NCHW tensors with H = time and W = mel. The head pools in f32
+with the external per-speaker frame weights (uniform weights give
+wespeaker's TSTP).
 """
 
 from __future__ import annotations
@@ -19,10 +26,20 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .common import InferenceBatchNorm, QuantizableConv, resample_weights
+from ..ops.resnet_conv import prepare_conv_operands, resnet_conv
+from .common import InferenceBatchNorm, QuantizableConv, held_operands, int8_trunk_enabled, resample_weights, trained
 from .fbank import kaldi_log_mel
 
 __all__ = ["ResNet34"]
+
+
+def _fused_conv(store, conv: QuantizableConv, bn: InferenceBatchNorm, x, residual=None, relu=True):
+    """``conv`` -> ``bn`` (-> + residual) (-> ReLU) on channels-last ``x``
+    in one launch of the kernel, its operands held in ``store``."""
+    params = (conv.weight, bn.scale, bn.bias, bn.mean, bn.var)
+    ops = held_operands(store, id(conv), params, lambda: prepare_conv_operands(conv.weight, *bn.folded()))
+    return resnet_conv(x, conv.weight, stride=conv.stride, padding=conv.padding, residual=residual, relu=relu,
+                       dtype=conv.compute_dtype, operands=ops)
 
 
 class _BasicBlock(nn.Module):
@@ -41,11 +58,22 @@ class _BasicBlock(nn.Module):
             self.downsample_conv = QuantizableConv(in_channels, features, (1, 1), stride=stride, **kw)
             self.downsample_bn = InferenceBatchNorm(features)
 
+        self._ops = {}  # id(conv) -> (key, ConvOperands)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
         residual = self.downsample_bn(self.downsample_conv(x)) if self.downsample else x
         return torch.relu(y + residual)
+
+    def forward_channels_last(self, x: torch.Tensor) -> torch.Tensor:
+        """The block on channels-last (B, T, F, C) bf16 activations on a
+        card: three launches of the kernel (two without a downsample), the
+        downsample's output the residual that ``conv2``'s epilogue adds."""
+        y = _fused_conv(self._ops, self.conv1, self.bn1, x)
+        residual = (_fused_conv(self._ops, self.downsample_conv, self.downsample_bn, x, relu=False)
+                    if self.downsample else x)
+        return _fused_conv(self._ops, self.conv2, self.bn2, y, residual=residual)
 
 
 class ResNet34(nn.Module):
@@ -89,6 +117,7 @@ class ResNet34(nn.Module):
         for _ in range(len(self.depths) - 1):
             freq = (freq - 1) // 2 + 1
         self.embedding = nn.Linear(2 * in_ch * freq, embedding_dim)
+        self._stem_ops = {}  # id(conv1) -> (key, ConvOperands)
 
     def forward(self, waveform, weights=None):
         return self.head(self.trunk(waveform), weights)
@@ -110,10 +139,23 @@ class ResNet34(nn.Module):
         """(B, 1, samples) -> (B, frames', channels * freq')."""
         return self.trunk_from_features(self.features(waveform))
 
+    def channels_last(self, feats: torch.Tensor) -> bool:
+        """Whether the trunk runs on ``feats`` as the kernel's channels-last
+        launches: a card, bf16, widths that are multiples of 8, the int8
+        trunk off and no parameter trained in this call."""
+        return (feats.is_cuda and self.compute_dtype == torch.bfloat16 and self.base_channels % 8 == 0
+                and not int8_trunk_enabled(feats.device) and not trained(self.parameters()))
+
     def trunk_from_features(self, feats: torch.Tensor) -> torch.Tensor:
         """(B, frames, num_mels) -> (B, frames', channels * freq') in the
         compute dtype, flattened per frame as (channels, freq), wespeaker's
         pre-pooling layout."""
+        if self.channels_last(feats):
+            x = _fused_conv(self._stem_ops, self.conv1, self.bn1, feats.contiguous()[..., None])
+            for name in self.blocks:
+                x = getattr(self, name).forward_channels_last(x)
+            b, t, f, c = x.shape
+            return x.transpose(2, 3).reshape(b, t, c * f)
         x = feats.to(self.compute_dtype)[:, None]  # (B, 1, T, F)
         x = torch.relu(self.bn1(self.conv1(x)))
         for name in self.blocks:
