@@ -280,8 +280,9 @@ engines' outputs over phase 3's hops (B=64) with ``TREE``'s package, and
 ``--compare-outputs A B`` holds two such files bitwise: the serving path
 of two commits, compared.
 
-The script imports only the port (never jax or diart_tpu) and exits
-non-zero without a GPU.
+The script imports only the port and the benchmark's peaks
+(``portbench.work``; never jax or diart_tpu) and exits non-zero without a
+GPU.
 """
 
 from __future__ import annotations
@@ -298,11 +299,11 @@ import time
 
 import numpy as np
 
+# the card's peaks and the bounds held against them, the benchmark's own
+from portbench.work import HBM_BYTES_PER_S, PEAK_FLOPS, bound_ms, tf32_bounds
+
 # the tree whose diart_tpu_torch the subprocesses import (``--root``)
 PKG_ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-# tensor cores (int8: operations); f32 outside them
-PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12, "int8": 1979e12}
 T_LSTM, B, H = 293, 64, 128
 T_EMB, C_IN, C_OUT, S = 279, 512, 1500, 4
 T_ECAPA, C_ECAPA, C_MFA, H_ATT, RES2_SCALE, SE_HIDDEN = 501, 512, 1536, 128, 8, 128
@@ -346,12 +347,6 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bound_ms(nbytes: float, flops: float, kind: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[kind]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 # --------------------------------------------------------------------- #
@@ -408,15 +403,15 @@ def check_lstm(dtype, gen):
 
     proj, w_hh = inputs(T_LSTM, B, H)
     packed = lstm_sweep.pack_w_hh(w_hh, dtype)  # laid out once, as the model does
-    got = lstm_sweep.lstm_sweep_tm(proj, packed)
+    got = lstm_sweep.lstm_sweep_tm(proj, operands=packed)
     want = lstm_sweep.lstm_sweep_reference(proj, w_hh)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     if not torch.equal(got, lstm_sweep.lstm_sweep_tm(proj, w_hh)):
         raise AssertionError(f"lstm_sweep[{kind}]: the raw and the packed w_hh give different results")
-    if not torch.equal(got, lstm_sweep.lstm_sweep_tm(proj, packed)):
+    if not torch.equal(got, lstm_sweep.lstm_sweep_tm(proj, operands=packed)):
         raise AssertionError(f"lstm_sweep[{kind}]: two calls differ")
-    ms = time_ms(lambda: lstm_sweep.lstm_sweep_tm(proj, packed), 20)
+    ms = time_ms(lambda: lstm_sweep.lstm_sweep_tm(proj, operands=packed), 20)
     raw_ms = time_ms(lambda: lstm_sweep.lstm_sweep_tm(proj, w_hh), 20)
     plain_ms = time_ms(lambda: lstm_sweep.lstm_sweep_reference(proj, w_hh), 3, warmup=1)
     # yardstick only: cuDNN's LSTM over the same (T, B) includes the input
@@ -443,8 +438,8 @@ def check_lstm(dtype, gen):
     # 8-row blocks on the tensor-core route; several waves of 4-row clusters
     # on the split route), each held to the plain version
     p256, p528 = inputs(T_LSTM, 256, H)[0], inputs(T_LSTM, 528, H)[0]
-    ms_256 = time_ms(lambda: lstm_sweep.lstm_sweep_tm(p256, packed), 20)
-    ms_528 = time_ms(lambda: lstm_sweep.lstm_sweep_tm(p528, packed), 20)
+    ms_256 = time_ms(lambda: lstm_sweep.lstm_sweep_tm(p256, operands=packed), 20)
+    ms_528 = time_ms(lambda: lstm_sweep.lstm_sweep_tm(p528, operands=packed), 20)
     case_errs = [held(T_LSTM, 256, H, p256, w_hh), held(T_LSTM, 528, H, p528, w_hh)]
     del p256, p528
     log(
@@ -486,7 +481,7 @@ def split_route(proj, w_hh, packed, want, inputs, plan):
     if plan["route"] != "split" or plan["w_hh_in"] != "registers" or plan["cluster"] != 2:
         raise AssertionError(f"lstm_sweep[f32] H={H}: W is not held on chip over a cluster of 2 ({plan})")
     build = check_split_build("lstm_sweep")
-    rows = device_times(lambda: lstm_sweep.lstm_sweep_tm(proj, packed), "lstm_sweep[f32]")
+    rows = device_times(lambda: lstm_sweep.lstm_sweep_tm(proj, operands=packed), "lstm_sweep[f32]")
     dev_ms = next((r[1] for r in rows if r[0].startswith("lstm_sweep_split")), None)
     clusters = {b: lstm_sweep.max_clusters(b, proj.device) for b in (B, TRAIN_B, 528)}
     turns = {}
@@ -498,7 +493,7 @@ def split_route(proj, w_hh, packed, want, inputs, plan):
         fma_err = (fma_launch(p, wf) - ref).abs().max().item()
         if not fma_err <= LSTM_TOL["f32"]:
             raise AssertionError(f"the FMA route [f32] B={batch} disagrees with the plain version: {fma_err}")
-        a, b = abba(lambda: time_ms(lambda: fma_launch(p, wf), 20), lambda: time_ms(lambda: lstm_sweep.lstm_sweep_tm(p, packed), 20))
+        a, b = abba(lambda: time_ms(lambda: fma_launch(p, wf), 20), lambda: time_ms(lambda: lstm_sweep.lstm_sweep_tm(p, operands=packed), 20))
         turns[f"B{batch}"] = dict(ms=float(np.mean(b)), ms_turns=b, ms_fma=float(np.mean(a)), ms_fma_turns=a,
                                   fma_max_abs_err=fma_err,
                                   plan=lstm_sweep.launch_plan(batch, H, torch.float32, proj.device))
@@ -566,17 +561,6 @@ def stats_fma(x, ops, wt, slope=0.01):
     return s1, s2
 
 
-def tf32_bounds(nbytes, tensor_flops, fma_flops=0.0):
-    """The 3xTF32 bound (three TF32 products of ``tensor_flops`` at the
-    tensor cores' peak, the ``fma_flops`` beside them on the f32 units, or
-    the bytes) and the bound of the same work as f32 FMAs: ((ms, by), (ms,
-    by))."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(3 * tensor_flops / PEAK_FLOPS["tf32"], fma_flops / PEAK_FLOPS["f32"])
-    return ((max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"),
-            bound_ms(nbytes, tensor_flops + fma_flops, "f32"))
-
-
 def bitwise_equal(a, b) -> bool:
     import torch
 
@@ -638,19 +622,19 @@ def check_stats(dtype, gen, shape=(B, T_EMB, C_IN, C_OUT, S), sweep=True, tag=""
     x, w, b, scale, shift, wt = stats_inputs(B, T_EMB, C_IN, C_OUT, S, dtype, gen)
     ops = ls.prepare_stats_operands(w, b, scale, shift, dtype)  # once, as the model does
     want = ls.linear_stats_reference(x, w, b, scale, shift, wt)
-    got = ls.fused_linear_stats(x, ops, weights=wt)
+    got = ls.fused_linear_stats(x, weights=wt, operands=ops)
     torch.cuda.synchronize()
     err, tol = held_to(got, want, STATS_TOL)
     if not bitwise_equal(got, ls.fused_linear_stats(x, w, b, scale, shift, wt)):
         raise AssertionError(f"linear_stats[{kind}]: raw and prepared operands give different results")
     plan = ls._plan(x, ops, S)
     for lo, hi in PART_STREAMS:
-        part = ls.fused_linear_stats(x[lo:hi], ops, weights=wt[lo:hi])
+        part = ls.fused_linear_stats(x[lo:hi], weights=wt[lo:hi], operands=ops)
         if not bitwise_equal([g[lo:hi] for g in got], part):
             raise AssertionError(f"linear_stats[{kind}]: streams {lo}..{hi - 1} alone "
                                  f"({ls._plan(x[lo:hi], ops, S)}) differ from their rows at B={B}")
-    ms = time_ms(lambda: ls.fused_linear_stats(x, ops, weights=wt), 20)
-    device_ms = device_times(lambda: ls.fused_linear_stats(x, ops, weights=wt), "linear_stats")[0][1]
+    ms = time_ms(lambda: ls.fused_linear_stats(x, weights=wt, operands=ops), 20)
+    device_ms = device_times(lambda: ls.fused_linear_stats(x, weights=wt, operands=ops), "linear_stats")[0][1]
     raw_ms = time_ms(lambda: ls.fused_linear_stats(x, w, b, scale, shift, wt), 20)
     plain_ms = time_ms(lambda: ls.linear_stats_reference(x, w, b, scale, shift, wt), 20)
     wl = w.to(dtype)
@@ -687,7 +671,7 @@ def check_stats(dtype, gen, shape=(B, T_EMB, C_IN, C_OUT, S), sweep=True, tag=""
             args = stats_inputs(B, T_ECAPA, C_IN, C_OUT, S, dtype, gen)  # XVector-SB's head
             xops = ls.prepare_stats_operands(*args[1:5], dtype)
             ref = ls.linear_stats_reference(*args)
-            e, t = held_to(ls.fused_linear_stats(args[0], xops, weights=args[5]), ref, STATS_TOL)
+            e, t = held_to(ls.fused_linear_stats(args[0], weights=args[5], operands=xops), ref, STATS_TOL)
             if not e <= t:
                 raise AssertionError(f"linear_stats[f32] at XVector-SB's head disagrees: {e} > {t}")
             main["xvect_sb"] = dict(max_abs_err=e, tol=t,
@@ -700,10 +684,10 @@ def check_stats(dtype, gen, shape=(B, T_EMB, C_IN, C_OUT, S), sweep=True, tag=""
         args = stats_inputs(*case, dtype, gen)
         batch, time_, c_in, channels, speakers = case
         cops = ls.prepare_stats_operands(*args[1:5], dtype)
-        got = ls.fused_linear_stats(args[0], cops, weights=args[5])
+        got = ls.fused_linear_stats(args[0], weights=args[5], operands=cops)
         e, t = held_to(got, ls.linear_stats_reference(*args), STATS_TOL)
         p = ls._plan(args[0], cops, speakers)
-        same = bitwise_equal(got, ls.fused_linear_stats(args[0], cops, weights=args[5]))
+        same = bitwise_equal(got, ls.fused_linear_stats(args[0], weights=args[5], operands=cops))
         if c_in % 8 and p["route"] != "fma" or not c_in % 8 and p["route"] not in ("wgmma", "wgmma_tf32"):
             raise AssertionError(f"linear_stats[{kind}] at {case} takes the {p['route']} route")
         log(f"  linear_stats[{kind}] B={batch} T={time_} C_in={c_in} C={channels} S={speakers} "
@@ -726,7 +710,7 @@ def stats_fma_turns(x, ops, wt, want, tol, tag=""):
     if not fma_err <= tol:
         raise AssertionError(f"linear_stats_fma[f32{tag}] disagrees with the plain version: {fma_err} > {tol}")
     a, b = abba(lambda: time_ms(lambda: stats_fma(x, ops, wt), 20),
-                lambda: time_ms(lambda: ls.fused_linear_stats(x, ops, weights=wt), 20))
+                lambda: time_ms(lambda: ls.fused_linear_stats(x, weights=wt, operands=ops), 20))
     fma_dev = device_times(lambda: stats_fma(x, ops, wt), "linear_stats_fma")[0][1]
     log(f"linear_stats[f32{tag}] X={tuple(x.shape)} A B B A (A: linear_stats_fma, B: the TF32 tensor cores), ms: "
         f"{a[0]:.4f} {b[0]:.4f} {b[1]:.4f} {a[1]:.4f}; the FMA route's device ms {fma_dev:.4f}, "
@@ -770,19 +754,19 @@ def check_attn(dtype, gen, shape=(B, T_ECAPA, C_MFA, H_ATT, S), sweep=True, tag=
     x, hidden, w2, b2, wt = attn_inputs(B, T_ECAPA, C_MFA, H_ATT, S, dtype, gen)
     ops = at.prepare_attn_operands(w2, b2)  # once, as the model does
     want = at.attentive_stats_reference(x, hidden, w2, b2, wt)
-    got = at.fused_attentive_stats(x, hidden, ops, weights=wt)
+    got = at.fused_attentive_stats(x, hidden, weights=wt, operands=ops)
     torch.cuda.synchronize()
     err, tol = held_to(got, want, ATTN_TOL, floor=1.0)
     if not bitwise_equal(got, at.fused_attentive_stats(x, hidden, w2, b2, wt)):
         raise AssertionError(f"attn_stats[{kind}]: raw and prepared operands give different results")
     plan = at._plan(x, hidden, S)
     for lo, hi in PART_STREAMS:
-        part = at.fused_attentive_stats(x[lo:hi], hidden[lo:hi], ops, weights=wt[lo:hi])
+        part = at.fused_attentive_stats(x[lo:hi], hidden[lo:hi], weights=wt[lo:hi], operands=ops)
         if not bitwise_equal([g[lo:hi] for g in got], part):
             raise AssertionError(f"attn_stats[{kind}]: streams {lo}..{hi - 1} alone "
                                  f"({at._plan(x[lo:hi], hidden, S)}) differ from their rows at B={B}")
-    ms = time_ms(lambda: at.fused_attentive_stats(x, hidden, ops, weights=wt), 20)
-    device_ms = device_times(lambda: at.fused_attentive_stats(x, hidden, ops, weights=wt), "attn_stats")[0][1]
+    ms = time_ms(lambda: at.fused_attentive_stats(x, hidden, weights=wt, operands=ops), 20)
+    device_ms = device_times(lambda: at.fused_attentive_stats(x, hidden, weights=wt, operands=ops), "attn_stats")[0][1]
     raw_ms = time_ms(lambda: at.fused_attentive_stats(x, hidden, w2, b2, wt), 20)
     plain_ms = time_ms(lambda: at.attentive_stats_reference(x, hidden, w2, b2, wt), 5)
     product_ms = time_ms(lambda: torch.matmul(hidden, w2), 20)  # yardstick: f32 logits alone
@@ -819,10 +803,10 @@ def check_attn(dtype, gen, shape=(B, T_ECAPA, C_MFA, H_ATT, S), sweep=True, tag=
         x_, h_, w_, b_, wt_ = attn_inputs(*case, dtype, gen)
         batch, time_, channels, hdim, speakers = case
         cops = at.prepare_attn_operands(w_, b_)
-        got = at.fused_attentive_stats(x_, h_, cops, weights=wt_)
+        got = at.fused_attentive_stats(x_, h_, weights=wt_, operands=cops)
         e, t = held_to(got, at.attentive_stats_reference(x_, h_, w_, b_, wt_), ATTN_TOL, floor=1.0)
         p = at._plan(x_, h_, speakers)
-        same = bitwise_equal(got, at.fused_attentive_stats(x_, h_, cops, weights=wt_))
+        same = bitwise_equal(got, at.fused_attentive_stats(x_, h_, weights=wt_, operands=cops))
         log(f"  attn_stats[{kind}] B={batch} T={time_} C={channels} H={hdim} S={speakers} "
             f"grid {p['grid']} x{p['streams_per_block']} smem {p['smem']}: "
             f"max_abs_err={e:.3e} (tol {t:.3e}), repeat bitwise {same}")
@@ -923,7 +907,7 @@ def check_sinc(dtype, gen):
     with precision.use(precision.Precision(bf16_frontend=bf16), force=True):
         for batch, filters in SINC_CASES:
             x, ops = sinc_case(batch, 80000, filters, gen)
-            run = lambda: sf.sinc_frontend(x, ops, sf.STRIDE)
+            run = lambda: sf.sinc_frontend(x, None, sf.STRIDE, operands=ops)
             plain = lambda: sf.sinc_frontend_reference(x, ops.filters, sf.STRIDE, ops.bias)
             before = sf.sinc_frontend.launches
             got = run()
@@ -931,7 +915,7 @@ def check_sinc(dtype, gen):
             torch.cuda.synchronize()
             err, tol, worst = sinc_held(got, want, bf16)
             same = torch.equal(got, run())
-            alone = torch.equal(sf.sinc_frontend(x[37:38], ops, sf.STRIDE), got[37:38])
+            alone = torch.equal(sf.sinc_frontend(x[37:38], None, sf.STRIDE, operands=ops), got[37:38])
             launched = sf.sinc_frontend.launches - before
             plan = sf.launch_plan(batch, 80000, filters, _build.num_sms(x.device))
             ms = time_ms(run, 20)
@@ -963,10 +947,10 @@ def check_sinc(dtype, gen):
         sweep = []
         for batch, samples, filters in SINC_SWEEP:
             x, ops = sinc_case(batch, samples, filters, gen)
-            got = sf.sinc_frontend(x, ops, sf.STRIDE)
+            got = sf.sinc_frontend(x, None, sf.STRIDE, operands=ops)
             want = sf.sinc_frontend_reference(x, ops.filters, sf.STRIDE, ops.bias)
             err, tol, worst = sinc_held(got, want, bf16)
-            same = torch.equal(got, sf.sinc_frontend(x, ops, sf.STRIDE))
+            same = torch.equal(got, sf.sinc_frontend(x, None, sf.STRIDE, operands=ops))
             plan = sf.launch_plan(batch, samples, filters, _build.num_sms(x.device))
             log(f"  sinc_frontend[{kind}] B={batch} S={samples} F={filters} -> {tuple(got.shape)}: "
                 f"max_abs_err={err:.3e} (tol {tol:.3e}; worst {worst:.3f}) repeat bitwise {same}; "
@@ -1402,14 +1386,14 @@ def check_res2(dtype, gen):
 
     errs, stage_errs = {}, []
     for d in (2, 3, 4):
-        got = se_res2.fused_se_res2_block(x, ops, d)
+        got = se_res2.fused_se_res2_block(x, None, d, operands=ops)
         want = se_res2.se_res2_block_reference(x, *params, d)
         torch.cuda.synchronize()
         errs[d] = held(got, want, f"block d={d}", residual=x)
-        if not torch.equal(got, se_res2.fused_se_res2_block(x, ops, d)):
+        if not torch.equal(got, se_res2.fused_se_res2_block(x, None, d, operands=ops)):
             failures.append(f"block d={d}: two calls differ")
         for stage in range(RES2_SCALE):
-            got = se_res2.se_res2_staged(x, ops, d, stage)
+            got = se_res2.se_res2_staged(x, None, d, stage, operands=ops)
             want = se_res2.se_res2_stage_reference(x, params, d, stage)
             stage_errs.append(held(got, want, f"stage {stage} d={d}")[0])
     for batch in (1, 2, 3, 8):
@@ -1429,15 +1413,15 @@ def check_res2(dtype, gen):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for time_, batch in ((333, 3), (5, 2), (40, 2), (T_ECAPA, 2), (T_ECAPA, 100)):
         xb = (x if batch <= B else torch.cat([x, x[:batch - B]]))[:batch, :time_].contiguous()
-        got_c = se_res2.se_res2_staged(xb, ops, 4, last)
-        got_b = se_res2.fused_se_res2_block(xb, ops, 4)
+        got_c = se_res2.se_res2_staged(xb, None, 4, last, operands=ops)
+        got_b = se_res2.fused_se_res2_block(xb, None, 4, operands=ops)
         tile = se_res2.cascade_tile(batch, time_, dtype, sms)
         held(got_c, se_res2.se_res2_stage_reference(xb, params, 4, last), f"concat T={time_} tile={tile}")
         held(got_b, se_res2.se_res2_block_reference(xb, *params, 4), f"block T={time_} tile={tile}",
              residual=xb)
         if batch > 1 and se_res2.cascade_tile(1, time_, dtype, sms) != tile:
-            one_c = se_res2.se_res2_staged(xb[:1], ops, 4, last)
-            one_b = se_res2.fused_se_res2_block(xb[:1], ops, 4)
+            one_c = se_res2.se_res2_staged(xb[:1], None, 4, last, operands=ops)
+            one_b = se_res2.fused_se_res2_block(xb[:1], None, 4, operands=ops)
             if not (torch.equal(one_c, got_c[:1]) and torch.equal(one_b, got_b[:1])):
                 failures.append(f"T={time_}: the result depends on the time tile ({tile})")
     if failures:
@@ -1454,7 +1438,7 @@ def check_res2(dtype, gen):
     err = max(e for e, _ in errs.values())
     tol = max(t for _, t in errs.values())
     worst_mean = max(means, key=lambda m: m[0] / m[1]) if means else None
-    ms = time_ms(lambda: se_res2.fused_se_res2_block(x, ops, 2), 20)
+    ms = time_ms(lambda: se_res2.fused_se_res2_block(x, None, 2, operands=ops), 20)
     plain_ms = time_ms(lambda: se_res2.se_res2_block_reference(x, *params, 2), 5)
     elt = x.element_size()
     groups, width = RES2_SCALE - 1, C_ECAPA // RES2_SCALE
@@ -1464,10 +1448,10 @@ def check_res2(dtype, gen):
     flops += 2.0 * B * 2 * C_ECAPA * SE_HIDDEN
     bms, by = bound_ms(nbytes, flops, kind)
     x8 = x[:8].contiguous()
-    ms_b8 = time_ms(lambda: se_res2.fused_se_res2_block(x8, ops, 2), 20)
-    by_launch = device_times(lambda: se_res2.fused_se_res2_block(x, ops, 2), "the SE-Res2Block")
+    ms_b8 = time_ms(lambda: se_res2.fused_se_res2_block(x8, None, 2, operands=ops), 20)
+    by_launch = device_times(lambda: se_res2.fused_se_res2_block(x, None, 2, operands=ops), "the SE-Res2Block")
     # the stage mode's longest run: z1 and the whole cascade (the concat)
-    stage_ms = time_ms(lambda: se_res2.se_res2_staged(x, ops, 2, last), 20)
+    stage_ms = time_ms(lambda: se_res2.se_res2_staged(x, None, 2, last, operands=ops), 20)
     stage_plain_ms = time_ms(lambda: se_res2.se_res2_stage_reference(x, params, 2, last), 5)
     stage_bytes = 2 * x.numel() * elt + (C_ECAPA * C_ECAPA + groups * 3 * width * width) * elt
     stage_bytes += 4 * (3 * C_ECAPA + 3 * groups * width)
@@ -1531,7 +1515,7 @@ def res2_tf32_route(x, ops, params, flops, nbytes, rel_max):
     for batch in (B, 8):
         xb = x[:batch].contiguous()
         a, b = abba(lambda: time_ms(lambda: res2_fma_block(xb, ops, 2), 20),
-                    lambda: time_ms(lambda: se_res2.fused_se_res2_block(xb, ops, 2), 20))
+                    lambda: time_ms(lambda: se_res2.fused_se_res2_block(xb, None, 2, operands=ops), 20))
         turns[f"B{batch}"] = dict(ms=float(np.mean(b)), ms_turns=b, ms_fma=float(np.mean(a)), ms_fma_turns=a)
         log(f"se_res2[f32] B={batch} A B B A (A: the FMA route, B: the TF32 tensor cores), ms: "
             f"{a[0]:.4f} {b[0]:.4f} {b[1]:.4f} {a[1]:.4f}")
@@ -4670,7 +4654,9 @@ def check_int8_sites():
         del model, seen
         torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(12)
-    conv = QuantizableConv(40, 24, (3, 3), dilation=3, stride=2, padding=1, compute_dtype=torch.bfloat16).cuda()
+    # fixed weights, as the families' are: the held operands' path, not the straight-through Function's
+    conv = QuantizableConv(40, 24, (3, 3), dilation=3, stride=2, padding=1,
+                           compute_dtype=torch.bfloat16).cuda().requires_grad_(False)
     with torch.no_grad():
         conv.weight.copy_(torch.randn(conv.weight.shape, device="cuda", generator=gen) * 0.1)
         conv.bias.copy_(torch.randn(24, device="cuda", generator=gen))

@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Hashable, Iterable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -11,7 +11,8 @@ from torch import nn
 
 from .. import precision as precision_policy
 from ..ops import _numerics
-from ..ops.attn_stats import AttnOperands, fused_attentive_stats
+from ..ops._grad import wants_grad
+from ..ops.attn_stats import fused_attentive_stats, prepare_attn_operands
 from ..ops.functional import reflect_index
 from ..ops.quant import int8_conv, prepare_int8_operands
 
@@ -23,27 +24,30 @@ __all__ = [
     "int8_trunk_enabled",
     "reflect_pad_time",
     "resample_weights",
-    "trained",
 ]
 
 
-def held_operands(store: Dict, tag, params: Iterable[torch.Tensor], make: Callable):
-    """``make()``'s kernel operands, held in ``store`` under ``tag`` and made
-    again only when one of ``params`` changes: an in-place update, a load or
-    a move to another device (each is keyed on its ``data_ptr``,
-    ``_version`` and device)."""
+def held_operands(owner, tag: Hashable, params: Iterable[torch.Tensor], make: Callable):
+    """The kernel operands ``make()`` lays out of ``params``, held by
+    ``owner`` under ``tag`` and made again only when one of ``params``
+    changes: an in-place update, a load or a move to another device (each
+    is keyed on its ``data_ptr``, ``_version`` and device). None where
+    autograd trains any of ``params`` in this call: held operands are cut
+    off from autograd, so the caller then passes the raw parameters.
+
+    The owner's one store is a plain dict attribute made at first use, so
+    it is in no ``state_dict()``, ``named_parameters()`` or
+    ``named_buffers()``."""
+    params = tuple(params)
+    if wants_grad(*params):
+        return None
     key = tuple((p.data_ptr(), p._version, p.device) for p in params)
+    store = vars(owner).setdefault("_held_operands", {})
     held = store.get(tag)
     if held is None or held[0] != key:
         with torch.no_grad():
             held = store[tag] = (key, make())
     return held[1]
-
-
-def trained(params: Iterable[torch.Tensor]) -> bool:
-    """Whether autograd trains any of ``params`` in this call. Held operands
-    are cut off from autograd, so such a call takes the raw parameters."""
-    return torch.is_grad_enabled() and any(p.requires_grad for p in params)
 
 
 def reflect_pad_time(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -81,11 +85,11 @@ class QuantizableConv(nn.Module):
 
     With the ``int8_trunk`` switch on, a ``quantizable`` convolution runs as
     the dynamic int8 convolution (:func:`diart_tpu_torch.ops.quant.int8_conv`)
-    with its weights quantized once and held. ``quantizable=False`` marks
-    the convolutions that are a plain ``nn.Conv`` in the JAX package
-    (TitaNet's depthwise one, ResNet34's stem), which stay in
-    ``compute_dtype`` under the switch. In f32 the plain route is true f32
-    on the card whatever torch's TF32 switches say
+    with its weights quantized once and held (:func:`held_operands`).
+    ``quantizable=False`` marks the convolutions that are a plain
+    ``nn.Conv`` in the JAX package (TitaNet's depthwise one, ResNet34's
+    stem), which stay in ``compute_dtype`` under the switch. In f32 the
+    plain route is true f32 on the card whatever torch's TF32 switches say
     (:func:`diart_tpu_torch.ops._numerics.conv_scope`)."""
 
     def __init__(
@@ -114,7 +118,6 @@ class QuantizableConv(nn.Module):
         self._conv = F.conv2d if len(kernel) == 2 else F.conv1d
         self.weight = nn.Parameter(torch.zeros(features, in_channels // groups, *kernel))
         self.bias = nn.Parameter(torch.zeros(features)) if bias else None
-        self._int8_ops = {}  # () -> (key, Int8Operands)
 
     def int8(self, x: torch.Tensor) -> bool:
         """Whether a call on ``x`` takes the int8 path."""
@@ -124,10 +127,7 @@ class QuantizableConv(nn.Module):
         dt = self.compute_dtype
         if self.int8(x):
             params = [p for p in (self.weight, self.bias) if p is not None]
-            ops = None
-            if x.is_cuda and not trained(params):
-                ops = held_operands(self._int8_ops, (), params,
-                                    lambda: prepare_int8_operands(self.weight, self.bias))
+            ops = held_operands(self, "int8", params, lambda: prepare_int8_operands(self.weight, self.bias))
             return int8_conv(x, self.weight, self.bias, self.stride, self.padding, self.dilation,
                              dt, operands=ops)
         with _numerics.conv_scope(x.device, dt):
@@ -171,16 +171,14 @@ def attentive_stats_pool(
     att_global: nn.Linear,
     att_bn: InferenceBatchNorm,
     att_scores: nn.Linear,
-    scores: Optional[AttnOperands] = None,
 ) -> Tuple[torch.Tensor, bool]:
     """External-weight-aware channel-attentive statistics pooling (the ECAPA
     head): attention over ``[x; global mean; global std]`` once per chunk,
     then per-speaker pooling where the frame weights re-normalize the shared
     attention. The softmax and the three moments run in
     :func:`fused_attentive_stats` (the hand-written kernel on a CUDA tensor),
-    so the (B, T, C) logits never reach memory. ``scores`` is
-    ``att_scores`` prepared for the kernel (:func:`prepare_attn_operands`),
-    where the caller holds it; otherwise the raw weights go in.
+    so the (B, T, C) logits never reach memory, with ``att_scores``'s
+    weights laid out for it once and held (:func:`held_operands`).
 
     frames (B, T, C); weights (B, S, Tw) or None -> (pooled (B, S, 2C) f32,
     squeeze), ``squeeze`` telling the caller the speaker axis was made up."""
@@ -194,12 +192,10 @@ def attentive_stats_pool(
     gstd = torch.sqrt(torch.clamp(gvar, min=1e-12))
     hidden = att_local(f32) + att_global(torch.cat([gmean, gstd], dim=-1))
     hidden = torch.tanh(att_bn(torch.relu(hidden)))  # (B, T, bottleneck)
-    if scores is None:
-        den, s1, s2 = fused_attentive_stats(
-            frames, hidden, att_scores.weight.t(), att_scores.bias, weights
-        )
-    else:
-        den, s1, s2 = fused_attentive_stats(frames, hidden, scores, weights=weights)
+    ops = held_operands(att_scores, "attn_stats", att_scores.parameters(),
+                        lambda: prepare_attn_operands(att_scores.weight.t(), att_scores.bias))
+    raw = (att_scores.weight.t(), att_scores.bias) if ops is None else (None, None)
+    den, s1, s2 = fused_attentive_stats(frames, hidden, *raw, weights, operands=ops)
     den = torch.clamp(den, min=1e-12)
     mu = s1 / den
     var = s2 / den - mu**2

@@ -24,16 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attn_stats import AttnOperands, prepare_attn_operands
-from ..ops.se_res2 import Res2Operands, fused_se_res2_block, kernel_operands
-from .common import (
-    InferenceBatchNorm,
-    QuantizableConv,
-    attentive_stats_pool,
-    held_operands,
-    reflect_pad_time,
-    trained,
-)
+from ..ops.se_res2 import fused_se_res2_block, kernel_operands
+from .common import InferenceBatchNorm, QuantizableConv, attentive_stats_pool, held_operands, reflect_pad_time
 from .fbank import speechbrain_log_mel
 
 __all__ = ["EcapaTDNN"]
@@ -110,7 +102,6 @@ class _SERes2Block(nn.Module):
         self.res2net = _Res2Block(features, kernel, dilation, res2_scale, compute_dtype)
         self.tdnn2 = _TDNNBlock(features, features, 1, 1, compute_dtype)
         self.se = _SEBlock(features, se_bottleneck)
-        self._operands = {}  # dtype -> (key, Res2Operands)
 
     def folded_params(self) -> Tuple[torch.Tensor, ...]:
         """The kernel's 16-tuple: 1x1 weights as (in, out), group
@@ -130,17 +121,13 @@ class _SERes2Block(nn.Module):
             self.se.conv2.weight.t(), self.se.conv2.bias,
         )
 
-    def kernel_operands(self, dtype: torch.dtype) -> Res2Operands:
-        """The folded parameters laid out for the kernel, made once per
-        dtype and made again only when a parameter changes (a load or a
-        move to another device)."""
-        return held_operands(self._operands, dtype, list(self.parameters()),
-                             lambda: kernel_operands(self.folded_params(), dtype))
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.features % self.res2_scale == 0:
-            ops = self.folded_params() if trained(self.parameters()) else self.kernel_operands(x.dtype)
-            return fused_se_res2_block(x, ops, self.dilation)
+            # the folded parameters laid out for the kernel once per dtype and held
+            ops = held_operands(self, x.dtype, self.parameters(),
+                                lambda: kernel_operands(self.folded_params(), x.dtype))
+            return fused_se_res2_block(x, self.folded_params() if ops is None else None, self.dilation,
+                                       operands=ops)
         residual = x
         x = self.se(self.tdnn2(self.res2net(self.tdnn1(x))))
         return x + residual
@@ -184,13 +171,6 @@ class EcapaTDNN(nn.Module):
         self.att2 = nn.Linear(attention_bottleneck, 3 * c)
         self.asp_bn = InferenceBatchNorm(6 * c, channel_dim=-1)
         self.embedding = nn.Linear(6 * c, embedding_dim)
-        self._scores_ops = {}  # () -> (key, AttnOperands)
-
-    def scores_operands(self) -> AttnOperands:
-        """The attention scores' weights laid out for the kernel, once and
-        again only when they change."""
-        return held_operands(self._scores_ops, (), list(self.att2.parameters()),
-                             lambda: prepare_attn_operands(self.att2.weight.t(), self.att2.bias))
 
     def forward(self, waveform, weights=None):
         return self.head(self.trunk(waveform), weights)
@@ -227,8 +207,7 @@ class EcapaTDNN(nn.Module):
         """frames (B, T, C); weights (B, S, Tw) or None -> (B, S, dim) (or
         (B, dim))."""
         pooled, squeeze = attentive_stats_pool(
-            frames, weights, self.att_local, self.att_global, self.att_bn, self.att2,
-            None if trained(self.att2.parameters()) else self.scores_operands(),
+            frames, weights, self.att_local, self.att_global, self.att_bn, self.att2
         )
         emb = self.embedding(self.asp_bn(pooled))
         return emb[:, 0] if squeeze else emb

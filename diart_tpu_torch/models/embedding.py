@@ -20,8 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.linear_stats import StatsOperands, fused_linear_stats, prepare_stats_operands
-from .common import InferenceBatchNorm, QuantizableConv, held_operands, resample_weights, trained
+from ..ops.linear_stats import fused_linear_stats, prepare_stats_operands
+from .common import InferenceBatchNorm, QuantizableConv, held_operands, resample_weights
 from .sincnet import SincNet
 
 __all__ = ["FusedStatsHead", "XVectorSincNet", "stats_from_moments", "weighted_stats_pool"]
@@ -56,26 +56,9 @@ class FusedStatsHead:
     (the final TDNN is 1x1, as in the standard geometry) the trunk stops
     before that TDNN and :meth:`pooled_stats` computes its projection,
     leaky ReLU, batch norm and weighted moments in
-    :func:`fused_linear_stats`, with the operands laid out once. The class
-    sets ``tdnn_specs``, ``tdnn{i}``, ``tdnn{i}_norm`` and ``_head_ops``."""
-
-    def _head_layers(self):
-        """The last TDNN's conv and batch norm, which the fused head computes."""
-        last = len(self.tdnn_specs) - 1
-        conv, norm = getattr(self, f"tdnn{last}"), getattr(self, f"tdnn{last}_norm")
-        return conv, norm, [*conv.parameters(), *norm.parameters()]
-
-    def head_operands(self, dtype: torch.dtype) -> StatsOperands:
-        """The fused head's operands for frames of ``dtype``: the last TDNN's
-        1x1 weight, bias and folded batch norm, laid out once and again only
-        when one of them changes."""
-        conv, norm, params = self._head_layers()
-
-        def make():
-            a, c = norm.folded()
-            return prepare_stats_operands(conv.weight[:, :, 0].t(), conv.bias, a, c, dtype)
-
-        return held_operands(self._head_ops, dtype, params, make)
+    :func:`fused_linear_stats`, with the operands laid out once and held
+    (:func:`held_operands`). The class sets ``tdnn_specs``, ``tdnn{i}`` and
+    ``tdnn{i}_norm``."""
 
     @property
     def fused_head(self) -> bool:
@@ -93,13 +76,14 @@ class FusedStatsHead:
         weights = resample_weights(weights, frames.shape[1])
         if not fused:
             return weighted_stats_pool(frames, weights), squeeze
-        conv, norm, params = self._head_layers()
+        # the last TDNN's conv and batch norm, which the fused head computes
+        last = len(self.tdnn_specs) - 1
+        conv, norm = getattr(self, f"tdnn{last}"), getattr(self, f"tdnn{last}_norm")
+        raw = lambda: (conv.weight[:, :, 0].t(), conv.bias, *norm.folded())
+        ops = held_operands(self, ("linear_stats", frames.dtype), [*conv.parameters(), *norm.parameters()],
+                            lambda: prepare_stats_operands(*raw(), frames.dtype))
         wf = weights.float()
-        if trained(params):
-            a, c = norm.folded()
-            s1, s2 = fused_linear_stats(frames, conv.weight[:, :, 0].t(), conv.bias, a, c, wf)
-        else:
-            s1, s2 = fused_linear_stats(frames, self.head_operands(frames.dtype), weights=wf)
+        s1, s2 = fused_linear_stats(frames, *(raw() if ops is None else (None,) * 4), wf, operands=ops)
         return stats_from_moments(s1, s2, wf.sum(-1), (wf * wf).sum(-1)), squeeze
 
 
@@ -128,7 +112,6 @@ class XVectorSincNet(FusedStatsHead, nn.Module):
             setattr(self, f"tdnn{i}_norm", InferenceBatchNorm(channels))
             in_dim = channels
         self.embedding = nn.Linear(2 * in_dim, embedding_dim)
-        self._head_ops = {}  # frames dtype -> (key, StatsOperands)
 
     def forward(self, waveform, weights=None):
         return self.head(self.trunk(waveform), weights)

@@ -9,7 +9,7 @@ made. Gate order is PyTorch's (i, f, g, o). With ``bf16_lstm`` (CUDA only)
 the gate stream and the hidden states are stored in bf16. Each layer's
 ``w_hh`` is laid out for the sweep kernel once per stream dtype
 (:func:`diart_tpu_torch.ops.lstm_sweep.pack_w_hh`) and laid out again only
-when the parameter changes.
+when the parameter changes (``common.held_operands``).
 """
 
 from __future__ import annotations
@@ -18,8 +18,8 @@ import torch
 from torch import nn
 
 from .. import precision
-from ..ops.lstm_sweep import SweepWeights, lstm_sweep_tm, pack_w_hh
-from .common import held_operands, trained
+from ..ops.lstm_sweep import lstm_sweep_tm, pack_w_hh
+from .common import held_operands
 
 __all__ = ["BiLSTM"]
 
@@ -41,14 +41,6 @@ class BiLSTM(nn.Module):
             self.register_parameter(f"l{layer}_w_ih", nn.Parameter(torch.zeros(2, 4 * h, in_dim)))
             self.register_parameter(f"l{layer}_w_hh", nn.Parameter(torch.zeros(2, 4 * h, h)))
             self.register_parameter(f"l{layer}_b", nn.Parameter(torch.zeros(2, 4 * h)))
-        self._packed = {}  # (layer, stream dtype) -> (key, SweepWeights)
-
-    def packed_w_hh(self, layer: int, dtype: torch.dtype) -> SweepWeights:
-        """Layer ``layer``'s ``w_hh`` laid out for a sweep in ``dtype``, made
-        once and made again only when the parameter changes (an in-place
-        update, a load, a move to another device)."""
-        w_hh = getattr(self, f"l{layer}_w_hh")
-        return held_operands(self._packed, (layer, dtype), [w_hh], lambda: pack_w_hh(w_hh, dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (T, B, F) -> (T, B, 2H), in the stream dtype."""
@@ -62,6 +54,7 @@ class BiLSTM(nn.Module):
             y = torch.matmul(x.to(stream), w_ih.to(stream).reshape(2 * g4, -1).t())
             proj = (y.view(time, batch, 2, g4).float() + b).to(stream)
             proj_t = proj.transpose(1, 2).contiguous()  # (T, 2, B, 4H)
-            out_t = lstm_sweep_tm(proj_t, w_hh if trained([w_hh]) else self.packed_w_hh(layer, stream))
+            packed = held_operands(self, (layer, stream), [w_hh], lambda: pack_w_hh(w_hh, stream))
+            out_t = lstm_sweep_tm(proj_t, w_hh if packed is None else None, operands=packed)
             x = torch.cat([out_t[:, 0], out_t[:, 1]], dim=-1)
         return x

@@ -26,20 +26,22 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..ops._grad import wants_grad
 from ..ops.resnet_conv import prepare_conv_operands, resnet_conv
-from .common import InferenceBatchNorm, QuantizableConv, held_operands, int8_trunk_enabled, resample_weights, trained
+from .common import InferenceBatchNorm, QuantizableConv, held_operands, int8_trunk_enabled, resample_weights
 from .fbank import kaldi_log_mel
 
 __all__ = ["ResNet34"]
 
 
-def _fused_conv(store, conv: QuantizableConv, bn: InferenceBatchNorm, x, residual=None, relu=True):
+def _fused_conv(conv: QuantizableConv, bn: InferenceBatchNorm, x, residual=None, relu=True):
     """``conv`` -> ``bn`` (-> + residual) (-> ReLU) on channels-last ``x``
-    in one launch of the kernel, its operands held in ``store``."""
+    in one launch of the kernel, its operands held by ``conv``."""
     params = (conv.weight, bn.scale, bn.bias, bn.mean, bn.var)
-    ops = held_operands(store, id(conv), params, lambda: prepare_conv_operands(conv.weight, *bn.folded()))
-    return resnet_conv(x, conv.weight, stride=conv.stride, padding=conv.padding, residual=residual, relu=relu,
-                       dtype=conv.compute_dtype, operands=ops)
+    ops = held_operands(conv, "resnet_conv", params, lambda: prepare_conv_operands(conv.weight, *bn.folded()))
+    scale, shift = bn.folded() if ops is None else (None, None)
+    return resnet_conv(x, conv.weight, scale, shift, conv.stride, conv.padding, residual, relu, conv.compute_dtype,
+                       operands=ops)
 
 
 class _BasicBlock(nn.Module):
@@ -58,8 +60,6 @@ class _BasicBlock(nn.Module):
             self.downsample_conv = QuantizableConv(in_channels, features, (1, 1), stride=stride, **kw)
             self.downsample_bn = InferenceBatchNorm(features)
 
-        self._ops = {}  # id(conv) -> (key, ConvOperands)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
@@ -70,10 +70,9 @@ class _BasicBlock(nn.Module):
         """The block on channels-last (B, T, F, C) bf16 activations on a
         card: three launches of the kernel (two without a downsample), the
         downsample's output the residual that ``conv2``'s epilogue adds."""
-        y = _fused_conv(self._ops, self.conv1, self.bn1, x)
-        residual = (_fused_conv(self._ops, self.downsample_conv, self.downsample_bn, x, relu=False)
-                    if self.downsample else x)
-        return _fused_conv(self._ops, self.conv2, self.bn2, y, residual=residual)
+        y = _fused_conv(self.conv1, self.bn1, x)
+        residual = _fused_conv(self.downsample_conv, self.downsample_bn, x, relu=False) if self.downsample else x
+        return _fused_conv(self.conv2, self.bn2, y, residual=residual)
 
 
 class ResNet34(nn.Module):
@@ -117,7 +116,6 @@ class ResNet34(nn.Module):
         for _ in range(len(self.depths) - 1):
             freq = (freq - 1) // 2 + 1
         self.embedding = nn.Linear(2 * in_ch * freq, embedding_dim)
-        self._stem_ops = {}  # id(conv1) -> (key, ConvOperands)
 
     def forward(self, waveform, weights=None):
         return self.head(self.trunk(waveform), weights)
@@ -144,14 +142,14 @@ class ResNet34(nn.Module):
         launches: a card, bf16, widths that are multiples of 8, the int8
         trunk off and no parameter trained in this call."""
         return (feats.is_cuda and self.compute_dtype == torch.bfloat16 and self.base_channels % 8 == 0
-                and not int8_trunk_enabled(feats.device) and not trained(self.parameters()))
+                and not int8_trunk_enabled(feats.device) and not wants_grad(*self.parameters()))
 
     def trunk_from_features(self, feats: torch.Tensor) -> torch.Tensor:
         """(B, frames, num_mels) -> (B, frames', channels * freq') in the
         compute dtype, flattened per frame as (channels, freq), wespeaker's
         pre-pooling layout."""
         if self.channels_last(feats):
-            x = _fused_conv(self._stem_ops, self.conv1, self.bn1, feats.contiguous()[..., None])
+            x = _fused_conv(self.conv1, self.bn1, feats.contiguous()[..., None])
             for name in self.blocks:
                 x = getattr(self, name).forward_channels_last(x)
             b, t, f, c = x.shape

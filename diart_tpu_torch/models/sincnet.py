@@ -41,7 +41,7 @@ from torch import nn
 from .. import precision
 from ..ops import _numerics
 from ..ops.sinc_frontend import prepare_sinc_operands, sinc_frontend
-from .common import held_operands, trained
+from .common import held_operands
 
 __all__ = [
     "SincConv",
@@ -191,7 +191,6 @@ class SincNet(nn.Module):
         self.conv3 = nn.Conv1d(60, 60, 5)
         self.norm3_scale = nn.Parameter(torch.ones(60))
         self.norm3_bias = nn.Parameter(torch.zeros(60))
-        self._sinc_ops = {}  # () -> (key, SincOperands)
 
     def forward(self, waveform: torch.Tensor, pooled: Optional[torch.Tensor] = None) -> torch.Tensor:
         """waveform (batch, 1, samples) -> (batch, 60, frames). ``pooled``
@@ -202,11 +201,11 @@ class SincNet(nn.Module):
         if pooled is None:
             x = _instance_norm(waveform.float(), self.wav_norm_scale, self.wav_norm_bias)
             # the filterbank's operands, made once per version of the cutoffs
-            # and held, or from the raw cutoffs in a call that trains them
-            cutoffs = (self.sinc.low_hz, self.sinc.band_hz)
-            make = lambda: prepare_sinc_operands(self.sinc.filters())
-            ops = make() if trained(cutoffs) else held_operands(self._sinc_ops, (), cutoffs, make)
-            pooled = sinc_frontend(x, ops, self.sinc.stride)
+            # and held, or the raw filters in a call that trains them
+            ops = held_operands(self, "sinc_frontend", (self.sinc.low_hz, self.sinc.band_hz),
+                                lambda: prepare_sinc_operands(self.sinc.filters()))
+            pooled = sinc_frontend(x, self.sinc.filters() if ops is None else None, self.sinc.stride,
+                                   operands=ops)
         x = pooled
         x = F.leaky_relu(_instance_norm(x, self.norm1_scale, self.norm1_bias), 0.01)
         cd = self.compute_dtype

@@ -13,7 +13,7 @@ the head (batch, time, 3 * channels); the frontend and the head's
 statistics stay f32. The head is the ECAPA head's
 :func:`diart_tpu_torch.models.common.attentive_stats_pool`: on a CUDA
 tensor the hand-written attention-statistics kernel, with the scores'
-weights laid out for it once (:meth:`TitaNet.scores_operands`).
+weights laid out for it once and held.
 """
 
 from __future__ import annotations
@@ -23,8 +23,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.attn_stats import AttnOperands, prepare_attn_operands
-from .common import InferenceBatchNorm, QuantizableConv, attentive_stats_pool, held_operands, trained
+from .common import InferenceBatchNorm, QuantizableConv, attentive_stats_pool
 from .fbank import nemo_log_mel
 
 __all__ = ["TitaNet"]
@@ -131,13 +130,6 @@ class TitaNet(nn.Module):
         self.att2 = nn.Linear(attention_bottleneck, 3 * c)
         self.emb_bn = InferenceBatchNorm(6 * c, channel_dim=-1)
         self.embedding = nn.Linear(6 * c, embedding_dim)
-        self._scores_ops = {}  # () -> (key, AttnOperands)
-
-    def scores_operands(self) -> AttnOperands:
-        """The attention scores' weights laid out for the kernel, once and
-        again only when they change."""
-        return held_operands(self._scores_ops, (), list(self.att2.parameters()),
-                             lambda: prepare_attn_operands(self.att2.weight.t(), self.att2.bias))
 
     def forward(self, waveform, weights=None):
         return self.head(self.trunk(waveform), weights)
@@ -180,8 +172,7 @@ class TitaNet(nn.Module):
         """frames (B, T, 3C); weights (B, S, Tw) or None -> (B, S, dim) (or
         (B, dim))."""
         pooled, squeeze = attentive_stats_pool(
-            frames, weights, self.att_local, self.att_global, self.att_bn, self.att2,
-            None if trained(self.att2.parameters()) else self.scores_operands(),
+            frames, weights, self.att_local, self.att_global, self.att_bn, self.att2
         )
         emb = self.embedding(self.emb_bn(pooled))
         return emb[:, 0] if squeeze else emb

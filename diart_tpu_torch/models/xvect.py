@@ -62,7 +62,6 @@ class XVectorFbank(FusedStatsHead, nn.Module):
             setattr(self, f"tdnn{i}_norm", InferenceBatchNorm(channels))
             in_dim = channels
         self.embedding = nn.Linear(2 * in_dim, embedding_dim)
-        self._head_ops = {}  # frames dtype -> (key, StatsOperands)
 
     def forward(self, waveform, weights=None):
         return self.head(self.trunk(waveform), weights)

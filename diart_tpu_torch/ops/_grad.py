@@ -15,14 +15,15 @@ CUDA tensors, its plain version on CPU tensors) that gives the same
 gradient.
 
 Prepared operands (a kernel's layout of its parameters, made once per
-model) are cut off from autograd, so a call that trains takes the raw
-parameters; operands that carry tensors which require a gradient are
-refused (:func:`refuse_trained_operands`) rather than silently detached.
+model and passed as a wrapper's ``operands=``) are cut off from autograd,
+so a call that trains takes the raw parameters; every wrapper refuses
+operands that carry tensors which require a gradient
+(:func:`refuse_trained_operands`) rather than detach them silently.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,16 +36,16 @@ def wants_grad(*tensors: Optional[torch.Tensor]) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
-def refuse_trained_operands(operands: Iterable, what: str) -> None:
+def refuse_trained_operands(operands) -> None:
     """Raise ``TypeError`` where autograd records this call and prepared
-    ``operands`` hold a tensor that requires a gradient: the kernel's layout
-    would detach it. (Operands held under ``torch.no_grad()`` may alias a
-    parameter, and then require a gradient; a call without grad mode takes
-    them.)"""
-    if wants_grad(*(t for t in operands if isinstance(t, torch.Tensor))):
+    ``operands`` (None: none given) hold a tensor that requires a gradient:
+    the kernel's layout would detach it. (Operands held under
+    ``torch.no_grad()`` may alias a parameter, and then require a gradient;
+    a call without grad mode takes them.)"""
+    if operands is not None and wants_grad(*(t for t in operands if isinstance(t, torch.Tensor))):
         raise TypeError(
-            f"{what} hold tensors that require a gradient; prepared operands are cut off from "
-            f"autograd, so pass the raw parameters to train through the kernel"
+            f"the prepared {type(operands).__name__} hold tensors that require a gradient; prepared "
+            f"operands are cut off from autograd, so pass the raw parameters to train through the kernel"
         )
 
 

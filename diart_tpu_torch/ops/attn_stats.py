@@ -14,8 +14,8 @@ The kernel computes the logits on the TF32 tensor cores at f32 accuracy
 (3xTF32: each operand split into a TF32 ``hi`` and ``lo``,
 :func:`split_tf32`), so it reads W2^T already split:
 :func:`prepare_attn_operands` makes that once per model
-(:class:`AttnOperands`), and ``fused_attentive_stats`` takes either the raw
-``w2, b2`` or the prepared operands.
+(:class:`AttnOperands`), and ``fused_attentive_stats`` takes the raw
+``w2, b2`` or, as ``operands=``, the prepared operands.
 """
 
 from __future__ import annotations
@@ -180,23 +180,24 @@ class AttnStatsFunction(torch.autograd.Function):
         return (*plain_vjp(ctx, attentive_stats_reference, (g_den, g_s1, g_s2)), None)
 
 
-def fused_attentive_stats(x, hidden, w2, b2=None, weights=None):
+def fused_attentive_stats(x, hidden, w2=None, b2=None, weights=None,
+                          operands: Optional[AttnOperands] = None):
     """``(den, s1, s2)`` of channel-attentive weighted pooling without
     materializing the (B, T, C) logits or products.
 
     x: (B, T, C) f32 or bf16; hidden: (B, T, H) (read as f32, as the TPU
-    wrapper casts it); w2: (H, C) with b2 (C,) — or, in place of both, their
-    :class:`AttnOperands` from :func:`prepare_attn_operands`; weights:
-    (B, S, T). Returns three (B, S, C) float32 tensors.
+    wrapper casts it); w2: (H, C) with b2 (C,); weights: (B, S, T).
+    ``operands`` is ``prepare_attn_operands(w2, b2)``, where the caller
+    holds it; it carries both, which are then left out. Returns three
+    (B, S, C) float32 tensors.
     """
-    ops = w2 if isinstance(w2, AttnOperands) else None
-    if ops is not None and b2 is not None:
-        raise ValueError("prepared operands carry b2")
-    if ops is None and b2 is None:
-        raise ValueError("raw operands need b2")
-    if ops is not None:
-        refuse_trained_operands(ops, "the prepared attention operands (AttnOperands)")
-    w2r, b2r = (ops.w2, ops.b2) if ops is not None else (w2, b2)
+    refuse_trained_operands(operands)
+    if operands is None:
+        if w2 is None or b2 is None:
+            raise ValueError("give w2 and b2, or their prepared operands")
+    elif w2 is not None or b2 is not None:
+        raise ValueError("the prepared operands carry w2 and b2")
+    w2r, b2r = (w2, b2) if operands is None else (operands.w2, operands.b2)
     if x.dim() != 3 or hidden.dim() != 3 or w2r.dim() != 2 or weights is None or weights.dim() != 3:
         raise ValueError("x must be (B, T, C), hidden (B, T, H), w2 (H, C), weights (B, S, T)")
     batch, time, channels = x.shape
@@ -216,10 +217,10 @@ def fused_attentive_stats(x, hidden, w2, b2=None, weights=None):
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if wants_grad(x, hidden, w2r, b2r, weights):
-        return AttnStatsFunction.apply(x, hidden, w2r, b2r, weights, ops)
-    if ops is None:
-        ops = prepare_attn_operands(w2, b2)
-    return _launch(x, hidden, ops, weights)
+        return AttnStatsFunction.apply(x, hidden, w2r, b2r, weights, operands)
+    if operands is None:
+        operands = prepare_attn_operands(w2, b2)
+    return _launch(x, hidden, operands, weights)
 
 
 fused_attentive_stats.launches = 0

@@ -234,39 +234,38 @@ class LinearStatsFunction(torch.autograd.Function):
         return (*plain_vjp(ctx, ref, (g1, g2)), None, None)
 
 
-def fused_linear_stats(x, w, b=None, scale=None, shift=None, weights=None,
-                       negative_slope: float = 0.01):
+def fused_linear_stats(x, w=None, b=None, scale=None, shift=None, weights=None,
+                       negative_slope: float = 0.01, operands: Optional[StatsOperands] = None):
     """Weighted moments of ``scale * leaky(x @ w + b) + shift`` without
     materializing the projection.
 
     x: (B, T, C_in) f32 or bf16; w: (C_in, C), with b, scale, shift (C,)
-    (the folded inference batch-norm affine) — or, in place of all four,
-    their :class:`StatsOperands` from :func:`prepare_stats_operands`;
-    weights: (B, S, T) non-negative. Returns (s1, s2), each (B, S, C)
-    float32.
+    (the folded inference batch-norm affine); weights: (B, S, T)
+    non-negative. ``operands`` is ``prepare_stats_operands(w, b, scale,
+    shift, x.dtype)``, where the caller holds it; it carries all four, which
+    are then left out. Returns (s1, s2), each (B, S, C) float32.
     """
-    ops = w if isinstance(w, StatsOperands) else None
-    if ops is None:
-        if any(v is None for v in (b, scale, shift)):
-            raise ValueError("raw operands need b, scale and shift")
+    refuse_trained_operands(operands)
+    if operands is None:
+        if any(v is None for v in (w, b, scale, shift)):
+            raise ValueError("give w, b, scale and shift, or their prepared operands")
         raw = (w, b, scale, shift)
     else:
-        if any(v is not None for v in (b, scale, shift)):
-            raise ValueError("prepared operands carry the bias and the affine")
-        if ops.w.dtype != x.dtype:
-            raise ValueError(f"the operands were prepared for {ops.w.dtype}; x is {x.dtype}")
-        refuse_trained_operands(ops, "the prepared stats operands (StatsOperands)")
-        raw = (ops.w[:, :ops.channels], ops.bias, ops.scale, ops.shift)
+        if any(v is not None for v in (w, b, scale, shift)):
+            raise ValueError("the prepared operands carry the weight, the bias and the affine")
+        if operands.w.dtype != x.dtype:
+            raise ValueError(f"the operands were prepared for {operands.w.dtype}; x is {x.dtype}")
+        raw = (operands.w[:, :operands.channels], operands.bias, operands.scale, operands.shift)
     _check(x, *raw, weights)
     if x.device.type == "cpu":
         return linear_stats_reference(x, *raw, weights, negative_slope)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if wants_grad(x, *raw, weights):
-        return LinearStatsFunction.apply(x, *raw, weights, ops, negative_slope)
-    if ops is None:
-        ops = prepare_stats_operands(w, b, scale, shift, x.dtype)
-    return _launch(x, ops, weights, negative_slope)
+        return LinearStatsFunction.apply(x, *raw, weights, operands, negative_slope)
+    if operands is None:
+        operands = prepare_stats_operands(w, b, scale, shift, x.dtype)
+    return _launch(x, operands, weights, negative_slope)
 
 
 fused_linear_stats.launches = 0

@@ -18,8 +18,9 @@ The forward kernel has three routes, chosen by the stream dtype and H
 (:func:`_route` states the rule of ``csrc/lstm_sweep.cu``;
 :func:`launch_plan` reports the plan), and reads ``w_hh`` in a layout of
 each route's own: :func:`pack_w_hh` makes it (:class:`SweepWeights`) and
-``lstm_sweep_tm`` takes either the raw ``(2, 4H, H)`` tensor or the packed
-operand, so a model with fixed weights packs once instead of on every call.
+``lstm_sweep_tm`` takes the raw ``(2, 4H, H)`` tensor or, as ``operands=``,
+the packed one, so a model with fixed weights packs once instead of on
+every call.
 :func:`packed_gates` replays each route's recurrent product in its sum
 order. The layouts:
 
@@ -66,7 +67,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -617,36 +618,39 @@ class SweepFunction(torch.autograd.Function):
         return (dproj if ctx.needs_input_grad[0] else None, dw if ctx.needs_input_grad[1] else None, None)
 
 
-def lstm_sweep_tm(proj_t: torch.Tensor, w_hh: Union[torch.Tensor, SweepWeights]) -> torch.Tensor:
+def lstm_sweep_tm(proj_t: torch.Tensor, w_hh: Optional[torch.Tensor] = None,
+                  operands: Optional[SweepWeights] = None) -> torch.Tensor:
     """Time-major bidirectional sweep.
 
     proj_t: (T, 2, B, 4H) input projections incl. bias, both directions in
         natural time order; f32 or bf16 (the stream dtype).
     w_hh: (2, 4H, H) recurrent weights (gate order i, f, g, o), used in the
-        stream dtype; or their :class:`SweepWeights` from :func:`pack_w_hh`.
+        stream dtype.
+    operands: ``pack_w_hh(w_hh, proj_t.dtype)``, where the caller holds it;
+        it carries ``w_hh``, which is then left out.
 
     Returns (T, 2, B, H) hidden states in the stream dtype, both directions
     in natural time order.
     """
+    refuse_trained_operands(operands)
     if proj_t.dim() != 4 or proj_t.shape[1] != 2 or proj_t.shape[-1] % 4:
         raise ValueError(f"proj_t must be (T, 2, B, 4H); got {tuple(proj_t.shape)}")
     time, _, batch, gates4 = proj_t.shape
     hidden = gates4 // 4
     if proj_t.dtype not in _DTYPES:
         raise TypeError(f"stream dtype must be float32 or bfloat16; got {proj_t.dtype}")
-    packed = w_hh if isinstance(w_hh, SweepWeights) else None
-    if packed is None:
+    if (w_hh is None) == (operands is None):
+        raise ValueError("give w_hh or its packed operands: one of the two")
+    if operands is None:
         if tuple(w_hh.shape) != (2, gates4, hidden):
             raise ValueError(f"w_hh must be (2, {gates4}, {hidden}); got {tuple(w_hh.shape)}")
-    elif packed.hidden != hidden or packed.data.dtype != proj_t.dtype:
+    elif operands.hidden != hidden or operands.data.dtype != proj_t.dtype:
         raise ValueError(
-            f"w_hh was packed for H={packed.hidden}, {packed.data.dtype}; "
+            f"w_hh was packed for H={operands.hidden}, {operands.data.dtype}; "
             f"the stream has H={hidden}, {proj_t.dtype}"
         )
-    if (w_hh.data if packed else w_hh).device != proj_t.device:
+    if (w_hh if operands is None else operands.data).device != proj_t.device:
         raise ValueError("proj_t and w_hh must be on the same device")
-    if packed is not None:
-        refuse_trained_operands(packed, "the packed w_hh (SweepWeights)")
     if proj_t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {proj_t.device}")
     if proj_t.device.type == "cuda":
@@ -654,11 +658,11 @@ def lstm_sweep_tm(proj_t: torch.Tensor, w_hh: Union[torch.Tensor, SweepWeights])
             raise ValueError("proj_t must be contiguous")
         if hidden > KERNEL_MAX_HIDDEN:
             raise ValueError(f"the sweep kernel takes H <= {KERNEL_MAX_HIDDEN}; got {hidden}")
-    if wants_grad(proj_t, None if packed else w_hh):
-        return SweepFunction.apply(proj_t, unpack_w_hh(packed) if packed else w_hh, packed)
+    if wants_grad(proj_t, w_hh):
+        return SweepFunction.apply(proj_t, unpack_w_hh(operands) if w_hh is None else w_hh, operands)
     if proj_t.device.type == "cpu":
-        return lstm_sweep_reference(proj_t, unpack_w_hh(packed) if packed else w_hh)
-    return _launch(proj_t, packed if packed is not None else pack_w_hh(w_hh, proj_t.dtype))
+        return lstm_sweep_reference(proj_t, unpack_w_hh(operands) if w_hh is None else w_hh)
+    return _launch(proj_t, operands if operands is not None else pack_w_hh(w_hh, proj_t.dtype))
 
 
 lstm_sweep_tm.launches = 0

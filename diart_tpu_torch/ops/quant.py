@@ -44,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._grad import plain_vjp, wants_grad
+from ._grad import plain_vjp, refuse_trained_operands, wants_grad
 from ._numerics import true_f32
 
 __all__ = [
@@ -360,6 +360,7 @@ def int8_conv(x, weight, bias=None, stride=1, padding=0, dilation=1, out_dtype=t
     Under autograd (grad mode and a tensor that requires a gradient) the
     call is :class:`Int8ConvFunction` plus the bias in ``out_dtype``, on
     every device: the straight-through gradient."""
+    refuse_trained_operands(operands)
     _check(x, weight, operands)
     dims = x.dim() - 2
     stride, padding, dilation = (_pairs(v, dims) for v in (stride, padding, dilation))
@@ -388,6 +389,7 @@ def int8_conv_accumulators(x, weight, stride=1, padding=0, dilation=1,
     tensor the kernels with the epilogue skipped, on a CPU tensor the plain
     version's :func:`int8_accumulate`. For checks: the sums are exact, so
     the two agree bit for bit."""
+    refuse_trained_operands(operands)
     _check(x, weight, operands)
     dims = x.dim() - 2
     stride, padding, dilation = (_pairs(v, dims) for v in (stride, padding, dilation))

@@ -44,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build, _numerics
-from ._grad import wants_grad
+from ._grad import refuse_trained_operands, wants_grad
 
 __all__ = [
     "ConvOperands",
@@ -308,24 +308,25 @@ def resnet_conv(x, weight, scale=None, shift=None, stride=1, padding=0, residual
     T', F', C_out) or None -> (B, T', F', C_out) in ``dtype`` (default:
     x's). ``stride`` and ``padding`` (zeros, symmetric) are an int or a
     pair. ``operands`` is ``prepare_conv_operands(weight, scale, shift)``,
-    where the caller holds it; with it a CUDA call needs no ``scale`` and
-    ``shift``.
+    where the caller holds it; it carries ``scale`` and ``shift`` (rounded
+    to bf16, as the kernel reads them), which may then be left out.
 
     A CPU tensor runs :func:`resnet_conv_reference`; a CUDA tensor launches
     the kernel (bf16 out) or raises where the kernel does not take the
     call."""
+    refuse_trained_operands(operands)
     stride, padding = _pairs(stride), _pairs(padding)
     o1, o2 = _check(x, weight, residual, stride, padding)
     dtype = dtype or x.dtype
+    if scale is None or shift is None:
+        if operands is None:
+            raise ValueError("give the folded norm's scale and shift, or the prepared operands")
+        scale, shift = operands.scale, operands.shift
     if x.device.type == "cpu":
-        if scale is None or shift is None:
-            raise ValueError("the plain version takes the folded norm's scale and shift")
         return resnet_conv_reference(x, weight, scale, shift, stride, padding, residual, relu, dtype)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if operands is None:
-        if scale is None or shift is None:
-            raise ValueError("give the folded norm's scale and shift, or the prepared operands")
         operands = prepare_conv_operands(weight, scale, shift)
     why = _refuse(x, weight, operands, stride, padding, residual, dtype)
     if why is not None:

@@ -18,12 +18,12 @@ convolutions (tap, in, out); bg/ag/cg (G, W); ws1 (C, H), bs1 (H,),
 ws2 (H, C), bs2 (C,). The 1x1 and group weights are rounded to the
 activation dtype, as the TPU kernel's wrapper does; the gate MLP stays f32.
 :func:`kernel_operands` lays the tuple out for the kernel once; the
-wrappers take either form, so a model with fixed weights prepares its
-operands once instead of on every call. In f32 the block's products run on
-the TF32 tensor cores at f32 accuracy (3xTF32), which read the 1x1 and
-group weights transposed and split into TF32 ``hi`` and ``lo``
-(:func:`split_tf32`); the layout holds them too. :func:`launch_plan` states
-the kernels' route rule.
+wrappers take the tuple or, as ``operands=``, its layout, so a model with
+fixed weights prepares its operands once instead of on every call. In f32
+the block's products run on the TF32 tensor cores at f32 accuracy
+(3xTF32), which read the 1x1 and group weights transposed and split into
+TF32 ``hi`` and ``lo`` (:func:`split_tf32`); the layout holds them too.
+:func:`launch_plan` states the kernels' route rule.
 
 The kernel splits the group cascade in time: :func:`cascade_tile` gives the
 frames of one tile for a batch on a card, and :func:`cascade_tiled` is the
@@ -34,7 +34,7 @@ to the unsplit cascade whatever the tile.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Sequence, Union
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -240,9 +240,6 @@ def kernel_operands(params: Sequence[torch.Tensor], dtype: torch.dtype) -> Res2O
     )
 
 
-Params = Union[Sequence[torch.Tensor], Res2Operands]
-
-
 def _signature(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.se_res2_block_launch.argtypes = [p] * 18 + [i] * 9 + [p]
@@ -251,15 +248,18 @@ def _signature(lib: ctypes.CDLL) -> None:
     lib.se_res2_staged_launch.restype = i
 
 
-def _operands(x, params: Params, dilation: int) -> Res2Operands:
-    """``params`` as checked kernel operands for x."""
+def _operands(x, params: Optional[Sequence[torch.Tensor]], operands: Optional[Res2Operands],
+              dilation: int) -> Res2Operands:
+    """``operands``, or ``params`` laid out, as checked kernel operands for x."""
+    refuse_trained_operands(operands)
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, C); got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16; got {x.dtype}")
-    if isinstance(params, Res2Operands):
-        refuse_trained_operands(params, "the prepared block operands (Res2Operands)")
-        ops = params
+    if (params is None) == (operands is None):
+        raise ValueError("give the block's 16-tuple or its prepared operands: one of the two")
+    if operands is not None:
+        ops = operands
     else:
         with torch.no_grad():  # the kernel's layout; a gradient goes through the raw tuple
             ops = kernel_operands(params, x.dtype)
@@ -341,13 +341,15 @@ class SERes2Function(torch.autograd.Function):
         return (*plain_vjp(ctx, ref, (grad,)), None, None)
 
 
-def fused_se_res2_block(x, params: Params, dilation: int):
+def fused_se_res2_block(x, params: Optional[Sequence[torch.Tensor]], dilation: int,
+                        operands: Optional[Res2Operands] = None):
     """One SE-Res2Block of x (B, T, C) f32 or bf16 with the 16-tuple
-    ``params`` or its :class:`Res2Operands`; returns (B, T, C) in x's
-    dtype. Counts one launch per call (the block's five kernels run on the
-    caller's stream)."""
-    k = _operands(x, params, dilation)
-    raw = k.params() if isinstance(params, Res2Operands) else tuple(params)
+    ``params``; returns (B, T, C) in x's dtype. ``operands`` is
+    ``kernel_operands(params, x.dtype)``, where the caller holds it; it
+    carries the tuple, which is then None. Counts one launch per call (the
+    block's five kernels run on the caller's stream)."""
+    k = _operands(x, params, operands, dilation)
+    raw = k.params() if params is None else tuple(params)
     if x.device.type == "cpu":
         return se_res2_block_reference(x, *raw, dilation)
     if wants_grad(x, *raw):
@@ -358,14 +360,16 @@ def fused_se_res2_block(x, params: Params, dilation: int):
 fused_se_res2_block.launches = 0
 
 
-def se_res2_staged(x, params: Params, dilation: int, stage: int):
+def se_res2_staged(x, params: Optional[Sequence[torch.Tensor]], dilation: int, stage: int,
+                   operands: Optional[Res2Operands] = None):
     """The block's partial result after ``stage``: z1 for 0, else
     ``cat(g0, y1..y_stage, zeros)``; (B, T, C) in x's dtype. Stages beyond
-    the group count give the whole concat."""
-    k = _operands(x, params, dilation)
+    the group count give the whole concat. ``params`` and ``operands`` as
+    :func:`fused_se_res2_block` takes them."""
+    k = _operands(x, params, operands, dilation)
     if stage < 0:
         raise ValueError(f"stage must be >= 0; got {stage}")
-    if wants_grad(x, *(() if isinstance(params, Res2Operands) else params)):
+    if wants_grad(x, *(params or ())):
         raise TypeError("se_res2_staged is a diagnostic and has no gradient; call it under torch.no_grad()")
     if x.device.type == "cpu":
         return se_res2_stage_reference(x, k.params(), dilation, stage)

@@ -12,9 +12,10 @@ tap, so it reads a filterbank laid out as ``sinc_filters`` lays one out
 (the cosine half of the rows exactly symmetric, the sine half exactly
 antisymmetric): :func:`prepare_sinc_operands` takes the left halves and the
 centre taps of such a bank and nothing of the right halves, and the kernel
-takes only those prepared operands. Under autograd on a CUDA tensor the
-call is :class:`SincFrontendFunction`: the kernel forward, autograd through
-the plain version backward.
+takes only those prepared operands: the caller's held ones
+(``operands=``), else the raw bank's, prepared for the call. Under
+autograd on a CUDA tensor the call is :class:`SincFrontendFunction`: the
+kernel forward, autograd through the plain version backward.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 
 from .. import precision
 from . import _build, _numerics
-from ._grad import plain_vjp, wants_grad
+from ._grad import plain_vjp, refuse_trained_operands, wants_grad
 
 __all__ = [
     "SincFrontendFunction",
@@ -192,35 +193,37 @@ class SincFrontendFunction(torch.autograd.Function):
         return (*grads, *([None] * (5 - len(grads))))
 
 
-def sinc_frontend(wave, filters, stride: int, bias=None):
+def sinc_frontend(wave, filters, stride: int, bias=None, banks: int = 1,
+                  operands: Optional[SincOperands] = None):
     """``max_pool1d(|conv1d(wave, filters, bias, stride)|, 3)`` as (B, F, T
     // 3) f32, the pre-pool activation rounded to bf16 under
     ``bf16_frontend``.
 
-    wave: (B, 1, S) f32, the standardized waveform. filters: (F, K) on a
-    CPU tensor, with ``bias`` (F,) or None; or, in place of both, their
-    :class:`SincOperands` (:func:`prepare_sinc_operands`), which a CUDA
-    tensor requires (K = 251, stride 10, F / 20 in {1, 2, 4, 8})."""
-    ops = filters if isinstance(filters, SincOperands) else None
-    if ops is not None:
-        if bias is not None:
-            raise ValueError("prepared operands carry the bias")
-        filters, bias = ops.filters, ops.bias
+    wave: (B, 1, S) f32, the standardized waveform. filters: (F, K), with
+    ``bias`` (F,) or None. ``operands`` is ``prepare_sinc_operands(filters,
+    bias, banks)``, where the caller holds it; it carries both, which are
+    then left out. A CUDA tensor takes a bank laid out as ``sinc_filters``
+    lays one out, ``banks`` of them stacked (K = 251, stride 10, F / 20 in
+    {1, 2, 4, 8}), and without ``operands`` prepares them for the call."""
+    refuse_trained_operands(operands)
+    if operands is not None:
+        if filters is not None or bias is not None:
+            raise ValueError("the prepared operands carry the bias and the filters")
+        filters, bias = operands.filters, operands.bias
     _check(wave, filters, bias, stride)
     if wave.device.type == "cpu":
         return sinc_frontend_reference(wave, filters, stride, bias)
     if wave.device.type != "cuda":
         raise ValueError(f"unsupported device {wave.device}")
-    if ops is None:
-        raise ValueError("on a CUDA tensor the filterbank comes as its prepared operands "
-                         "(prepare_sinc_operands of a bank laid out as sinc_filters lays one out)")
     if stride != STRIDE or filters.shape[1] != KERNEL_SIZE:
         raise ValueError(f"the kernel takes {KERNEL_SIZE} taps at stride {STRIDE}; "
                          f"got {filters.shape[1]} at {stride}")
+    if operands is None:
+        operands = prepare_sinc_operands(filters, bias, banks)
     bf16 = precision.enabled("bf16_frontend", wave.device)
     if wants_grad(wave, filters, bias):
-        return SincFrontendFunction.apply(wave, filters, bias, ops, bf16)
-    return _launch(wave, ops, bf16)
+        return SincFrontendFunction.apply(wave, filters, bias, operands, bf16)
+    return _launch(wave, operands, bf16)
 
 
 sinc_frontend.launches = 0

@@ -60,7 +60,7 @@ import torch
 from .. import precision as precision_policy
 from .. import tracing
 from ..models.base import EmbeddingModel, SegmentationModel, same_device
-from ..models.common import held_operands, trained
+from ..models.common import held_operands
 from ..models.fbank import (
     FbankRingSpec,
     fbank_block_raw,
@@ -288,7 +288,6 @@ class MultiStreamEngine:
         # (segmentation's SincNet, embedding's SincNet) when the stacked
         # frontend runs (see the module docstring), else None
         self._stacked: Optional[Tuple[SincNet, SincNet]] = None
-        self._stacked_ops = {}  # () -> (key, SincOperands of the stacked banks)
         with precision_policy.use(self.precision):
             stack_on = precision_policy.enabled("stack_frontend", self.device)
         if stack_on and not self.is_vad and _stackable(_sincnet(segmentation), _sincnet(embedding)):
@@ -497,17 +496,6 @@ class MultiStreamEngine:
         fst, emb_raw = self._fring_advance(audio_state, blocks, audio_mask)
         return dict(fst, window=window), window, emb_raw
 
-    def _frame_scores(
-        self, window: torch.Tensor, gamma, beta, emb_raw: Optional[torch.Tensor] = None
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, samples) -> (segmentation (B, F, K), embeddings (B, K, E)).
-        ``emb_raw``: the frame ring's raw log-mel frames, which the
-        embedding then takes instead of the waveform."""
-        seg, emb_kw = self._segment(window)
-        if self.is_vad:
-            return seg, torch.zeros(seg.shape[0], 1, 1, dtype=seg.dtype, device=seg.device)
-        return seg, self._embed(window, seg, gamma, beta, emb_raw, emb_kw)
-
     def _segment(self, window: torch.Tensor) -> Tuple[torch.Tensor, dict]:
         """(B, samples) -> (segmentation (B, F, K), the embedding's keyword
         arguments: the stacked frontend's pooled half where it runs)."""
@@ -522,22 +510,20 @@ class MultiStreamEngine:
         emb_raw: Optional[torch.Tensor], emb_kw: dict, marks=tracing.NO_MARKS,
     ) -> torch.Tensor:
         """A window's L2-normalized embeddings (B, K, E), weighted by its
-        segmentation's overlapped-speech penalty. Inside a recorded hop the
-        trunk and the head are the spans ``embedding.trunk`` and
-        ``embedding.head``, and ``marks`` (the step's device events) times
-        the trunk's return."""
+        segmentation's overlapped-speech penalty. ``emb_raw``: the frame
+        ring's raw log-mel frames, which the trunk then takes instead of the
+        waveform. ``marks`` (the step's device events) times the trunk's
+        return."""
         weights = overlapped_speech_penalty(seg, gamma, beta)
         if self.normalize_weights:
             weights = min_max_normalize(weights, dim=-2)
-        with tracing.span("embedding.trunk", shard=self._shard, inner=True):
-            if emb_raw is not None:
-                frames = self._emb.trunk_from_raw_fbank(emb_raw)
-            else:
-                frames = self._emb.trunk(window[:, None, :], **emb_kw)
-            marks.mark_trunk()
-        with tracing.span("embedding.head", shard=self._shard, inner=True):
-            emb = self._emb.head(frames, weights.transpose(1, 2))
-            return normalize_embeddings(emb, 1.0)
+        if emb_raw is not None:
+            frames = self._emb.trunk_from_raw_fbank(emb_raw)
+        else:
+            frames = self._emb.trunk(window[:, None, :], **emb_kw)
+        marks.mark_trunk()
+        emb = self._emb.head(frames, weights.transpose(1, 2))
+        return normalize_embeddings(emb, 1.0)
 
     def _stacked_frontend(self, wave: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Both models' ``|sinc conv|`` max-pooled, from one convolution of
@@ -551,15 +537,15 @@ class MultiStreamEngine:
         params = [m.get_parameter(n) for m in (seg, emb)
                   for n in ("sinc.low_hz", "sinc.band_hz", "wav_norm_scale", "wav_norm_bias")]
 
-        def make():
+        def bank():  # the two filterbanks stacked, each with its waveform norm folded in
             fs, fe = seg.sinc.filters(), emb.sinc.filters()
-            filters = torch.cat([fs * seg.wav_norm_scale, fe * emb.wav_norm_scale])
-            bias = torch.cat([seg.wav_norm_bias * fs.sum(dim=1), emb.wav_norm_bias * fe.sum(dim=1)])
-            return prepare_sinc_operands(filters, bias, banks=2)
+            return (torch.cat([fs * seg.wav_norm_scale, fe * emb.wav_norm_scale]),
+                    torch.cat([seg.wav_norm_bias * fs.sum(dim=1), emb.wav_norm_bias * fe.sum(dim=1)]))
 
-        ops = make() if trained(params) else held_operands(self._stacked_ops, (), params, make)
-        pooled = sinc_frontend(z, ops, seg.sinc.stride)
-        half = ops.filters.shape[0] // 2
+        ops = held_operands(self, "stacked_frontend", params, lambda: prepare_sinc_operands(*bank(), banks=2))
+        filters, bias = bank() if ops is None else (None, None)
+        pooled = sinc_frontend(z, filters, seg.sinc.stride, bias, banks=2, operands=ops)
+        half = pooled.shape[1] // 2
         return pooled[:, :half], pooled[:, half:]
 
     def _step_impl(
@@ -697,4 +683,7 @@ class MultiStreamEngine:
         with precision_policy.use(self.precision):
             _, _, _, gamma, beta = self._hparams
             _, window, emb_raw = self._advance_audio(state.audio, blocks, audio_mask)
-            return self._frame_scores(window, gamma, beta, emb_raw)
+            seg, emb_kw = self._segment(window)
+            if self.is_vad:
+                return seg, torch.zeros(seg.shape[0], 1, 1, dtype=seg.dtype, device=seg.device)
+            return seg, self._embed(window, seg, gamma, beta, emb_raw, emb_kw)

@@ -6,7 +6,6 @@
     with tracing.recording() as record:
         ...  # serve hops
     record.spans   # the hop's spans down to the step's phases, in the order they closed
-    record.inner   # the spans inside a phase (``embedding.trunk``, ``embedding.head``)
     record.phases  # the DevicePhases of each hop run on a card
 
 The session and the engine mark where a hop's time goes:
@@ -20,10 +19,7 @@ The session and the engine mark where a hop's time goes:
     and frame ring advance, the stacked frontend where on, and the
     segmentation model;
   * ``step.embedding``: the overlapped-speech weights, the trunk, the head
-    and the normalization (a VAD engine has none). Inside it, kept apart
-    in ``Record.inner``: ``embedding.trunk`` (the embedding model's trunk,
-    from the waveform or the frame ring's raw frames) and
-    ``embedding.head`` (the statistics head and the normalization);
+    and the normalization (a VAD engine has none);
   * ``step.clustering``: ``cluster_step`` and its keeps, the score ring,
     the aggregation and the new state.
 
@@ -151,13 +147,12 @@ def _current() -> Optional["Record"]:
 
 
 class Record:
-    """What one recording, or one profile, holds: ``spans``, ``inner``
-    and ``phases``, in memory until the recording closes (a profile's: until
+    """What one recording, or one profile, holds: ``spans`` and
+    ``phases``, in memory until the recording closes (a profile's: until
     a later profile starts a new one)."""
 
     def __init__(self):
         self.spans: List[Span] = []
-        self.inner: List[Span] = []
         self.phases: List[DevicePhases] = []
         self._ids = itertools.count()
         self._lock = threading.Lock()
@@ -187,10 +182,10 @@ class Record:
 class _Open:
     """A span being timed; recorded when it closes, even by an exception."""
 
-    __slots__ = ("_record", "_name", "_hop", "_shard", "_parent", "_id", "_start", "_into")
+    __slots__ = ("_record", "_name", "_hop", "_shard", "_parent", "_id", "_start")
 
-    def __init__(self, record: Record, name: str, key: HopKey, shard, parent, into: List[Span]):
-        self._record, self._name, self._hop, self._shard, self._into = record, name, key, shard, into
+    def __init__(self, record: Record, name: str, key: HopKey, shard, parent):
+        self._record, self._name, self._hop, self._shard = record, name, key, shard
         self._parent = None if parent is None else parent._id
         self._id = next(record._ids)
 
@@ -202,7 +197,7 @@ class _Open:
     def __exit__(self, *exc) -> bool:
         end = time.perf_counter()
         self._record._stack().pop()
-        self._into.append(Span(self._name, self._start, end, threading.get_ident(), self._hop,
+        self._record.spans.append(Span(self._name, self._start, end, threading.get_ident(), self._hop,
                                self._parent, self._id, self._shard))
         return False
 
@@ -272,14 +267,12 @@ def hop(name: str, owner):
                     _profiled, _profile_live = Record(), True
         record = _profiled
     stack = record._stack()
-    return _Open(record, name, record._new_hop(owner), None, stack[-1] if stack else None, record.spans)
+    return _Open(record, name, record._new_hop(owner), None, stack[-1] if stack else None)
 
 
-def span(name: str, hop: Optional[HopKey] = None, shard: Optional[int] = None, inner: bool = False):
+def span(name: str, hop: Optional[HopKey] = None, shard: Optional[int] = None):
     """A span of ``hop``, or of the hop of the innermost span open on this
-    thread; the no-op where that is no hop of the open recording.
-    ``inner``: a span inside one of the step's phases, kept in
-    ``Record.inner`` rather than ``Record.spans``."""
+    thread; the no-op where that is no hop of the open recording."""
     record = _current()
     if record is None:
         return NOOP
@@ -289,7 +282,7 @@ def span(name: str, hop: Optional[HopKey] = None, shard: Optional[int] = None, i
         hop = parent._hop
     if hop is None or record._issued.get(hop) is not hop:
         return NOOP
-    return _Open(record, name, hop, shard, parent, record.inner if inner else record.spans)
+    return _Open(record, name, hop, shard, parent)
 
 
 def device_marks(device: torch.device, shard: Optional[int] = None):

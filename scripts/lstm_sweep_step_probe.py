@@ -117,7 +117,7 @@ def main() -> int:
             print(f"B={batch} {who}: {sum(parts):.0f} cycles a step: "
                   + ", ".join(f"{n} {v:.0f}" for n, v in zip(PARTS, parts)), flush=True)
         plan = lstm_sweep.launch_plan(batch, cs.H, torch.float32, proj.device)
-        ms = cs.time_ms(lambda: lstm_sweep.lstm_sweep_tm(proj, packed), 20)
+        ms = cs.time_ms(lambda: lstm_sweep.lstm_sweep_tm(proj, operands=packed), 20)
         print(f"  the package's kernel alone: {ms:.4f} ms ({ms * 1e-3 * cs.sm_clock_hz() / cs.T_LSTM:.0f} "
               f"cycles a step at the card's highest clock); plan {plan}", flush=True)
     return 0

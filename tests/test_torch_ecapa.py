@@ -262,45 +262,12 @@ def test_se_res2_operands_match_the_tuple(dtype):
     x = torch.from_numpy(np.random.default_rng(61).normal(size=(BATCH, TIME, CHANS)).astype(np.float32))
     x = x.to(dtype)
     ops = kernel_operands(params, dtype)
-    assert torch.equal(fused_se_res2_block(x, ops, 3), fused_se_res2_block(x, params, 3))
+    assert torch.equal(fused_se_res2_block(x, None, 3, operands=ops), fused_se_res2_block(x, params, 3))
     for stage in (0, 2):
-        assert torch.equal(se_res2_staged(x, ops, 3, stage), se_res2_staged(x, params, 3, stage))
+        assert torch.equal(se_res2_staged(x, None, 3, stage, operands=ops), se_res2_staged(x, params, 3, stage))
     other = torch.bfloat16 if dtype == torch.float32 else torch.float32
     with pytest.raises(TypeError, match="laid out"):
-        fused_se_res2_block(x, kernel_operands(params, other), 3)
-
-
-def test_se_res2_block_module_caches_its_operands():
-    """The model's block lays out its kernel operands once per dtype and
-    again only when a parameter changes; the block then computes with the
-    new weights (held against its unfused submodules, f32 within 1e-4)."""
-    from diart_tpu_torch.models.ecapa import _SERes2Block
-
-    block = _SERes2Block(CHANS, 3, 2, SCALE, 16)
-    gen = torch.Generator().manual_seed(62)
-    with torch.no_grad():
-        for p in block.parameters():
-            p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
-        for name, p in block.named_parameters():
-            if name.endswith("bn.var"):
-                p.abs_().add_(0.5)
-    x = torch.from_numpy(np.random.default_rng(63).normal(size=(BATCH, TIME, CHANS)).astype(np.float32))
-
-    def unfused():
-        return block.se(block.tdnn2(block.res2net(block.tdnn1(x)))) + x
-
-    ops = block.kernel_operands(torch.float32)
-    assert block.kernel_operands(torch.float32) is ops
-    assert block.kernel_operands(torch.bfloat16).w1.dtype == torch.bfloat16
-    with torch.no_grad():
-        torch.testing.assert_close(block(x), unfused(), rtol=1e-4, atol=1e-4)
-        block.tdnn2.bn.var.mul_(4.0)  # an in-place change, as a load makes
-        assert block.kernel_operands(torch.float32) is not ops
-        torch.testing.assert_close(block(x), unfused(), rtol=1e-4, atol=1e-4)
-        ops = block.kernel_operands(torch.float32)
-        block.load_state_dict({k: v * 0.5 for k, v in block.state_dict().items()})
-        assert block.kernel_operands(torch.float32) is not ops
-        torch.testing.assert_close(block(x), unfused(), rtol=1e-4, atol=1e-4)
+        fused_se_res2_block(x, None, 3, operands=kernel_operands(params, other))
 
 
 # ----------------------------------------------------------------------- #

@@ -123,4 +123,4 @@ def test_raw_and_packed_w_hh_agree(hidden):
     w_hh = _w_hh(2, hidden)
     packed = pack_w_hh(w_hh, torch.float32)
     assert torch.equal(unpack_w_hh(packed), w_hh)
-    assert torch.equal(lstm_sweep_tm(proj, packed), lstm_sweep_tm(proj, w_hh))
+    assert torch.equal(lstm_sweep_tm(proj, operands=packed), lstm_sweep_tm(proj, w_hh))

@@ -97,15 +97,15 @@ def test_lstm_sweep_raw_and_packed_agree(hidden, dtype):
     w_hh = _w_hh(5, hidden) * (0.3 / np.sqrt(hidden / 8))
     want = lstm_sweep_reference(proj, w_hh)
     assert torch.equal(lstm_sweep_tm(proj, w_hh), want)
-    assert torch.equal(lstm_sweep_tm(proj, pack_w_hh(w_hh, dtype)), want)
+    assert torch.equal(lstm_sweep_tm(proj, operands=pack_w_hh(w_hh, dtype)), want)
 
 
 def test_lstm_sweep_rejects_a_mismatched_pack():
     proj = torch.zeros(4, 2, 1, 64)
     with pytest.raises(ValueError):  # packed for bf16, stream f32
-        lstm_sweep_tm(proj, pack_w_hh(_w_hh(0, 16), torch.bfloat16))
+        lstm_sweep_tm(proj, operands=pack_w_hh(_w_hh(0, 16), torch.bfloat16))
     with pytest.raises(ValueError):  # packed for another H
-        lstm_sweep_tm(proj, pack_w_hh(_w_hh(0, 8), torch.float32))
+        lstm_sweep_tm(proj, operands=pack_w_hh(_w_hh(0, 8), torch.float32))
     with pytest.raises(ValueError):
         pack_w_hh(torch.zeros(2, 60, 16), torch.float32)
 
@@ -118,28 +118,42 @@ def _bilstm(seed=0, hidden=16, layers=2):
     return lstm
 
 
-def test_bilstm_packs_once_and_again_after_a_change():
+def test_bilstm_packs_once_and_again_after_a_change(monkeypatch):
+    """One pack a layer and stream dtype, taken again by the next forward,
+    made again for the layer whose ``w_hh`` changed in place and for every
+    layer after a load; each pack unpacks to its ``w_hh``."""
+    from diart_tpu_torch.models import lstm as lstm_module
+    from test_torch_operands import Spy
+
+    spy = Spy()
+    monkeypatch.setattr(lstm_module, "held_operands", spy)
     lstm = _bilstm()
     x = torch.randn(7, 2, 12)
-    first = lstm.packed_w_hh(0, torch.float32)
-    assert isinstance(first, SweepWeights)
     y0 = lstm(x)
-    assert lstm.packed_w_hh(0, torch.float32) is first  # the forward reused it
-    assert lstm.packed_w_hh(0, torch.bfloat16).data.dtype == torch.bfloat16
-    assert lstm.packed_w_hh(1, torch.float32) is not first
+    first = spy.operands()
+    assert len(first) == 2 and all(isinstance(p, SweepWeights) for p in first)
+    assert torch.equal(unpack_w_hh(first[0]), lstm.l0_w_hh)
+    spy.clear()
+    assert torch.equal(lstm(x), y0) and spy.made == 2
+    assert all(a is b for a, b in zip(spy.operands(), first))  # the forward reused them
+    spy.clear()
+    lstm(x.to(torch.bfloat16))  # a bf16 stream: packs of its own
+    assert spy.made == 4 and all(p.data.dtype == torch.bfloat16 for p in spy.operands())
     with torch.no_grad():
         lstm.l0_w_hh.mul_(0.5)  # in place: same storage, new version
-    second = lstm.packed_w_hh(0, torch.float32)
-    assert second is not first
-    assert torch.equal(unpack_w_hh(second), lstm.l0_w_hh)
+    spy.clear()
     y1 = lstm(x)
+    second = spy.operands()
+    assert second[0] is not first[0] and second[1] is first[1] and spy.made == 5
+    assert torch.equal(unpack_w_hh(second[0]), lstm.l0_w_hh)
     assert not torch.equal(y0, y1)
 
     other = _bilstm(seed=1)
     lstm.load_state_dict(other.state_dict())
-    third = lstm.packed_w_hh(0, torch.float32)
-    assert third is not second and torch.equal(unpack_w_hh(third), other.l0_w_hh)
+    spy.clear()
     assert torch.equal(lstm(x), other(x))
+    third = spy.operands()
+    assert third[0] is not second[0] and torch.equal(unpack_w_hh(third[0]), other.l0_w_hh)
 
 
 def test_bilstm_cached_forward_equals_raw_weights():
@@ -152,14 +166,6 @@ def test_bilstm_cached_forward_equals_raw_weights():
         out = lstm_sweep_reference(proj.transpose(1, 2).contiguous(), getattr(lstm, f"l{layer}_w_hh"))
         want = torch.cat([out[:, 0], out[:, 1]], dim=-1)
     np.testing.assert_allclose(lstm(x).numpy(), want.numpy(), atol=1e-6)
-
-
-def test_bilstm_trained_weights_bypass_the_pack():
-    lstm = _bilstm(seed=3)
-    lstm.requires_grad_(True)
-    lstm(torch.randn(4, 1, 12)).sum().backward()
-    assert lstm.l0_w_hh.grad is not None and lstm.l0_w_hh.grad.abs().sum() > 0
-    assert not lstm._packed  # nothing was packed on the way
 
 
 # --------------------------------------------------------------------- #

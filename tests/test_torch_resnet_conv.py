@@ -328,39 +328,6 @@ def _blocks_plain(block, x):
     return conv(block.conv2, block.bn2, y, residual=res)
 
 
-def test_held_operands_follow_the_parameters():
-    """``forward_channels_last``'s held operands: one set a convolution,
-    made again after an in-place update of its weight or its norm."""
-    from diart_tpu_torch.models import resnet
-
-    model = _model(torch.bfloat16, seed=3)
-    block = model.layer2_0
-    made = []
-    real = resnet.prepare_conv_operands
-
-    def counting(*args):
-        made.append(args[0].shape)
-        return real(*args)
-
-    calls = []
-    resnet.prepare_conv_operands = counting
-    real_conv = resnet.resnet_conv
-    resnet.resnet_conv = lambda x, w, **kw: calls.append(kw["operands"]) or x
-    try:
-        x = torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16)
-        with torch.no_grad():
-            block.forward_channels_last(x)
-            block.forward_channels_last(x)
-            assert len(made) == 3  # conv1, the downsample, conv2
-            block.bn2.var.add_(1.0)
-            block.forward_channels_last(x)
-        assert len(made) == 4 and made[-1] == block.conv2.weight.shape
-        assert calls[0].rows.shape == (16, 9 * 16) and calls[1].kernel == (1, 1)
-    finally:
-        resnet.prepare_conv_operands = real
-        resnet.resnet_conv = real_conv
-
-
 def _swizzled(offset: int, row_bytes: int) -> int:
     """The tensor memory accelerator's swizzle of a byte offset in a tile of
     ``row_bytes`` rows (128, 64 or 32 bytes; the tile 1024-byte aligned):

@@ -87,7 +87,7 @@ def test_cpu_route_is_the_plain_composition(monkeypatch, case, bf16):
     x = _wave(2, 4000)
     want = frontend_pool(F.conv1d(x, filters[:, None, :], bias, stride=10))
     got_raw = sf.sinc_frontend(x, filters, 10, bias)
-    got_ops = sf.sinc_frontend(x, sf.prepare_sinc_operands(filters, bias, banks), 10)
+    got_ops = sf.sinc_frontend(x, None, 10, operands=sf.prepare_sinc_operands(filters, bias, banks))
     assert got_raw.shape == (2, filters.shape[0], ((4000 - 251) // 10 + 1) // 3)
     assert torch.equal(got_raw, want) and torch.equal(got_ops, want)
     if bf16:
@@ -286,30 +286,6 @@ def test_plan_at_other_lengths():
 # the operands
 
 
-def test_held_operands_follow_the_cutoffs():
-    """Made once per version of the cutoffs: the same operands on the next
-    call, new ones after an in-place change of a cutoff (and the output
-    follows it), never held in a call that trains the cutoffs."""
-    net = SincNet()
-    x = _wave(1, 8000)
-    with torch.no_grad():
-        a = net(x)
-        held = net._sinc_ops[()][1]
-        b = net(x)
-        assert net._sinc_ops[()][1] is held and torch.equal(a, b)
-        net.sinc.low_hz[3] += 25.0
-        c = net(x)
-    assert net._sinc_ops[()][1] is not held and not torch.equal(a, c)
-    with torch.no_grad():
-        want = net(x, pooled=frontend_pool(F.conv1d(
-            (x - x.mean(-1, keepdim=True)) * torch.rsqrt(x.var(-1, keepdim=True, correction=0) + 1e-5),
-            net.sinc.filters()[:, None, :], stride=10)))
-    assert torch.equal(c, want)
-    held = net._sinc_ops[()][1]
-    net(x).sum().backward()
-    assert net._sinc_ops[()][1] is held and net.sinc.band_hz.grad is not None
-
-
 def _symmetric(filters, banks):
     """Whether each bank's first half of rows is exactly symmetric about the
     centre tap and its second half exactly antisymmetric with a zero centre."""
@@ -354,7 +330,7 @@ def test_malformed_calls_are_refused():
     fewer samples than taps, a device the op has no route for."""
     x = _wave(1, 4000)
     with pytest.raises(ValueError, match="prepared operands carry the bias"):
-        sf.sinc_frontend(x, sf.prepare_sinc_operands(_bank()), 10, torch.zeros(80))
+        sf.sinc_frontend(x, None, 10, torch.zeros(80), operands=sf.prepare_sinc_operands(_bank()))
     with pytest.raises(ValueError, match="bank"):
         sf.prepare_sinc_operands(_bank()[:60])
     with pytest.raises(ValueError, match="taps"):

@@ -16,9 +16,6 @@ import torch.nn.functional as F
 
 from diart_tpu.ops.pallas_attn_stats import fused_attentive_stats as jax_fused_attn
 from diart_tpu.ops.pallas_stats import fused_linear_stats as jax_fused_linear_stats
-from diart_tpu_torch.models.common import attentive_stats_pool
-from diart_tpu_torch.models.ecapa import EcapaTDNN
-from diart_tpu_torch.models.embedding import XVectorSincNet
 from diart_tpu_torch.ops import attn_stats, linear_stats
 from diart_tpu_torch.ops.attn_stats import (
     AttnOperands,
@@ -281,7 +278,7 @@ def test_attn_stats_kernel_refuses_widths_it_does_not_take(hdim):
     ops = prepare_attn_operands(w2, b2)
     with pytest.raises(ValueError, match="H % 8 == 0 and H <= 128"):
         attn_stats._launch(x, hidden, ops, weights)
-    assert all(map(torch.equal, fused_attentive_stats(x, hidden, ops, weights=weights),
+    assert all(map(torch.equal, fused_attentive_stats(x, hidden, weights=weights, operands=ops),
                    attentive_stats_reference(x, hidden, w2, b2, weights)))
 
 
@@ -297,146 +294,32 @@ def test_prepared_operands_compute_what_raw_ones_do():
         assert isinstance(ops, StatsOperands) and ops.w.dtype == dtype and ops.channels == 100
         assert ops.w.shape[1] == (100 if dtype == torch.float32 else 104)
         assert not ops.w[:, 100:].any()
-        got = fused_linear_stats(x, ops, weights=weights)
+        got = fused_linear_stats(x, weights=weights, operands=ops)
         assert all(map(torch.equal, got, fused_linear_stats(x, w, b, scale, shift, weights)))
     x, hidden, w2, b2, weights = _attn_inputs(4, 2, 37, 100, 40, 2)
     ops = prepare_attn_operands(w2, b2)
     assert isinstance(ops, AttnOperands) and tuple(ops.hi.shape) == (100, 64)
     assert torch.equal(ops.hi[:, :40] + ops.lo[:, :40], sum(split_tf32(w2.t().contiguous())))
     assert not ops.hi[:, 40:].any() and not ops.lo[:, 40:].any()
-    got = fused_attentive_stats(x, hidden, ops, weights=weights)
+    got = fused_attentive_stats(x, hidden, weights=weights, operands=ops)
     assert all(map(torch.equal, got, fused_attentive_stats(x, hidden, w2, b2, weights)))
     with pytest.raises(ValueError):
-        fused_attentive_stats(x, hidden, ops, b2, weights)
+        fused_attentive_stats(x, hidden, None, b2, weights, operands=ops)
     with pytest.raises(ValueError, match="prepared for"):  # operands for bf16, f32 x
-        fused_linear_stats(x, prepare_stats_operands(*_stats_inputs(3, 2, 37, 100, 8, 2)[1:5],
-                                                     torch.bfloat16), weights=weights)
+        fused_linear_stats(x, weights=weights, operands=prepare_stats_operands(
+            *_stats_inputs(3, 2, 37, 100, 8, 2)[1:5], torch.bfloat16))
 
 
 # Prepared operands against the Pallas kernels in interpret mode: the f32
 # tolerance of tests/test_torch_kernels.py and tests/test_torch_ecapa.py.
 def test_prepared_operands_match_pallas():
     x, w, b, scale, shift, weights = _stats_inputs(5, 2, 29, 64, 300, 4)
-    got = fused_linear_stats(x, prepare_stats_operands(w, b, scale, shift, x.dtype), weights=weights)
+    got = fused_linear_stats(x, weights=weights, operands=prepare_stats_operands(w, b, scale, shift, x.dtype))
     want = jax_fused_linear_stats(*map(jnp.asarray, (x, w, b, scale, shift, weights)), interpret=True)
     for g, k in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(k), rtol=1e-5, atol=1e-4)
     x, hidden, w2, b2, weights = _attn_inputs(6, 2, 41, 192, 128, 4)
-    got = fused_attentive_stats(x, hidden, prepare_attn_operands(w2, b2), weights=weights)
+    got = fused_attentive_stats(x, hidden, weights=weights, operands=prepare_attn_operands(w2, b2))
     want = jax_fused_attn(*map(jnp.asarray, (x, hidden, w2, b2, weights)), interpret=True)
     for g, k, atol in zip(got, want, (1e-5, 1e-4, 1e-4)):
         np.testing.assert_allclose(g.numpy(), np.asarray(k), rtol=1e-5, atol=atol)
-
-
-def _randomize(module, seed):
-    rng = np.random.default_rng(seed)
-    with torch.no_grad():
-        for name, p in module.named_parameters():
-            v = rng.normal(size=tuple(p.shape)).astype(np.float32) * 0.2
-            if name.endswith(".var"):
-                v = 1.0 + np.abs(v)
-            p.copy_(torch.from_numpy(v))
-
-
-def _xvector():
-    model = XVectorSincNet(embedding_dim=16, tdnn_specs=((5, 1, 32), (3, 2, 32), (1, 1, 48)))
-    _randomize(model, 0)
-    return model
-
-
-def _ecapa():
-    model = EcapaTDNN(embedding_dim=8, channels=16, num_mels=20, attention_bottleneck=8,
-                      res2_scale=4, se_bottleneck=8)
-    _randomize(model, 1)
-    return model
-
-
-def test_xvector_head_operands_are_held_and_remade():
-    model = _xvector()
-    rng = np.random.default_rng(2)
-    frames = torch.from_numpy(rng.normal(size=(3, 40, 32)).astype(np.float32))
-    weights = torch.from_numpy(rng.uniform(size=(3, 2, 40)).astype(np.float32))
-    with torch.no_grad():
-        first = model.head_operands(torch.float32)
-        assert model.head_operands(torch.float32) is first
-        held = model.head(frames, weights)
-        assert model.head_operands(torch.float32) is first
-        model.tdnn2_norm.mean.add_(0.5)  # an in-place update of a folded parameter
-        second = model.head_operands(torch.float32)
-        assert second is not first and not torch.equal(second.shift, first.shift)
-        model.load_state_dict(_xvector().state_dict())  # a load
-        assert model.head_operands(torch.float32) is not second
-        assert model.head_operands(torch.bfloat16).w.dtype == torch.bfloat16
-        held = model.head(frames, weights)
-    # trained weights bypass the held operands: the same numbers, with a gradient
-    out = model.head(frames, weights)
-    assert all(p.requires_grad for p in model.tdnn2.parameters()) and out.grad_fn is not None
-    assert torch.equal(out.detach(), held)
-    out.sum().backward()
-    assert model.tdnn2.weight.grad is not None and model.tdnn2.weight.grad.abs().sum() > 0
-    meta = model.to("meta")  # a move to another device
-    with torch.no_grad():
-        assert meta.head_operands(torch.float32).w.device.type == "meta"
-
-
-def test_ecapa_head_operands_are_held_and_remade():
-    model = _ecapa()
-    rng = np.random.default_rng(3)
-    frames = torch.from_numpy(rng.normal(size=(2, 33, 48)).astype(np.float32))
-    weights = torch.from_numpy(rng.uniform(size=(2, 3, 33)).astype(np.float32))
-    with torch.no_grad():
-        first = model.scores_operands()
-        assert model.scores_operands() is first
-        held = model.head(frames, weights)
-        # attentive_stats_pool with the held operands or with the raw layer: the same bits
-        args = (frames, weights, model.att_local, model.att_global, model.att_bn, model.att2)
-        pooled_raw, _ = attentive_stats_pool(*args)
-        pooled_held, _ = attentive_stats_pool(*args, model.scores_operands())
-        assert torch.equal(pooled_raw, pooled_held)
-        model.att2.bias.mul_(2.0)
-        assert model.scores_operands() is not first
-        model.load_state_dict(_ecapa().state_dict())
-        third = model.scores_operands()
-        assert torch.equal(third.b2, first.b2) and third is not first
-        held = model.head(frames, weights)
-    out = model.head(frames, weights)  # trained weights bypass them
-    assert out.grad_fn is not None and torch.equal(out.detach(), held)
-    out.sum().backward()
-    assert model.att2.weight.grad is not None and model.att2.weight.grad.abs().sum() > 0
-    meta = model.to("meta")
-    with torch.no_grad():
-        assert meta.scores_operands().hi.device.type == "meta"
-
-
-def test_xvector_head_bypasses_held_operands_for_any_trained_head_parameter():
-    """The batch norm trained while the conv is frozen: the head still takes
-    the raw parameters, so the norm's gradient reaches it."""
-    rng = np.random.default_rng(4)
-    frames = torch.from_numpy(rng.normal(size=(2, 30, 32)).astype(np.float32))
-    weights = torch.from_numpy(rng.uniform(size=(2, 2, 30)).astype(np.float32))
-    model = _xvector()
-    model.requires_grad_(False)
-    model.tdnn2_norm.requires_grad_(True)
-    with torch.no_grad():
-        held = model.head(frames, weights)
-    out = model.head(frames, weights)
-    assert out.grad_fn is not None and torch.equal(out.detach(), held)
-    out.sum().backward()
-    assert all(p.grad is not None for p in model.tdnn2_norm.parameters())
-    assert model.tdnn2_norm.scale.grad.abs().sum() > 0
-
-
-def test_ecapa_head_bypasses_held_operands_for_a_trained_scores_bias():
-    """The scores' bias trained while their weight is frozen."""
-    rng = np.random.default_rng(5)
-    frames = torch.from_numpy(rng.normal(size=(2, 21, 48)).astype(np.float32))
-    weights = torch.from_numpy(rng.uniform(size=(2, 2, 21)).astype(np.float32))
-    model = _ecapa()
-    model.requires_grad_(False)
-    model.att2.bias.requires_grad_(True)
-    with torch.no_grad():
-        held = model.head(frames, weights)
-    out = model.head(frames, weights)
-    assert out.grad_fn is not None and torch.equal(out.detach(), held)
-    out.sum().backward()
-    assert model.att2.bias.grad is not None and model.att2.bias.grad.abs().sum() > 0

@@ -267,32 +267,6 @@ def test_functions_bf16_backward_is_the_plain_autograd():
             assert g.dtype == w.dtype and torch.equal(g, w)
 
 
-def test_prepared_operands_that_require_grad_are_refused():
-    w_hh = torch.randn(2, 32, 8, requires_grad=True)
-    proj = torch.randn(4, 2, 1, 32)
-    with pytest.raises(TypeError, match="require a gradient"):
-        lstm_sweep.lstm_sweep_tm(proj, lstm_sweep.pack_w_hh(w_hh, torch.float32))
-    with torch.no_grad():  # made as held operands are: accepted
-        packed = lstm_sweep.pack_w_hh(w_hh, torch.float32)
-    assert torch.equal(lstm_sweep.lstm_sweep_tm(proj, packed), lstm_sweep.lstm_sweep_tm(proj, w_hh.detach()))
-    w, b = torch.randn(16, 24, requires_grad=True), torch.randn(24)
-    x, weights = torch.randn(2, 9, 16), torch.rand(2, 3, 9)
-    with pytest.raises(TypeError, match="StatsOperands"):
-        linear_stats.fused_linear_stats(x, linear_stats.prepare_stats_operands(w, b, b, b, x.dtype), weights=weights)
-    with pytest.raises(TypeError, match="AttnOperands"):
-        attn_stats.fused_attentive_stats(torch.randn(2, 9, 24), torch.randn(2, 9, 16),
-                                         attn_stats.prepare_attn_operands(w, b), weights=weights)
-    params = [torch.from_numpy(p) for p in _res2_params(np.random.default_rng(0), 32, 4)]
-    params[0].requires_grad_(True)
-    xr = torch.randn(1, 12, 32)
-    with pytest.raises(TypeError, match="Res2Operands"):
-        se_res2.fused_se_res2_block(xr, se_res2.kernel_operands(params, xr.dtype), 2)
-    with pytest.raises(TypeError, match="diagnostic"):
-        se_res2.se_res2_staged(xr, params, 2, 1)
-    with torch.no_grad():
-        assert se_res2.se_res2_staged(xr, params, 2, 1).shape == xr.shape
-
-
 # ----------------------------------------------------------------------- #
 # F1: every SE-Res2Block parameter gets its gradient
 

@@ -1,15 +1,15 @@
-"""The spans and the device event inside the step's embedding phase
-(``diart_tpu_torch.tracing``, ``MultiStreamEngine._embed``) on the CPU.
+"""The hop's span tree and the device event inside the step's embedding
+phase (``diart_tpu_torch.tracing``, ``MultiStreamEngine._embed``) on the
+CPU.
 
-Inside ``step.embedding``, ``embedding.trunk`` and ``embedding.head`` are
-kept in ``Record.inner``, nested under it, in order, for every embedding
-family the engine serves (ResNet34 through the kaldi frame ring, ECAPA
-through the speechbrain ring, the SincNet x-vector from the waveform). Off,
-nothing records and no timing event is made. On a card the step records a
-fifth event where the trunk returns, read as ``DevicePhases.trunk_ms``; the
-CPU has no events, so stand-in events hold the bookkeeping and the event's
-place in the step, and ``DevicePhases`` still builds from the four phase
-boundaries alone.
+For every embedding family the engine serves (ResNet34 through the kaldi
+frame ring, ECAPA through the speechbrain ring, the SincNet x-vector from
+the waveform) a hop records the step's three phases under the dispatch and
+nothing inside a phase. Off, nothing records and no timing event is made.
+On a card the step records a fifth event where the trunk returns, read as
+``DevicePhases.trunk_ms``; the CPU has no events, so stand-in events hold
+the bookkeeping and the event's place in the step, and ``DevicePhases``
+still builds from the four phase boundaries alone.
 """
 
 import numpy as np
@@ -28,7 +28,6 @@ FAMILIES = {
 ENGINE_KW = dict(duration=0.5, step=0.25, latency=0.5, sample_rate=16000, max_speakers=4)
 TAU = 0.45
 BATCH, STEP_SAMPLES = 2, 4000
-INNER = ["embedding.trunk", "embedding.head"]
 
 
 @pytest.fixture(autouse=True)
@@ -61,27 +60,6 @@ def _primed(engine):
     return session
 
 
-@pytest.mark.parametrize("name", sorted(FAMILIES))
-def test_trunk_and_head_nest_under_the_embedding(segmentation, name):
-    engine = _engine(segmentation, name)
-    assert (engine._fring is not None) == (name != "tpu/xvector")
-    session = _primed(engine)
-    with tracing.recording() as record:
-        texts = session.push_rttm(_blocks(2, 1)[0])
-    assert all(isinstance(t, str) for t in texts)
-    # the phase tree the readers take is as it was
-    assert [s.name for s in record.spans] == ["step.segmentation", "step.embedding", "step.clustering",
-                                              "session.dispatch", "session.wait_card", "session.assemble"]
-    assert [s.name for s in record.inner] == INNER
-    embedding = next(s for s in record.spans if s.name == "step.embedding")
-    trunk, head = record.inner
-    for s in record.inner:
-        assert s.parent == embedding.id and s.hop == embedding.hop and s.thread == embedding.thread
-        assert embedding.start <= s.start <= s.end <= embedding.end and s.shard is None
-    assert trunk.end <= head.start
-    assert len({s.id for s in record.spans + record.inner}) == 8
-
-
 def test_off_records_nothing_and_makes_no_event(segmentation, monkeypatch):
     made = []
     monkeypatch.setattr(torch.cuda, "Event", lambda *a, **k: made.append(1))
@@ -90,7 +68,6 @@ def test_off_records_nothing_and_makes_no_event(segmentation, monkeypatch):
         pending = session.push_begin(block)
         assert pending.hop is None
         session.push_finish_rttm(pending)
-    assert tracing.span("embedding.trunk", inner=True) is tracing.NOOP
     assert tracing.device_marks(torch.device("cuda")) is tracing.NO_MARKS
     tracing.NO_MARKS.mark_trunk()
     assert made == []
@@ -159,3 +136,28 @@ def test_step_records_the_trunk_event_inside_the_embedding(segmentation, ordered
     # events in order: start, after segmentation, trunk, after embedding, end
     assert phases.segmentation_ms == 10.0 and phases.trunk_ms == 10.0
     assert phases.embedding_ms == 20.0 and phases.clustering_ms == 10.0
+
+
+@pytest.mark.parametrize("name", sorted(FAMILIES))
+def test_hop_records_the_phase_tree_and_one_trunk_event(segmentation, ordered_events, monkeypatch, name):
+    """A hop of each family on the tree the readers take: the step's three
+    phases under the dispatch, then the harvest's two spans, nothing
+    recorded inside a phase; with stand-in events, one trunk event read."""
+    engine = _engine(segmentation, name)
+    assert (engine._fring is not None) == (name != "tpu/xvector")
+    session = _primed(engine)
+    marks = tracing.device_marks
+    monkeypatch.setattr(tracing, "device_marks", lambda device, shard=None: marks(torch.device("cuda", 0), shard))
+    with tracing.recording() as record:
+        texts = session.push_rttm(_blocks(2, 1)[0])
+    assert all(isinstance(t, str) for t in texts)
+    assert [s.name for s in record.spans] == ["step.segmentation", "step.embedding", "step.clustering",
+                                              "session.dispatch", "session.wait_card", "session.assemble"]
+    dispatch = record.spans[3]
+    phases = record.spans[:3]
+    assert all(s.parent == dispatch.id and s.hop == dispatch.hop and s.shard is None for s in phases)
+    assert not any(s.parent in {p.id for p in phases} for s in record.spans)
+    assert len({s.id for s in record.spans}) == 6
+    (hop,) = record.phases
+    assert hop.hop == dispatch.hop and hop.trunk_ms is not None
+    assert len(_Ordered.log) == 5  # the four phase boundaries and the trunk's return
