@@ -38,7 +38,12 @@ Phases (any failure exits non-zero):
    (``sinc_frontend``) at 5 s windows, B = 64 and 256, one bank and the
    stacked pair, with ``bf16_frontend`` on and off, beside cuDNN's
    true-f32 convolution plus ``frontend_pool`` and the bounds, and over
-   other batches and lengths; ResNet34's trunk convolutions
+   other batches and lengths; SincNet's second and third stages
+   (``sinc_stages``, f32 and bf16 products) at B = 1, 7, 64 and 256 and two
+   lengths whose pools drop frames against the plain composition, bitwise
+   over two calls and across torch's TF32 switches, the stacked frontend's
+   halves bitwise their copies, timed A B B A against the composition
+   beside cuDNN's two convolutions and the bound; ResNet34's trunk convolutions
    (``resnet_conv``, bf16) at every distinct geometry of the trunk at
    B = 256 against the plain version (within the summation order's room,
    at most 0.1% of the outputs differing at all), timed beside cuDNN's
@@ -974,6 +979,186 @@ def check_sinc(dtype, gen):
     return main
 
 
+# SincNet's second and third stages (``ops/sinc_stages.py``, ``csrc/
+# sinc_stages.cu``) against the plain version (cuDNN's true-f32 or bf16
+# convolutions and PyTorch's norms) on the card. f32: the kernels' products
+# are 3xTF32 and their sums run in another order than cuDNN's; the two
+# convolutions' outputs agree to a few f32 roundings of their magnitudes, and
+# the norms carry that through: STAGES_TOL of the output's largest magnitude
+# (one TF32 product alone, the same work without the split, misses it by
+# two orders). bf16: both round each convolution's output to bf16, and a
+# last-bit difference of the f32 sum flips such a rounding now and then: one
+# bf16 step (at most 2^-7 of the value), which norm3 scales by up to |y| /
+# std, a few of the output's own magnitude.
+STAGES_TOL = {"f32": 5e-5, "bf16": 2.0**-5}
+# (B, samples): the pipelines' B=1, a batch of no whole wave of tiles,
+# chip_smoke's B=64 and the benchmark's B=256 at 5 s windows, and lengths whose
+# pools drop frames at both stages (2 and 1 s plus a few samples)
+STAGES_CASES = ((1, 80000), (7, 80000), (64, 80000), (256, 80000), (7, 32611), (64, 16871))
+STAGES_TIMED = (64, 256)  # A B B A at 5 s windows
+
+
+def stages_case(batch, samples, gen, stacked=False):
+    """A SincNet on the card with its norms moved off identity, and the
+    first stage's pooled output of a standardized waveform (under
+    ``bf16_frontend``, as every configuration runs it): (B, 80, P1) f32, or
+    with ``stacked`` the engine's stacked pair's (B, 160, P1), whose halves
+    are views a stream apart of 160 rows."""
+    import torch
+    from diart_tpu_torch import precision
+    from diart_tpu_torch.models.sincnet import SincNet
+    from diart_tpu_torch.ops import sinc_frontend as sf
+
+    net = SincNet().cuda()
+    with torch.no_grad():
+        for name in ("norm1", "norm2", "norm3"):
+            getattr(net, f"{name}_scale").copy_(1 + 0.1 * torch.randn(getattr(net, f"{name}_scale").shape,
+                                                                     generator=gen, device="cuda"))
+            getattr(net, f"{name}_bias").copy_(0.1 * torch.randn(getattr(net, f"{name}_bias").shape,
+                                                                 generator=gen, device="cuda"))
+    x, ops = sinc_case(batch, samples, 160 if stacked else 80, gen)
+    with precision.use(precision.Precision(bf16_frontend=True), force=True), torch.no_grad():
+        pooled = sf.sinc_frontend(x, None, sf.STRIDE, operands=ops)
+    return net, pooled
+
+
+def stages_args(net, dtype):
+    """(norms, convs, operands) of ``net`` for products in ``dtype``."""
+    from diart_tpu_torch.ops import sinc_stages as ss
+
+    norms = tuple(getattr(net, f"norm{i}_{k}") for i in (1, 2, 3) for k in ("scale", "bias"))
+    convs = (net.conv2.weight, net.conv2.bias, net.conv3.weight, net.conv3.bias)
+    return norms, convs, ss.prepare_stage_operands(*convs, dtype)
+
+
+def stages_least_ms(batch, p1, kind):
+    """The bound of a launch set with ``kind``'s products (f32: three TF32
+    products at 495 TFLOP/s; bf16: one at 989) or the pooled input read and
+    the output written once, and the bound of the same work as f32 FMAs:
+    ((ms, by), (ms, by)), and the products' flops."""
+    from diart_tpu_torch.ops import sinc_stages as ss
+
+    p2, p3 = ss.frames(p1)
+    flops = batch * (2.0 * 80 * 60 * 5 * (p1 - 4) + 2.0 * 60 * 60 * 5 * (p2 - 4))
+    nbytes = 4.0 * batch * (80 * p1 + 60 * p3)
+    least, fma = tf32_bounds(nbytes, flops)
+    if kind == "bf16":
+        least = bound_ms(nbytes, flops, "bf16")
+    return (least, fma), flops
+
+
+def check_sinc_stages(dtype, gen):
+    """SincNet's second and third stages (``sinc_stages``) at STAGES_CASES
+    in ``dtype`` products: against the plain version within STAGES_TOL of
+    the output's scale, bitwise over two calls and with torch's TF32
+    switches flipped, the stacked frontend's half (a view a stream apart of
+    160 rows) bitwise the same rows copied out; one launch set a call. At
+    STAGES_TIMED, CUDA events A B B A: the kernels against the plain
+    composition, and cuDNN's two convolutions alone (``library_ms``) beside
+    the bound; each kernel's device time. In f32 also ptxas' report of the
+    kernels (no spill or stack frame) and the HGMMA forms of their SASS."""
+    import torch
+    import torch.nn.functional as F
+    from diart_tpu_torch.ops import _build, _numerics
+    from diart_tpu_torch.ops import sinc_stages as ss
+
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    rec, failures = {}, []
+    for batch, samples in STAGES_CASES:
+        net, pooled = stages_case(batch, samples, gen)
+        norms, convs, ops = stages_args(net, dtype)
+        p1 = pooled.shape[2]
+        run = lambda: ss.sinc_stages(pooled, norms, None, None, None, None, dtype, operands=ops)
+        plain = lambda: ss.sinc_stages_reference(pooled, norms, *convs, dtype)
+        with torch.no_grad():
+            before = ss.sinc_stages.launches
+            got = run()
+            want = plain()
+            torch.cuda.synchronize()
+            launched = ss.sinc_stages.launches - before
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            tol = STAGES_TOL[kind] * scale
+            same = torch.equal(got, run())
+            prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+            flipped = torch.equal(got, run())
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+        plan = ss.launch_plan(batch, p1, _build.num_sms(pooled.device))
+        tag = f"B{batch}_P{p1}"
+        log(f"sinc_stages[{kind}] pooled ({batch}, 80, {p1}) -> {tuple(got.shape)}: max_abs_err={err:.3e} (tol "
+            f"{tol:.3e} = {STAGES_TOL[kind]:g} x max|ref| {scale:.3f}) bitwise over two calls {same}, with TF32 on "
+            f"{flipped}; launch sets {launched}; plan {plan}")
+        ok = err <= tol and same and flipped and launched == 1 and got.shape == want.shape
+        r = dict(max_abs_err=err, tol=tol, scale=scale, repeat=same, tf32_flipped=flipped, plan=plan)
+        if batch in STAGES_TIMED and samples == 80000:
+            with torch.no_grad():
+                x2 = torch.randn(batch, 80, p1, device="cuda", generator=gen).to(dtype)
+                x3 = torch.randn(batch, 60, plan["p2"], device="cuda", generator=gen).to(dtype)
+                w2, b2, w3, b3 = (t.detach().to(dtype) for t in convs)
+
+                def library():
+                    with _numerics.conv_scope(x2.device, dtype):
+                        F.conv1d(x2, w2, b2)
+                        F.conv1d(x3, w3, b3)
+
+                a_ms, b_ms = abba(lambda: time_ms(plain, 10), lambda: time_ms(run, 20))
+                library_ms = time_ms(library, 10)
+                device = device_times(run, "sinc_stages")
+            ((bms, by), (fma_ms, fma_by)), flops = stages_least_ms(batch, p1, kind)
+            peak = "the f32 product peak 165" if kind == "f32" else "the bf16 product peak 989"
+            log(f"  sinc_stages[{kind}] B={batch} A B B A (A: the plain composition, B: the kernels), ms: "
+                f"{a_ms[0]:.4f} {b_ms[0]:.4f} {b_ms[1]:.4f} {a_ms[1]:.4f}; library_ms={library_ms:.4f} (cuDNN's two "
+                f"convolutions alone) bound_ms={bms:.4f} ({by}, {peak} TFLOP/s) "
+                f"fma_bound_ms={fma_ms:.4f} ({fma_by}); {flops / min(b_ms) / 1e9:.1f} TFLOP/s; device "
+                + ", ".join(f"{n} {ms:.4f} ms x{c:g}" for n, ms, c in device))
+            r.update(ms_turns=b_ms, plain_ms_turns=a_ms, ms=float(np.mean(b_ms)), plain_ms=float(np.mean(a_ms)),
+                     library_ms=library_ms, bound_ms=bms, bound_by=by, bound_ms_f32_fma=fma_ms,
+                     device=[list(d) for d in device])
+            if not all(n.startswith("sinc_stage") for n, _, _ in device):
+                failures.append(f"{tag}: device kernels {device}")
+            del x2, x3
+        if not ok:
+            failures.append(f"{tag}: err {err} / {tol}, repeat {same}, tf32 {flipped}, launches {launched}")
+        rec[tag] = r
+        del net, pooled, got, want
+    # the stacked frontend's halves: views a stream apart of 160 rows
+    for batch in (7, 64):
+        net, pooled = stages_case(batch, 80000, gen, stacked=True)
+        norms, _, ops = stages_args(net, dtype)
+        with torch.no_grad():
+            halves = [pooled[:, :80], pooled[:, 80:]]
+            got = [ss.sinc_stages(h, norms, None, None, None, None, dtype, operands=ops) for h in halves]
+            copied = [ss.sinc_stages(h.contiguous(), norms, None, None, None, None, dtype, operands=ops)
+                      for h in halves]
+        same = all(torch.equal(a, b) for a, b in zip(got, copied))
+        log(f"  sinc_stages[{kind}] the stacked pair's halves at B={batch}: bitwise their copies {same}")
+        if not same:
+            failures.append(f"stacked halves at B={batch}")
+        rec[f"stacked_B{batch}"] = dict(bitwise=same)
+        del net, pooled, got, copied
+    main = dict(rec["B64_P2658"], at_b256=rec["B256_P2658"], cases=rec)
+    if kind == "f32":
+        recs = [r for r in ptxas_entries(BUILD_LOGS.get("sinc_stages", "")) if "sinc_stage" in r["entry"]]
+        for r in recs:
+            log(f"  [sinc_stages] {r['entry']}: {r.get('registers')} registers, {r.get('smem')} bytes smem, "
+                f"stack frame {r.get('stack_frame')} bytes, spill stores {r.get('spill_stores')} / loads "
+                f"{r.get('spill_loads')}")
+        if len(recs) < 5 or any(r.get("spill_stores") or r.get("spill_loads") or r.get("stack_frame") for r in recs):
+            failures.append(f"ptxas: fewer than the 5 entries, or a spill or stack frame: {recs}")
+        tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+        text = subprocess.run([tool, "--dump-sass", str(_build.BUILD_DIR / "libsinc_stages.so")],
+                              capture_output=True, text=True, timeout=120).stdout
+        forms = sorted(set(re.findall(r"\bH[G]?MMA\.[\w.]+", text)))
+        log(f"  [sinc_stages] SASS: {len(re.findall(r'HGMMA', text))} HGMMA instructions, forms {forms}")
+        if not forms or not all(f.startswith("HGMMA") and "TF32" in f for f in forms):
+            failures.append(f"SASS: the products must be TF32 HGMMA (wgmma): {forms}")
+        main.update(ptxas=recs, mma_forms=forms)
+    if failures:
+        raise AssertionError(f"sinc_stages[{kind}]: " + "; ".join(failures))
+    return main
+
+
 # ResNet34's trunk convolutions (``ops/resnet_conv.py``, ``csrc/
 # resnet_conv.cu``) at the benchmark's B = 256 and 5 s windows (498 kaldi
 # frames x 80 mels), published widths: each distinct geometry of the trunk
@@ -1555,7 +1740,7 @@ def build_engine(device, batch, emb="xvector", seg_dtype="f32", emb_dtype="bf16"
 
 def launch_counters() -> dict:
     """Each kernel's wrapper, which counts its launches."""
-    from diart_tpu_torch.ops import attn_stats, linear_stats, lstm_sweep, resnet_conv, se_res2
+    from diart_tpu_torch.ops import attn_stats, linear_stats, lstm_sweep, resnet_conv, se_res2, sinc_stages
 
     return {
         "lstm_sweep": lstm_sweep.lstm_sweep_tm,
@@ -1565,15 +1750,17 @@ def launch_counters() -> dict:
         "se_res2": se_res2.fused_se_res2_block,
         "se_res2_staged": se_res2.se_res2_staged,
         "resnet_conv": resnet_conv.resnet_conv,
+        "sinc_stages": sinc_stages.sinc_stages,
     }
 
 
 def path_launches(kind, lstm_layers: int) -> dict:
     """Each counted kernel's launches in one step or pipeline call of the
-    path ``kind`` (``xvector``, ``ecapa`` or ``vad``)."""
+    path ``kind`` (``xvector``, ``ecapa`` or ``vad``): SincNet's stages once
+    a SincNet (the segmentation's, and the x-vector's)."""
     return {"lstm_sweep": lstm_layers, "lstm_sweep_bwd": 0, "linear_stats": int(kind == "xvector"),
             "attn_stats": int(kind == "ecapa"), "se_res2": 3 * int(kind == "ecapa"),
-            "se_res2_staged": 0, "resnet_conv": 0}
+            "se_res2_staged": 0, "resnet_conv": 0, "sinc_stages": 1 + int(kind == "xvector")}
 
 
 def device_summary(prof, steps: int, top: int = 12) -> dict:
@@ -3086,10 +3273,11 @@ def family_launches(family) -> dict:
     the 4-layer PyanNet's sweeps, and the embedding's statistics kernel
     (TitaNet: attention statistics; XVector-SB and the x-vector beside the
     powerset model: the fused stats head; ResNet34: its 36 convolutions, each
-    one launch of ``resnet_conv``)."""
+    one launch of ``resnet_conv``), and SincNet's stages once a SincNet (the
+    segmentation's, and the x-vector's beside the powerset model)."""
     return {"lstm_sweep": 4, "lstm_sweep_bwd": 0, "linear_stats": int(family in ("xvect-sb", "powerset")),
             "attn_stats": int(family == "titanet"), "se_res2": 0, "se_res2_staged": 0,
-            "resnet_conv": 36 * int(family == "resnet34")}
+            "resnet_conv": 36 * int(family == "resnet34"), "sinc_stages": 1 + int(family == "powerset")}
 
 
 def drive_family(family, native, audio):
@@ -3335,14 +3523,14 @@ KERNEL_GRAD_TOL = {"f32": 1e-5, "bf16": 1e-2}
 CPU_LOSS_TOL, CPU_GRAD_TOL = 1e-4, 5e-2
 # each counted kernel's launches in one training step: the forwards, and
 # the sweep's backward kernel (one a layer); the other kernels' backwards
-# are their plain versions' autograd
+# are their plain versions' autograd (SincNet's stages: once a SincNet)
 TRAIN_LAUNCHES = {
     "seg": dict(lstm_sweep=4, lstm_sweep_bwd=4, linear_stats=0, attn_stats=0, se_res2=0, se_res2_staged=0,
-                resnet_conv=0),
+                resnet_conv=0, sinc_stages=1),
     "xvector": dict(lstm_sweep=0, lstm_sweep_bwd=0, linear_stats=1, attn_stats=0, se_res2=0, se_res2_staged=0,
-                    resnet_conv=0),
+                    resnet_conv=0, sinc_stages=1),
     "ecapa": dict(lstm_sweep=0, lstm_sweep_bwd=0, linear_stats=0, attn_stats=1, se_res2=3, se_res2_staged=0,
-                  resnet_conv=0),
+                  resnet_conv=0, sinc_stages=0),
 }
 TUNE_SECONDS = (10, 13, 16, 20)  # the tuning corpus, one file each
 TUNE_TRIALS = 3
@@ -4469,10 +4657,12 @@ INT8_FAMILIES = ("xvector", "ecapa", "resnet34", "titanet", "xvect-sb")
 # QuantizableConv sites outside the fused kernels (ECAPA's SE-Res2Blocks and
 # the x-vector families' last TDNN run in se_res2 / linear_stats)
 INT8_SITES = {"xvector": 4, "ecapa": 2, "resnet34": 35, "titanet": 14, "xvect-sb": 4}
-INT8_OTHER_LAUNCHES = {  # the other kernels' launches a step beside tpu/pyannet's 4 sweeps
-    "xvector": dict(linear_stats=1), "ecapa": dict(attn_stats=1, se_res2=3),
-    "resnet34": dict(resnet_conv=0),  # the int8 trunk keeps int8_conv: no channels-last launch
-    "titanet": dict(attn_stats=1), "xvect-sb": dict(linear_stats=1)}
+# the other kernels' launches a step beside tpu/pyannet's 4 sweeps (SincNet's
+# stages: the segmentation's, and the x-vector's)
+INT8_OTHER_LAUNCHES = {
+    "xvector": dict(linear_stats=1, sinc_stages=2), "ecapa": dict(attn_stats=1, se_res2=3, sinc_stages=1),
+    "resnet34": dict(resnet_conv=0, sinc_stages=1),  # the int8 trunk keeps int8_conv: no channels-last launch
+    "titanet": dict(attn_stats=1, sinc_stages=1), "xvect-sb": dict(linear_stats=1, sinc_stages=1)}
 INT8_HOPS = 12
 INT8_COS = 0.999  # tests/test_quant.py's embedding fidelity bound
 INT8_CPU_TOL = 1e-4
@@ -5285,7 +5475,7 @@ JAX_FILES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "g
 JAX_FILES_TOL = 1e-4
 # each committed model file -> the kernels its forward launches on the card
 JAX_FILE_KERNELS = {
-    "pyannet.msgpack": ("lstm_sweep",), "xvector.npz": ("linear_stats",),
+    "pyannet.msgpack": ("lstm_sweep", "sinc_stages"), "xvector.npz": ("linear_stats", "sinc_stages"),
     "ecapa.msgpack": ("attn_stats", "se_res2"), "titanet.msgpack": ("attn_stats",),
     "xvect_sb.msgpack": ("linear_stats",), "resnet34.msgpack": (),
 }
@@ -5370,7 +5560,7 @@ def jax_file_session(stored) -> dict:
         f"RTTM text {'equal' if same_text else 'DIFFERENT'}, launches {launches}")
     if not (err <= tol and same_text):
         raise AssertionError("jax_files[session]: the resumed session is not diart_tpu's")
-    require_launches("jax_files[session]", launches, ("lstm_sweep", "linear_stats"))
+    require_launches("jax_files[session]", launches, ("lstm_sweep", "linear_stats", "sinc_stages"))
     return dict(max_abs_err=err, tol=tol, hops=len(texts), launches=launches)
 
 
@@ -5404,7 +5594,7 @@ def jax_file_training(stored) -> dict:
         f"(bound {bound:.1e}), loss {float(loss):.5f}, launches {launches}")
     if not err <= bound:
         raise AssertionError(f"jax_files[training]: {err} > {bound}")
-    require_launches("jax_files[training]", launches, ("lstm_sweep", "lstm_sweep_bwd"))
+    require_launches("jax_files[training]", launches, ("lstm_sweep", "lstm_sweep_bwd", "sinc_stages"))
     return dict(max_abs_param_err=err, bound=bound, launches=launches)
 
 
@@ -5673,12 +5863,13 @@ ENV_CASES = {
     "bf16_lstm": ("DIART_TPU_BF16_LSTM", "0", "xvector", dict(bf16_lstm=False)),
     "pallas_lstm": ("DIART_TPU_PALLAS_LSTM", "0", "xvector", {}),
 }
-# each case's kernels a step (the 4-layer PyanNet's sweeps included)
+# each case's kernels a step (the 4-layer PyanNet's sweeps and SincNet's
+# stages included)
 ENV_CASE_LAUNCHES = {
-    "int8_trunk": {"lstm_sweep": 4, "linear_stats": 1},
-    "fbank_ring": {"lstm_sweep": 4, "attn_stats": 1, "se_res2": 3},
-    "bf16_lstm": {"lstm_sweep": 4, "linear_stats": 1},
-    "pallas_lstm": {"lstm_sweep": 4, "linear_stats": 1},
+    "int8_trunk": {"lstm_sweep": 4, "linear_stats": 1, "sinc_stages": 2},
+    "fbank_ring": {"lstm_sweep": 4, "attn_stats": 1, "se_res2": 3, "sinc_stages": 1},
+    "bf16_lstm": {"lstm_sweep": 4, "linear_stats": 1, "sinc_stages": 2},
+    "pallas_lstm": {"lstm_sweep": 4, "linear_stats": 1, "sinc_stages": 2},
 }
 # log_mel_filterbank on the card against the CPU, both in true f32: only the
 # order of the f32 sums differs. An f32 DFT's error in a bin is relative to
@@ -5763,7 +5954,7 @@ def lazy_models(audio) -> dict:
     eager = surface_run(MultiStreamEngine(*loaded, **step_kwargs()), audio)
     launches = lazy["launches"]
     bitwise = same_run(lazy, eager)
-    want = {"lstm_sweep": 4 * SURFACE_HOPS, "linear_stats": SURFACE_HOPS}
+    want = {"lstm_sweep": 4 * SURFACE_HOPS, "linear_stats": SURFACE_HOPS, "sinc_stages": 2 * SURFACE_HOPS}
     log(f"surface[lazy]: from_pretrained in memory {in_memory}, {placed} bytes placed before first use; "
         f"the engine of the lazy models over {SURFACE_HOPS} hops x {B} streams "
         f"{'bitwise' if bitwise else 'NOT bitwise'} the loaded models' engine; launches {launches}")
@@ -6011,7 +6202,7 @@ SWEEP_BWD_KEYS = ("device_ms", "backward_ms", "backward_launches", "backward_bou
                   "backward_ms_column_turns", "products_ms", "max_clusters")
 
 
-KERNEL_CHECKS = ("lstm", "stats", "attn", "res2", "sinc", "resnet")  # phase 2's checks, in the order they run
+KERNEL_CHECKS = ("lstm", "stats", "attn", "res2", "sinc", "sinc_stages", "resnet")  # phase 2's checks, in the order they run
 
 
 def run_kernel_checks(names):
@@ -6025,7 +6216,8 @@ def run_kernel_checks(names):
     bf16_f32 = (("bf16", torch.bfloat16), ("f32", torch.float32))
     checks = dict(lstm=(check_lstm, gen, reversed(bf16_f32)), stats=(check_stats, cgen, bf16_f32),
                   attn=(check_attn, cgen, bf16_f32), res2=(check_res2, gen, bf16_f32),
-                  sinc=(check_sinc, cgen, bf16_f32), resnet=(check_resnet, cgen, bf16_f32[:1]))
+                  sinc=(check_sinc, cgen, bf16_f32), sinc_stages=(check_sinc_stages, cgen, bf16_f32),
+                  resnet=(check_resnet, cgen, bf16_f32[:1]))
     out = {}
     for name in KERNEL_CHECKS:
         if name in names:
@@ -6234,12 +6426,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     checked = run_kernel_checks(KERNEL_CHECKS)
-    lstm, stats, attn, res2, sinc, resnet = (checked[k] for k in KERNEL_CHECKS)
+    lstm, stats, attn, res2, sinc, stages, resnet = (checked[k] for k in KERNEL_CHECKS)
     int8 = check_int8()
     f32_steps = drive_f32_steps()
     log(f"kernel checks in {time.perf_counter() - t0:.1f} s")
     result = dict(gpu=smi, tf32_default=tf32, lstm=lstm, stats=stats, attn=attn, res2=res2, sinc=sinc,
-                  resnet=resnet, f32_steps=f32_steps)
+                  sinc_stages=stages, resnet=resnet, f32_steps=f32_steps)
 
     runs, probes = {}, {}
     for emb in ("xvector", "ecapa"):
@@ -6394,6 +6586,17 @@ def main() -> int:
              replaces="diart_tpu/models/sincnet.py:138 and :212 (XLA's convolution and frontend_pool)",
              **{k: sinc["bf16"][k] for k in KEYS}, ms_f32=sinc["f32"]["ms"],
              at_b256={k: sinc["bf16"]["at_b256"][k] for k in KEYS}, ptxas=sinc["f32"]["ptxas"]),
+        dict(name="sinc_stages", route="cuda", source="diart_tpu_torch/csrc/sinc_stages.cu",
+             replaces="diart_tpu/models/sincnet.py:301-320 (XLA's k=5 convolutions, the instance norms, leaky ReLUs "
+                      "and max-pools)",
+             launches=ec["sinc_stages"], launches_xvector_path=xv["sinc_stages"],
+             launches_session_paths=on_session("sinc_stages"), launches_pipeline_paths=on_pipeline("sinc_stages"),
+             launches_runtime_paths=on_runtime("sinc_stages"), launches_family_paths=on_family("sinc_stages"),
+             launches_training_steps=on_training("sinc_stages"),
+             launches_jax_files_paths=on_jax_files("sinc_stages"), launches_surface_paths=on_surface("sinc_stages"),
+             **{k: stages["f32"][k] for k in KEYS}, at_b256={k: stages["f32"]["at_b256"][k] for k in KEYS},
+             bf16={k: stages["bf16"][k] for k in KEYS},
+             bf16_at_b256={k: stages["bf16"]["at_b256"][k] for k in KEYS}, ptxas=stages["f32"]["ptxas"]),
         dict(name="resnet_conv", route="cuda", source="diart_tpu_torch/csrc/resnet_conv.cu",
              replaces="diart_tpu/models/resnet.py (XLA's conv_general_dilated, the batch norms, ReLU and the adds)",
              launches_family_paths=on_family("resnet_conv"),

@@ -19,13 +19,16 @@ the argument is ~3e-5 rad, so filter taps agree with the JAX synthesis to
 The first stage (sinc convolution, |.|, max-pool(3) and the bf16 storage
 of ``bf16_frontend``) is one call of ``ops/sinc_frontend.py``: on a card
 one hand-written kernel that writes only the pooled result, on the CPU
-``frontend_pool`` of the convolution below. ``SincNet`` holds the
-filterbank's operands for that kernel once per version of the cutoffs.
+``frontend_pool`` of the convolution below. The second and third stages
+(the norms, leaky ReLUs, k=5 convolutions and pools after it) are one call
+of ``ops/sinc_stages.py``: on a card three hand-written kernel launches
+with f32-accurate (3xTF32) products at ``compute_dtype=float32``, on the
+CPU the composition. ``SincNet`` holds each call's operands once per
+version of their parameters.
 
-Every convolution computed in f32 (the sinc filterbank always, the k=5
-ones at ``compute_dtype=float32``) runs in true f32 on the card, whatever
-torch's TF32 switches say (``ops/_numerics.py``), as JAX's does off the
-TPU.
+The sinc filterbank's convolution (always) and, on the CPU, the k=5 ones at
+``compute_dtype=float32`` run in true f32 whatever torch's TF32 switches
+say (``ops/_numerics.py``), as JAX's do off the TPU.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from torch import nn
 from .. import precision
 from ..ops import _numerics
 from ..ops.sinc_frontend import prepare_sinc_operands, sinc_frontend
+from ..ops.sinc_stages import instance_norm, prepare_stage_operands, sinc_stages
 from .common import held_operands
 
 __all__ = [
@@ -122,15 +126,6 @@ def frontend_pool(y: torch.Tensor) -> torch.Tensor:
     return F.max_pool1d(y.abs(), 3).float()
 
 
-def _instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps=1e-5):
-    """InstanceNorm1d(affine) with the biased variance, as ``jnp.var``.
-    x: (batch, channels, time)."""
-    mean = x.mean(dim=-1, keepdim=True)
-    var = x.var(dim=-1, keepdim=True, correction=0)
-    xn = (x - mean) * torch.rsqrt(var + eps)
-    return xn * scale[None, :, None] + bias[None, :, None]
-
-
 class SincConv(nn.Module):
     """Conv1d whose kernels are parameterized band-pass sinc filters
     (asteroid-filterbanks' ParamSincFB conventions)."""
@@ -199,26 +194,21 @@ class SincNet(nn.Module):
         (``parallel/engine.py``); the waveform, its norm and the sinc
         convolution are then skipped."""
         if pooled is None:
-            x = _instance_norm(waveform.float(), self.wav_norm_scale, self.wav_norm_bias)
+            x = instance_norm(waveform.float(), self.wav_norm_scale, self.wav_norm_bias)
             # the filterbank's operands, made once per version of the cutoffs
             # and held, or the raw filters in a call that trains them
             ops = held_operands(self, "sinc_frontend", (self.sinc.low_hz, self.sinc.band_hz),
                                 lambda: prepare_sinc_operands(self.sinc.filters()))
             pooled = sinc_frontend(x, self.sinc.filters() if ops is None else None, self.sinc.stride,
                                    operands=ops)
-        x = pooled
-        x = F.leaky_relu(_instance_norm(x, self.norm1_scale, self.norm1_bias), 0.01)
+        norms = (self.norm1_scale, self.norm1_bias, self.norm2_scale, self.norm2_bias,
+                 self.norm3_scale, self.norm3_bias)
+        convs = (self.conv2.weight, self.conv2.bias, self.conv3.weight, self.conv3.bias)
         cd = self.compute_dtype
-        for i in (2, 3):
-            conv = getattr(self, f"conv{i}")
-            with _numerics.conv_scope(x.device, cd):
-                x = F.conv1d(x.to(cd), conv.weight.to(cd), conv.bias.to(cd)).float()
-            x = F.max_pool1d(x, 3)
-            x = _instance_norm(
-                x, getattr(self, f"norm{i}_scale"), getattr(self, f"norm{i}_bias")
-            )
-            x = F.leaky_relu(x, 0.01)
-        return x
+        # the convolutions laid out for the stages' kernels, made once per
+        # version of their parameters and held, or the raw ones where they train
+        ops = held_operands(self, ("sinc_stages", cd), convs, lambda: prepare_stage_operands(*convs, cd))
+        return sinc_stages(pooled, norms, *(convs if ops is None else (None,) * 4), cd, operands=ops)
 
 
 def num_sincnet_frames(num_samples: int, kernel_size: int = 251, stride: int = 10) -> int:

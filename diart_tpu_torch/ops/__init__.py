@@ -25,6 +25,7 @@ from .se_res2 import (
     se_res2_staged,
 )
 from .sinc_frontend import SincFrontendFunction, SincOperands, prepare_sinc_operands, sinc_frontend_reference
+from .sinc_stages import SincStagesFunction, StageOperands, prepare_stage_operands, sinc_stages_reference
 
 __all__ = [
     "AggregationGeometry",
@@ -37,6 +38,8 @@ __all__ = [
     "SERes2Function",
     "SincFrontendFunction",
     "SincOperands",
+    "SincStagesFunction",
+    "StageOperands",
     "SweepFunction",
     "SweepWeights",
     "aggregate",
@@ -61,6 +64,7 @@ __all__ = [
     "overlapped_speech_penalty",
     "pack_w_hh",
     "prepare_sinc_operands",
+    "prepare_stage_operands",
     "quantize_per_sample",
     "quantize_weight",
     "resample",
@@ -68,4 +72,5 @@ __all__ = [
     "se_res2_stage_reference",
     "se_res2_staged",
     "sinc_frontend_reference",
+    "sinc_stages_reference",
 ]

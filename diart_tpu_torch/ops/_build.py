@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 KERNELS = ("lstm_sweep", "lstm_sweep_bwd", "linear_stats", "attn_stats", "se_res2", "int8_conv",
-           "sinc_frontend", "resnet_conv")
+           "sinc_frontend", "resnet_conv", "sinc_stages")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),

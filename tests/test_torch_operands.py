@@ -1,6 +1,6 @@
 """The one rule that holds a kernel's prepared operands
 (``diart_tpu_torch.models.common.held_operands``) at every site that holds
-some, and the one convention of the seven kernel wrappers that take them
+some, and the one convention of the eight kernel wrappers that take them
 (``operands=``), on the CPU.
 
 A holding case builds a small model, runs the site's forward and spies on
@@ -37,6 +37,7 @@ from diart_tpu_torch.models.xvect import XVectorFbank
 from diart_tpu_torch.ops import attn_stats, linear_stats, lstm_sweep, quant, se_res2
 from diart_tpu_torch.ops import resnet_conv as rc
 from diart_tpu_torch.ops import sinc_frontend as sf
+from diart_tpu_torch.ops import sinc_stages as ss
 from diart_tpu_torch.ops._grad import wants_grad
 from diart_tpu_torch.parallel import engine as engine_module
 
@@ -186,6 +187,10 @@ CASES = {
     "sincnet.sinc_frontend": Case(
         sincnet, lambda s: _filled(SincNet(), s), lambda m: m(_randn(1, 1, 4000, seed=5, device=_device(m))),
         lambda m: [m.sinc.low_hz, m.sinc.band_hz]),
+    "sincnet.sinc_stages": Case(
+        sincnet, lambda s: _filled(SincNet(), s),
+        lambda m: m(None, pooled=_randn(1, 80, 130, seed=32, device=_device(m)).abs()),
+        lambda m: [m.conv2.weight, m.conv2.bias, m.conv3.weight, m.conv3.bias]),
     "int8_conv.1d": Case(
         common, lambda s: _filled(QuantizableConv(8, 16, 3, dilation=2), s),
         lambda m: m(_randn(2, 8, 30, seed=6, device=_device(m))), lambda m: [m.weight, m.bias], INT8),
@@ -345,12 +350,23 @@ def _int8_refusal():
             lambda: quant.int8_conv(x, w, b.detach()))
 
 
+def _stages_refusal():
+    net = SincNet()
+    norms = tuple(getattr(net, f"norm{i}_{k}").detach() for i in (1, 2, 3) for k in ("scale", "bias"))
+    convs = [t.detach() for t in (net.conv2.weight, net.conv2.bias, net.conv3.weight, net.conv3.bias)]
+    pooled, trained = _randn(1, 80, 130, seed=33).abs(), [convs[0].clone().requires_grad_(), *convs[1:]]
+    return (lambda: ss.sinc_stages(pooled, norms, None, None, None, None, torch.float32,
+                                   operands=ss.prepare_stage_operands(*trained, torch.float32)),
+            lambda: ss.sinc_stages(pooled, norms, *convs, torch.float32))
+
+
 REFUSALS = {
     "lstm_sweep_tm": _lstm_refusal,
     "fused_linear_stats": _stats_refusal,
     "fused_attentive_stats": _attn_refusal,
     "fused_se_res2_block": _se_res2_refusal,
     "sinc_frontend": _sinc_refusal,
+    "sinc_stages": _stages_refusal,
     "resnet_conv": _resnet_refusal,
     "int8_conv": _int8_refusal,
 }
